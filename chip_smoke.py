@@ -6,16 +6,31 @@ Phases (any failure exits non-zero and prints no result):
   1. card name and power limit; build every kernel from xpoint_tpu_torch/csrc
      (one nvcc per source, started together);
   2. K1 (bidirectional selective scan): kernel against its plain version at
-     each flagship stage shape (512^2, B=8), bf16 operands from a seeded
-     generator; max abs error (limit 2e-2: one bf16 ulp at |y| < 4 over
-     fp32-carry sums in both) and times (CUDA events, fresh inputs, median);
-  3. main path: the flagship VMamba XPoint (bf16, port initialisation, seed
-     0) through make_pair_pipeline at 512^2, B=8, on fresh random images;
-     launch counts are zeroed just before and read just after;
+     each flagship serving stage shape (512^2, B=8), bf16 operands from a
+     seeded generator; max abs error (limit 2e-2: one bf16 ulp at |y| < 4
+     over fp32-carry sums in both) and times (CUDA events, fresh inputs,
+     median);
+  3. serving path: the flagship VMamba XPoint (bf16, port initialisation,
+     seed 0) through make_pair_pipeline at 512^2, B=8, on fresh random
+     images; launch counts are zeroed just before and read just after;
   4. K2 (grid box-NMS sweep): kernel keep mask against the plain one on the
      real heatmaps of phase 3 (exact equality), and times;
   5. a small-input reference check: the tiny fp32 model on the card against
      the same model on the CPU (plain versions);
+  6. K1 with checkpoints and K3 (the scan's backward) at the flagship
+     training stage shapes (256^2, B=16): checkpoints against the plain
+     recomputation (limit 1e-4 of max |plain|), K3's outputs against
+     selective_scan_bidir_bwd_plain (bf16 planes 2e-2 of max |plain|: a
+     bf16 ulp; fp32 dA/dD/dbias 1e-3 of max |plain|: sums over L in
+     another order), K3's time, bound and the plain version's time;
+  7. train path: the flagship training config (VMAMBA_TRAIN_CFG: 256^2,
+     B=16, bf16, DropPath 0.2, RegNet + HM loss, hard negatives) from seed
+     0 on a seeded synthetic resident corpus through make_resident_batch_fn
+     and make_train_step; per-step loss, components, skip flag and ms,
+     samples/s, peak memory, K1/K3 launches per step (counts zeroed just
+     before, read just after);
+  8. the tiny fp32 train step (no DropPath, no HM head) on the card against
+     the CPU from the same weights and batch: loss and every gradient;
 then a details JSON line, the per-kernel JSON line, the card line and the
 final JSON line.
 """
@@ -32,6 +47,8 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 FP32_FLOP_PER_S = 67e12        # H100 SXM, fp32 outside the tensor cores
 B, H, W = 8, 512, 512
 N_CALLS = 5
+TRAIN_B, TRAIN_S = 16, 256     # the flagship training batch and crop
+TRAIN_STEPS = 8                # step 1 warms up; ms is the median of 2..n
 
 
 def cuda_ms(fn, inputs):
@@ -56,14 +73,15 @@ def bound(nbytes, nflops):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def scan_operands(g, L, Dim, dev):
+def scan_operands(g, L, Dim, dev, batch=B):
     """bf16 operands at one stage shape; the constants are the flagship's
     initialisation (A = -1, D = 1, dt bias from log-uniform dt)."""
     bf = torch.bfloat16
-    u = (torch.randn(L, B, 2, Dim, generator=g, device=dev) * 0.5).to(bf)
-    dt = (torch.randn(2, L, B, 2, Dim, generator=g, device=dev) * 0.5).to(bf)
-    bc = (torch.randn(2, L, B, 2, generator=g, device=dev) * 0.5).to(bf)
-    cc = (torch.randn(2, L, B, 2, generator=g, device=dev) * 0.5).to(bf)
+    u = (torch.randn(L, batch, 2, Dim, generator=g, device=dev) * 0.5).to(bf)
+    dt = (torch.randn(2, L, batch, 2, Dim, generator=g, device=dev)
+          * 0.5).to(bf)
+    bc = (torch.randn(2, L, batch, 2, generator=g, device=dev) * 0.5).to(bf)
+    cc = (torch.randn(2, L, batch, 2, generator=g, device=dev) * 0.5).to(bf)
     A = -torch.ones(4 * Dim, device=dev)
     D = torch.ones(4 * Dim, device=dev)
     lo, hi = math.log(0.001), math.log(0.1)
@@ -232,6 +250,222 @@ def phase_reference(dev):
     return {"prob_max_abs_err": prob_err, "keypoint_jaccard": jaccard}
 
 
+def _rel_err(a, b):
+    """max |a - b| / max |b| (both as fp32)."""
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+def phase_train_scan(dev, stages, launches_per_stage):
+    """K1 with checkpoints and K3 at the training stage shapes, against
+    their plain versions; times of one launch per stage shape."""
+    from xpoint_tpu_torch.ops.selective_scan_cuda import (
+        selective_scan_bidir, selective_scan_bidir_bwd,
+        selective_scan_bidir_bwd_plain, selective_scan_bidir_plain)
+    g = torch.Generator(device=dev).manual_seed(2)
+    names = ("du", "ddt", "dbc", "dcc", "dA", "dD", "dbias")
+    rows = []
+    tot = {k: 0.0 for k in ("k1_ms", "k1_plain_ms", "k1_bound_ms", "k3_ms",
+                            "k3_plain_ms", "k3_bound_ms")}
+    k1_err = k3_err = 0.0
+    for (L, Dim), n_launch in zip(stages, launches_per_stage):
+        sets = []
+        for _ in range(6):
+            args = scan_operands(g, L, Dim, dev, batch=TRAIN_B)
+            gy = tuple((torch.randn(L, TRAIN_B, 2, Dim, generator=g,
+                                    device=dev) * 0.1).to(torch.bfloat16)
+                       for _ in range(2))
+            sets.append((args, gy))
+        args, (g_f, g_r) = sets[0]
+        out = selective_scan_bidir(*args, emit_ckpt=True)
+        ref = selective_scan_bidir_plain(*args, emit_ckpt=True)
+        bwd = selective_scan_bidir_bwd(*args, *out[2:], g_f, g_r)
+        bwd_ref = selective_scan_bidir_bwd_plain(*args, *ref[2:], g_f, g_r)
+        torch.cuda.synchronize()
+        ck_err = max(_rel_err(a, b) for a, b in zip(out[2:], ref[2:]))
+        y_err = max(float((a.float() - b.float()).abs().max())
+                    for a, b in zip(out[:2], ref[:2]))
+        errs = {n: _rel_err(a, b) for n, a, b in zip(names, bwd, bwd_ref)}
+        abs_errs = {n: float((a.float() - b.float()).abs().max())
+                    for n, a, b in zip(names, bwd, bwd_ref)}
+        finite = all(bool(torch.isfinite(x).all()) for x in (*out, *bwd))
+        bad = [n for i, n in enumerate(names)
+               if errs[n] > (2e-2 if i < 4 else 1e-3)]
+        print(f"K3 L={L} Dim={Dim} B={TRAIN_B}: rel err (max|k-p|/max|p|) "
+              + " ".join(f"{n}={errs[n]:.3g}" for n in names)
+              + " abs err " + " ".join(f"{n}={abs_errs[n]:.3g}"
+                                       for n in names)
+              + f"; K1 checkpoint rel err {ck_err:.3g}, y abs err {y_err}",
+              flush=True)
+        if not finite or bad or ck_err > 1e-4 or y_err > 2e-2:
+            raise SystemExit(f"K1/K3 disagree with their plain versions at "
+                             f"L={L} Dim={Dim}: {bad} ckpt {ck_err} "
+                             f"y {y_err}")
+        k1_ms = cuda_ms(lambda a: selective_scan_bidir(*a, emit_ckpt=True),
+                        [(a,) for a, _ in sets[1:]])
+        ckpts = [selective_scan_bidir(*a, emit_ckpt=True)[2:]
+                 for a, _ in sets]
+        k3_ms = cuda_ms(selective_scan_bidir_bwd,
+                        [(*a, *c, *gy) for (a, gy), c in
+                         zip(sets[1:], ckpts[1:])])
+        k1_plain = cuda_ms(lambda a: selective_scan_bidir_plain(
+            *a, emit_ckpt=True), [(sets[1][0],)])
+        k3_plain = cuda_ms(selective_scan_bidir_bwd_plain,
+                           [(*sets[1][0], *ckpts[1], *sets[1][1])])
+        M, G = TRAIN_B * 2 * Dim, TRAIN_B * 2
+        nc = -(-L // 256)
+        # K1: u, dt_f, dt_r in, y_f, y_r out (bf16), compact B/C, fp32
+        # checkpoints out; K3: u, dt_f, dt_r, g_f, g_r, compact B/C and the
+        # checkpoints in, du, ddt_f, ddt_r and compact dB/dC out (bf16)
+        k1_b, k1_by = bound(2 * (5 * L * M + 4 * L * G) + 4 * 2 * nc * M,
+                            2 * 14 * L * M)
+        k3_b, k3_by = bound(2 * (8 * L * M + 8 * L * G) + 4 * 2 * nc * M,
+                            2 * 40 * L * M)
+        rows.append({"L": L, "Dim": Dim, "M": M, "k3_rel_err": errs,
+                     "k3_abs_err": abs_errs, "k1_ckpt_rel_err": ck_err,
+                     "k1_ms": k1_ms, "k1_plain_ms": k1_plain,
+                     "k1_bound_ms": k1_b, "k3_ms": k3_ms,
+                     "k3_plain_ms": k3_plain, "k3_bound_ms": k3_b,
+                     "k3_bound_by": k3_by,
+                     "launches_per_train_step": n_launch})
+        print(f"  K1+ckpt ms={k1_ms} plain_ms={k1_plain} bound_ms={k1_b} "
+              f"({k1_by}); K3 ms={k3_ms} plain_ms={k3_plain} "
+              f"bound_ms={k3_b} ({k3_by})", flush=True)
+        for k, v in (("k1_ms", k1_ms), ("k1_plain_ms", k1_plain),
+                     ("k1_bound_ms", k1_b), ("k3_ms", k3_ms),
+                     ("k3_plain_ms", k3_plain), ("k3_bound_ms", k3_b)):
+            tot[k] += v * n_launch
+        k1_err = max(k1_err, y_err)
+        k3_err = max(k3_err, max(abs_errs.values()))
+        del sets, ckpts
+    return rows, tot, k1_err, k3_err
+
+
+# parameters whose gradient is zero in exact arithmetic: a bias right
+# before a train-mode BatchNorm (its shift is removed by the batch mean);
+# JAX leaves them at zero too, and fp32 roundoff is all either side holds
+ZERO_GRAD_PARAMS = ("detector_head.Conv_0.bias",
+                    "descriptor_head.Conv_0.bias",
+                    "detector_head.ConvBNRelu_0.BatchNorm_0.bias",
+                    "descriptor_head.ConvBNRelu_0.BatchNorm_0.bias")
+
+
+def phase_train(dev):
+    """The flagship train step on the resident synthetic corpus, as
+    xpoint_tpu_torch.train.profile_step builds and profiles it."""
+    from xpoint_tpu_torch.ops.selective_scan_cuda import (
+        selective_scan_bidir, selective_scan_bidir_bwd)
+    from xpoint_tpu_torch.train.profile_step import flagship_train
+    t0 = time.time()
+    state, step, data, meta = flagship_train(dev)
+    init_s = time.time() - t0
+    gen = torch.Generator(device=dev).manual_seed(0)
+    idx_gen = torch.Generator(device=dev).manual_seed(1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    selective_scan_bidir.launches = 0
+    selective_scan_bidir_bwd.launches = 0
+    per_step, ms = [], []
+    for i in range(TRAIN_STEPS):
+        idx = torch.randperm(meta["n"], generator=idx_gen,
+                             device=dev)[:TRAIN_B]
+        t1 = time.perf_counter()
+        comps = step(state, {"data": data, "idx": idx}, gen)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t1) * 1e3)
+        row = {k: float(v) for k, v in comps.items()}
+        per_step.append(row)
+        print(f"train step {i + 1}: ms={ms[-1]:.3f} loss={row['loss']} "
+              f"skipped_nonfinite={row['skipped_nonfinite']} " + " ".join(
+                  f"{k}={v:.5g}" for k, v in row.items()
+                  if k not in ("loss", "skipped_nonfinite")), flush=True)
+        if not math.isfinite(row["loss"]) or row["skipped_nonfinite"]:
+            raise SystemExit(f"train step {i + 1}: non-finite loss or a "
+                             f"skipped step")
+    launches = {"selective_scan_bidir": selective_scan_bidir.launches,
+                "selective_scan_bidir_bwd": selective_scan_bidir_bwd.launches}
+    for name, n in launches.items():
+        if n != 16 * TRAIN_STEPS:
+            raise SystemExit(f"train path launched {name} {n} times, "
+                             f"expected 16 per step")
+    # every parameter that should get a gradient got a finite, non-zero
+    # one: Adam's first moment is an average of them
+    mu = dict(zip(state.names, state.opt_state["mu"]))
+    bad = [n for n, m in mu.items() if not bool(torch.isfinite(m).all())]
+    zero = sorted(n for n, m in mu.items() if float(m.abs().max()) == 0.0)
+    if bad or set(zero) - set(ZERO_GRAD_PARAMS):
+        raise SystemExit(f"gradients: non-finite {bad}, zero "
+                         f"{sorted(set(zero) - set(ZERO_GRAD_PARAMS))}")
+    step_ms = sorted(ms[1:])[len(ms[1:]) // 2]
+    res = {"init_s": init_s, "step_ms": step_ms, "step_ms_all": ms,
+           "samples_per_s": TRAIN_B / step_ms * 1e3,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "launches": launches,
+           "launches_per_step": {k: v / TRAIN_STEPS
+                                 for k, v in launches.items()},
+           "zero_grad_params": zero, "steps": per_step,
+           "n_params": sum(m.numel() for m in mu.values())}
+    print(f"train path {TRAIN_S}^2 B={TRAIN_B} bf16: step_ms={step_ms} "
+          f"samples_per_s={res['samples_per_s']} peak_mem_gib="
+          f"{res['peak_mem_gib']} launches={launches} params="
+          f"{res['n_params']} exactly-zero-gradient params={zero}",
+          flush=True)
+    return res
+
+
+def phase_train_reference(dev):
+    """The tiny fp32 train step (no DropPath, no HM head) on the card and
+    on the CPU from the same weights and batch: the loss within rtol 1e-4,
+    every gradient (Adam's first moment after one step, 0.1 g) within 1e-3
+    of its leaf's max |g| + 1e-6 of the largest (fp32 sums in other
+    orders: cuBLAS/cuDNN with TF32 off, K3's atomics)."""
+    from xpoint_tpu_torch.losses import XPointLoss
+    from xpoint_tpu_torch.models import VMAMBA_MODEL_CFG, build_xpoint
+    from xpoint_tpu_torch.train import (TrainState, make_optimizer,
+                                        make_train_step)
+    cfg = copy.deepcopy(VMAMBA_MODEL_CFG)
+    mp = cfg["use_attention"]["model_parameters"]["MODEL"]
+    mp["VSSM"].update(DEPTHS=[1, 1, 1, 1], EMBED_DIM=24)
+    mp["DROP_PATH_RATE"] = 0.0
+    cfg.update(descriptor_size=32, mixed_precision=False,
+               homography_regression_head={"check": False})
+    loss_cfg = {"detector_dustbin_loss_weight": 0.025,
+                "descriptor_loss_threshold": 4.0, "lambda": 1.0,
+                "hard_negative_weighting": {"check": True}}
+    g = torch.Generator().manual_seed(3)
+    S, nb = 64, 2
+    kp = (torch.rand(nb, S, S, generator=g) < 0.01).float()
+    batch = {side: {"image": torch.rand(nb, S, S, 1, generator=g),
+                    "keypoints": kp, "valid_mask": torch.ones(nb, S, S),
+                    "homography": torch.eye(3).expand(nb, 3, 3).clone()}
+             for side in ("optical", "thermal")}
+    batch["thermal"]["homography"][:, 0, 2] = 3.0
+    out = []
+    for d in ("cpu", dev):
+        m, _ = build_xpoint(cfg, device=d, seed=4)
+        st = TrainState(m, make_optimizer({"learningrate": 1e-4})[0])
+        b = {k: {kk: vv.to(d) for kk, vv in v.items()}
+             for k, v in batch.items()}
+        comps = make_train_step(m, XPointLoss(loss_cfg))(
+            st, b, torch.Generator(device=d).manual_seed(0))
+        out.append((float(comps["loss"]),
+                    {n: t.cpu() for n, t in zip(st.names,
+                                                st.opt_state["mu"])}))
+    (l_cpu, g_cpu), (l_gpu, g_gpu) = out
+    top = max(float(t.abs().max()) for t in g_cpu.values())
+    worst = max(float((g_gpu[n] - g_cpu[n]).abs().max())
+                / (float(g_cpu[n].abs().max()) + 1e-3 * top) for n in g_cpu)
+    loss_rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+    print(f"train reference (tiny fp32, card vs CPU): loss {l_gpu} vs "
+          f"{l_cpu} (rel {loss_rel:.3g}); worst gradient error "
+          f"{worst:.3g} of (leaf max + 1e-3 x largest)", flush=True)
+    if loss_rel > 1e-4 or worst > 1e-3:
+        raise SystemExit("the card's train step disagrees with the CPU's")
+    return {"loss_gpu": l_gpu, "loss_cpu": l_cpu, "loss_rel_err": loss_rel,
+            "grad_err": worst}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -262,29 +496,54 @@ def main():
     main_res, probs, _ = phase_main_path(dev)
     nms_res = phase_nms(probs)
     ref_res = phase_reference(dev)
+    # the training stage shapes (256^2, B=16); each stage has 2 passes x 2
+    # blocks, as a serving call has
+    train_stages = [((TRAIN_S // 4 >> i) ** 2, 96 << i) for i in range(4)]
+    tscan_rows, tscan_tot, k1t_err, k3_err = phase_train_scan(
+        dev, train_stages, [2 * d for d in depths])
+    train_res = phase_train(dev)
+    tref_res = phase_train_reference(dev)
 
+    k1 = {"route": "cuda",
+          "source": "xpoint_tpu_torch/csrc/selective_scan_bidir.cu",
+          "replaces": "xpoint_tpu/ops/selective_scan_pallas.py:306",
+          "bound_by": "bytes", "library_ms": None}
     kernels = [
-        {"name": "selective_scan_bidir", "route": "cuda",
-         "source": "xpoint_tpu_torch/csrc/selective_scan_bidir.cu",
-         "replaces": "xpoint_tpu/ops/selective_scan_pallas.py:306",
+        {"name": "selective_scan_bidir", "path": "serve", **k1,
          "launches": main_res["launches"]["selective_scan_bidir"],
          "max_abs_err": scan_err, "ms": scan_tot["ms"],
-         "plain_ms": scan_tot["plain_ms"], "bound_ms": scan_tot["bound_ms"],
-         "bound_by": "bytes", "library_ms": None},
-        {"name": "nms_sweep", "route": "cuda",
+         "plain_ms": scan_tot["plain_ms"], "bound_ms": scan_tot["bound_ms"]},
+        {"name": "nms_sweep", "path": "serve", "route": "cuda",
          "source": "xpoint_tpu_torch/csrc/nms_sweep.cu",
          "replaces": "xpoint_tpu/ops/nms.py:36",
          "launches": main_res["launches"]["nms_sweep"],
          "max_abs_err": 0.0, "ms": nms_res["ms"],
          "plain_ms": nms_res["plain_ms"], "bound_ms": nms_res["bound_ms"],
          "bound_by": nms_res["bound_by"], "library_ms": None},
+        {"name": "selective_scan_bidir", "path": "train (emit_ckpt)", **k1,
+         "launches": train_res["launches"]["selective_scan_bidir"],
+         "max_abs_err": k1t_err, "ms": tscan_tot["k1_ms"],
+         "plain_ms": tscan_tot["k1_plain_ms"],
+         "bound_ms": tscan_tot["k1_bound_ms"]},
+        {"name": "selective_scan_bidir_bwd", "path": "train",
+         "route": "cuda",
+         "source": "xpoint_tpu_torch/csrc/selective_scan_bidir_bwd.cu",
+         "replaces": "xpoint_tpu/ops/selective_scan_pallas.py:530",
+         "launches": train_res["launches"]["selective_scan_bidir_bwd"],
+         "max_abs_err": k3_err, "ms": tscan_tot["k3_ms"],
+         "plain_ms": tscan_tot["k3_plain_ms"],
+         "bound_ms": tscan_tot["k3_bound_ms"], "bound_by": "bytes",
+         "library_ms": None},
     ]
     print("details: " + json.dumps(
         {"card": card, "build_s": build_s, "k1_stages": scan_rows,
-         "main_path": main_res, "k2": nms_res, "reference": ref_res}),
-        flush=True)
-    print("K1 ms/plain_ms/bound_ms are per pipeline call (sum over stage "
-          "shapes x launches); K2's over all sweeps of one call", flush=True)
+         "main_path": main_res, "k2": nms_res, "reference": ref_res,
+         "train_scan_stages": tscan_rows, "train_path": train_res,
+         "train_reference": tref_res}), flush=True)
+    print("serve: K1 ms/plain_ms/bound_ms are per pipeline call (sum over "
+          "stage shapes x launches), K2's over all sweeps of one call; "
+          "train: K1 and K3 per train step (sum over stage shapes x 4 "
+          "launches); launches count the whole run of each path", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

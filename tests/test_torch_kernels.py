@@ -12,7 +12,8 @@ import torch
 
 from xpoint_tpu_torch.ops.nms import grid_nms_keep, grid_nms_keep_plain
 from xpoint_tpu_torch.ops.selective_scan_cuda import (
-    selective_scan_bidir, selective_scan_bidir_plain)
+    SelectiveScanBidir, selective_scan_bidir, selective_scan_bidir_bwd,
+    selective_scan_bidir_bwd_plain, selective_scan_bidir_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -52,6 +53,68 @@ def test_scan_kernel_matches_plain(cuda, L, B, Dim, dtype):
     for a, b in ((y_f, p_f), (y_r, p_r)):
         assert a.dtype == dtype and a.shape == (L, B, 2, Dim)
         torch.testing.assert_close(a.float(), b.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("L,B,Dim", [(300, 2, 24), (513, 2, 64),
+                                     (1024, 8, 96)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scan_kernel_checkpoints_match_plain(cuda, L, B, Dim, dtype):
+    """emit_ckpt: the fp32 chunk entry states of both lane sets; the carries
+    differ from the plain version's by the rounding of exp/log1p/fma only."""
+    args = _scan_operands(1, L, B, Dim, dtype, cuda)
+    out = selective_scan_bidir(*args, emit_ckpt=True)
+    ref = selective_scan_bidir_plain(*args, emit_ckpt=True)
+    torch.cuda.synchronize()
+    for a, b in zip(out[2:], ref[2:]):
+        assert a.dtype == torch.float32
+        assert a.shape == (-(-L // 256), B * 2 * Dim)
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+    # y is the same with and without checkpoints
+    y_f, y_r = selective_scan_bidir(*args)
+    assert torch.equal(y_f, out[0]) and torch.equal(y_r, out[1])
+
+
+def _rel_err(a, b):
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("L,B,Dim", [(300, 2, 24), (37, 3, 40), (513, 2, 64),
+                                     (1024, 8, 96)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scan_bwd_kernel_matches_plain(cuda, L, B, Dim, dtype):
+    """K3 against its plain version on the same checkpoints and cotangents.
+    Max abs error relative to max |plain|: fp32 1e-4 (exp/log1p rounding,
+    atomics in run-dependent order); bf16 outputs 2e-2 (a bf16 ulp is 2^-8
+    relative), the fp32 dA/dD/dbias 1e-3."""
+    args = _scan_operands(2, L, B, Dim, dtype, cuda)
+    _, _, hck_f, hck_r = selective_scan_bidir_plain(*args, emit_ckpt=True)
+    g = torch.Generator(device="cpu").manual_seed(3)
+    g_f, g_r = (torch.randn(L, B, 2, Dim, generator=g).to(cuda, dtype)
+                for _ in range(2))
+    before = selective_scan_bidir_bwd.launches
+    out = selective_scan_bidir_bwd(*args, hck_f, hck_r, g_f, g_r)
+    torch.cuda.synchronize()
+    assert selective_scan_bidir_bwd.launches == before + 1
+    ref = selective_scan_bidir_bwd_plain(*args, hck_f, hck_r, g_f, g_r)
+    for i, (a, b) in enumerate(zip(out, ref)):
+        assert a.dtype == b.dtype and a.shape == b.shape, i
+        tol = 1e-4 if dtype == torch.float32 else (2e-2 if i < 4 else 1e-3)
+        assert _rel_err(a, b) <= tol, (i, _rel_err(a, b))
+
+
+def test_scan_autograd_on_card_matches_cpu(cuda):
+    """SelectiveScanBidir: K1 with checkpoints then K3 on the card against
+    the plain forward and backward on the CPU, fp32."""
+    cpu = _scan_operands(4, 300, 2, 24, torch.float32, "cpu")
+    grads = []
+    for dev in ("cpu", cuda):
+        xs = [x.detach().to(dev).requires_grad_() for x in cpu]
+        y_f, y_r = SelectiveScanBidir.apply(*xs)
+        ((y_f ** 2).sum() + (y_r * torch.cos(y_r)).sum()).backward()
+        grads.append([x.grad.cpu() for x in xs])
+    for a, b in zip(*grads):
+        assert _rel_err(b, a) <= 1e-4
 
 
 def test_scan_kernel_rejects_mixed_dtypes(cuda):
@@ -108,3 +171,4 @@ def test_tiny_pipeline_on_card_matches_cpu(cuda):
         torch.testing.assert_close(b[f"prob_{s}"].cpu(), a[f"prob_{s}"],
                                    atol=1e-5, rtol=0)
         assert torch.equal(b[f"mask_{s}"].sum(1).cpu(), a[f"mask_{s}"].sum(1))
+

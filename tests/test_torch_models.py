@@ -16,8 +16,8 @@ from xpoint_tpu.models.vssm import VSSBlock as JxVSSBlock
 from xpoint_tpu.models.vssm import _StridedConv3x3 as JxStridedConv3x3
 from __graft_entry__ import VMAMBA_MODEL_CFG as JX_VMAMBA_MODEL_CFG
 
-from xpoint_tpu_torch.compat.from_flax import (flax_to_state_dict,
-                                               load_flax_variables)
+from xpoint_tpu_torch.compat.from_flax import (_flatten, flax_to_state_dict,
+                                               load_flax_variables, to_flax)
 from xpoint_tpu_torch.models import VMAMBA_MODEL_CFG, build_xpoint
 from xpoint_tpu_torch.models.xpoint import DEFAULT_CONFIG
 from xpoint_tpu_torch.models.vssm import (SS2D, StridedConv3x3, VSSBlock,
@@ -122,11 +122,23 @@ def test_xpoint_net_matches_flax_through_bridge():
 
 
 def test_bridge_skips_only_the_homography_head():
+    """The bridge skips nothing now: the homography head (RegNet) maps like
+    the rest, and to_flax inverts it leaf for leaf. Stray flax leaves and
+    missing entries still raise."""
     jm, v = _jax_tiny_model(seed=1)
     sd = flax_to_state_dict(v)
-    assert not any(k.startswith("hm_regressor") for k in sd)
-    assert "hm_regressor" in v["params"]
+    assert "hm_regressor.fc1.weight" in sd and "hm_regressor" in v["params"]
+    assert "hm_regressor.bn1.running_var" in sd
     tm, _ = build_xpoint(tiny_cfg(), device="cpu")
+    back = to_flax(load_flax_variables(tm, v))
+    assert set(back) == set(v)
+    for col in v:
+        a = dict(_flatten(v[col]))
+        b = dict(_flatten(back[col]))
+        assert set(a) == set(b), col
+        for path in a:
+            np.testing.assert_array_equal(b[path], np.asarray(a[path]),
+                                          err_msg="/".join(path))
     extra = {**v, "params": {**v["params"],
                              "stray": {"kernel": np.zeros((2, 2))}}}
     with pytest.raises(KeyError, match="stray"):

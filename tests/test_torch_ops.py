@@ -15,21 +15,25 @@ import torch
 from xpoint_tpu.ops.descriptor import interpolate_descriptors as jx_interp
 from xpoint_tpu.ops.detector import prob_from_logits as jx_prob
 from xpoint_tpu.ops.gridops import depth_to_space as jx_d2s
+from xpoint_tpu.ops.gridops import space_to_depth as jx_s2d
 from xpoint_tpu.ops.matching import mnn_match as jx_mnn
 from xpoint_tpu.ops.nms import (_grid_nms_keep, _grid_nms_keep_pallas,
                                 _nms_block_edge, _overlap_widths,
                                 box_nms_extract as jx_box_nms_extract)
-from xpoint_tpu.ops.selective_scan_pallas import selective_scan_fused_bidir_tok
+from xpoint_tpu.ops.selective_scan_pallas import (
+    _fused_bidir_tok_impl, selective_scan_fused_bidir_tok)
 
 from xpoint_tpu_torch.ops.descriptor import interpolate_descriptors
 from xpoint_tpu_torch.ops.detector import prob_from_logits
-from xpoint_tpu_torch.ops.gridops import depth_to_space
+from xpoint_tpu_torch.ops.gridops import depth_to_space, space_to_depth
 from xpoint_tpu_torch.ops.matching import mnn_match
 from xpoint_tpu_torch.ops.nms import (box_nms_extract, grid_nms_keep,
                                       grid_nms_keep_plain, nms_block_edge,
                                       overlap_widths)
 from xpoint_tpu_torch.ops.selective_scan_cuda import (
-    selective_scan_bidir, selective_scan_bidir_plain)
+    SelectiveScanBidir, scan_bidir, selective_scan_bidir,
+    selective_scan_bidir_bwd, selective_scan_bidir_bwd_plain,
+    selective_scan_bidir_plain)
 
 T = torch.from_numpy
 
@@ -58,6 +62,84 @@ def test_scan_plain_matches_pallas_bidir_tok():
     w_f, w_r = selective_scan_bidir(*map(T, args))
     assert selective_scan_bidir.launches == before
     assert torch.equal(w_f, t_f) and torch.equal(w_r, t_r)
+
+
+def test_scan_checkpoints_and_bwd_plain_match_pallas():
+    """K1's checkpoints and K3's plain version against the Pallas kernels
+    (interpret mode): _fused_bidir_tok_impl(emit_ckpt=True) and jax.vjp of
+    selective_scan_fused_bidir_tok (which runs _fused_bidir_bwd_kernel).
+    fp32, L=300 crossing the 256-token chunk, Dim=24, B=2: rtol 1e-4,
+    atol 1e-5 for the checkpoints and all seven cotangents."""
+    L, B, Dim = 300, 2, 24
+    args = _scan_operands(5, L=L, B=B, Dim=Dim)
+    rng = np.random.default_rng(6)
+    g_f, g_r = (rng.normal(size=(L, B, 2, Dim)).astype(np.float32)
+                for _ in range(2))
+    jargs = tuple(map(jnp.asarray, args))
+    (_, _), (jh_f, jh_r) = jax.jit(
+        lambda *a: _fused_bidir_tok_impl(*a, emit_ckpt=True))(*jargs)
+    _, vjp = jax.vjp(selective_scan_fused_bidir_tok, *jargs)
+    ref = vjp((jnp.asarray(g_f), jnp.asarray(g_r)))
+
+    M = B * 2 * Dim
+    y_f, y_r, h_f, h_r = selective_scan_bidir_plain(*map(T, args),
+                                                    emit_ckpt=True)
+    assert h_f.shape == (2, M) and h_f.dtype == torch.float32
+    # JAX blocks (nl, 8, Mp): row 0 holds the state, the rest is padding
+    for mine, theirs in ((h_f, jh_f), (h_r, jh_r)):
+        np.testing.assert_allclose(mine.numpy(), np.asarray(theirs)[:, 0, :M],
+                                   rtol=1e-4, atol=1e-5)
+    out = selective_scan_bidir_bwd_plain(*map(T, args), h_f, h_r, T(g_f),
+                                         T(g_r))
+    names = ("du_t", "ddt_t", "dbc_t", "dcc_t", "dA", "dD", "ddelta_bias")
+    for name, mine, theirs in zip(names, out, ref):
+        assert mine.shape == theirs.shape, name
+        np.testing.assert_allclose(mine.numpy(), np.asarray(theirs),
+                                   rtol=1e-4, atol=1e-5, err_msg=name)
+    # on CPU tensors the wrappers take the plain versions, never a kernel
+    before = (selective_scan_bidir.launches, selective_scan_bidir_bwd.launches)
+    w = selective_scan_bidir_bwd(*map(T, args), h_f, h_r, T(g_f), T(g_r))
+    assert all(torch.equal(a, b) for a, b in zip(w, out))
+    xs = [T(a).requires_grad_() for a in args]
+    yf, yr = scan_bidir(*xs)
+    torch.autograd.backward((yf, yr), (T(g_f), T(g_r)))
+    for name, x, mine in zip(names, xs, out):
+        assert torch.equal(x.grad, mine), name
+    assert (selective_scan_bidir.launches,
+            selective_scan_bidir_bwd.launches) == before
+
+
+def test_scan_autograd_gradcheck():
+    """SelectiveScanBidir (plain forward with checkpoints, plain backward)
+    under torch.autograd.gradcheck in float64, L=7, Dim=2."""
+    rng = np.random.default_rng(7)
+    f = lambda *s: torch.from_numpy(rng.normal(size=s))  # noqa: E731
+    L, B, Dim = 7, 2, 2
+    xs = [f(L, B, 2, Dim), f(2, L, B, 2, Dim) * 0.5, f(2, L, B, 2),
+          f(2, L, B, 2), -torch.exp(f(4 * Dim) * 0.3), f(4 * Dim),
+          f(4 * Dim) * 0.2]
+    assert torch.autograd.gradcheck(
+        SelectiveScanBidir.apply, [x.requires_grad_() for x in xs])
+
+
+def test_scan_no_checkpoints_without_grad():
+    """Serving (no gradient wanted) keeps the forward without checkpoints."""
+    args = list(map(T, _scan_operands(0, L=9, B=1, Dim=4)))
+    assert len(scan_bidir(*args)) == 2
+    with torch.no_grad():
+        assert len(scan_bidir(*[a.requires_grad_() for a in args])) == 2
+
+
+def test_scan_bwd_wrapper_rejects_bad_operands():
+    args = list(map(T, _scan_operands(0, L=8, B=1, Dim=4)))
+    _, _, h_f, h_r = selective_scan_bidir(*args, emit_ckpt=True)
+    g = torch.zeros(8, 1, 2, 4)
+    with pytest.raises(TypeError):                      # bf16 cotangent
+        selective_scan_bidir_bwd(*args, h_f, h_r, g.bfloat16(), g)
+    with pytest.raises(ValueError):                     # checkpoint shape
+        selective_scan_bidir_bwd(*args, h_f[:, :4], h_r, g, g)
+    with pytest.raises(TypeError):                      # fp64 checkpoints
+        selective_scan_bidir_bwd(*args, h_f.double(), h_r, g, g)
 
 
 def test_scan_wrapper_rejects_bad_operands():
@@ -146,6 +228,18 @@ def test_prob_from_logits_and_depth_to_space():
     x = rng.normal(size=(2, 3, 5, 4 * 4 * 3)).astype(np.float32)
     np.testing.assert_array_equal(depth_to_space(T(x), 4).numpy(),
                                   np.asarray(jx_d2s(jnp.asarray(x), 4)))
+
+
+@pytest.mark.parametrize("shape", [(2, 16, 24), (2, 16, 8, 3)])
+def test_space_to_depth(shape):
+    """(i, j, c) channel order with c minor, single- and multi-channel, and
+    the inverse of depth_to_space."""
+    x = np.random.default_rng(8).normal(size=shape).astype(np.float32)
+    out = space_to_depth(T(x), 8)
+    np.testing.assert_array_equal(out.numpy(),
+                                  np.asarray(jx_s2d(jnp.asarray(x), 8)))
+    back = depth_to_space(out, 8)
+    assert torch.equal(back.reshape(x.shape), T(x))
 
 
 def test_interpolate_descriptors():

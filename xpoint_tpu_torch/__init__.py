@@ -1,11 +1,14 @@
 """XPoint on PyTorch and CUDA (NVIDIA H100): the port of ``xpoint_tpu``.
 
-This package is the serving path of the flagship VMamba XPoint model
-(detect + describe + match) with hand-written Hopper kernels for the two
-TPU kernels on that path:
+This package holds the serving path (detect + describe + match) and the
+training step of the flagship VMamba XPoint, with hand-written Hopper
+kernels for the TPU kernels on those paths:
 
   * ``ops.selective_scan_cuda`` / ``csrc/selective_scan_bidir.cu`` replaces
-    ``xpoint_tpu/ops/selective_scan_pallas.py::_fused_bidir_kernel``;
+    ``xpoint_tpu/ops/selective_scan_pallas.py::_fused_bidir_kernel``
+    (with its checkpoint mode for training);
+  * ``ops.selective_scan_cuda`` / ``csrc/selective_scan_bidir_bwd.cu``
+    replaces ``_fused_bidir_bwd_kernel``, the scan's backward;
   * ``ops.nms`` / ``csrc/nms_sweep.cu`` replaces
     ``xpoint_tpu/ops/nms.py::_nms_sweep_kernel``.
 
@@ -16,17 +19,18 @@ Ground rules:
     (``tests/test_torch_*.py``).
   * This package imports ``torch`` and never ``jax``, ``flax`` or anything
     under ``xpoint_tpu``, not even its jax-free helpers: it keeps its own
-    copies (``utils.dict_update``, the flagship config in
-    ``models.xpoint``).
+    copies (``utils.dict_update``, the flagship model and training configs
+    in ``models.xpoint``).
   * Entry points take an explicit ``device``, default ``"cuda"``; the tests
-    pass ``device="cpu"``. A kernel wrapper runs its plain PyTorch version
-    only for a tensor that lies on the CPU. For a CUDA tensor it launches
-    the kernel or raises: there is no fallback when a kernel fails to
-    build or launch.
+    pass ``device="cpu"``. Randomness comes from an explicit
+    ``torch.Generator`` passed in. A kernel wrapper runs its plain PyTorch
+    version only for a tensor that lies on the CPU. For a CUDA tensor it
+    launches the kernel or raises: there is no fallback when a kernel
+    fails to build or launch.
   * Mixed precision is explicit casts, as in the JAX code: parameters are
     fp32, activations are computed in the model dtype, LayerNorm and
     BatchNorm run in fp32, heads emit fp32, the scan carry is fp32. No
-    autocast. Parity runs set ``torch.backends.cuda.matmul.allow_tf32`` and
+    autocast and no loss scaling. Parity runs set ``torch.backends.cuda.matmul.allow_tf32`` and
     ``torch.backends.cudnn.allow_tf32`` to False.
   * Public functions keep the JAX package's NHWC layout.
 """

@@ -1,5 +1,5 @@
-"""Weight bridge: flax variables (nested dicts of numpy arrays) -> the
-port's ``state_dict``.
+"""Weight bridge between flax variables (nested dicts of numpy arrays) and
+the port's ``state_dict``, both ways.
 
 The port's submodules carry the flax module names, so a flax path
 ``encoder/layers_0_blocks_0/op/in_proj/kernel`` becomes the torch key
@@ -12,19 +12,17 @@ The port's submodules carry the flax module names, so a flax path
   everything else (``bias``, ``x_proj_weight``, ``dt_projs_weight``,
   ``dt_projs_bias``, ``A_logs``, ``Ds``) keeps its name and layout.
 
-The homography-regression head (``hm_regressor/*``) is not part of the
-port's serving model and is skipped with a logged note. Any other flax
-leaf without a torch counterpart, and any torch entry left unset, raises.
+The homography head (``hm_regressor/*``: RegNet's convs, BatchNorms and
+dense layers) maps like the rest. Any flax leaf without a torch
+counterpart, and any torch entry left unset, raises. :func:`to_flax` and
+:func:`state_dict_to_flax` go the other way, so that tests can compare the
+port's parameters, gradients and optimiser moments with JAX's leaf by leaf.
 """
-import logging
-
 import numpy as np
 import torch
 
-log = logging.getLogger(__name__)
-
-_SKIPPED_PREFIX = "hm_regressor"
 _STAT_NAMES = {"mean": "running_mean", "var": "running_var"}
+_STAT_FLAX = {v: k for k, v in _STAT_NAMES.items()}
 
 
 def _flatten(tree, prefix=()):
@@ -38,14 +36,10 @@ def _flatten(tree, prefix=()):
 def flax_to_state_dict(variables):
     """{"params": ..., "batch_stats": ...} -> {torch key: fp32 tensor}."""
     out = {}
-    skipped = 0
     for collection, tree in variables.items():
         if collection not in ("params", "batch_stats"):
             raise KeyError(f"unexpected flax collection {collection!r}")
         for path, leaf in _flatten(tree):
-            if path[0] == _SKIPPED_PREFIX:
-                skipped += 1
-                continue
             arr = np.array(leaf, np.float32)          # a writable copy
             name = path[-1]
             if collection == "batch_stats":
@@ -65,10 +59,41 @@ def flax_to_state_dict(variables):
                 name = "weight"
             key = ".".join(path[:-1] + (name,))
             out[key] = torch.from_numpy(np.ascontiguousarray(arr))
-    if skipped:
-        log.info("skipped %d %s/* leaves: the homography head is not on the "
-                 "serving path", skipped, _SKIPPED_PREFIX)
     return out
+
+
+def state_dict_to_flax(tensors):
+    """{torch key: tensor} -> nested flax dicts of fp32 numpy arrays, the
+    inverse of :func:`flax_to_state_dict`. Parameter-named tensors (also
+    gradients or optimiser moments keyed by parameter name) go under
+    "params", running statistics under "batch_stats"."""
+    out = {}
+    for key, t in tensors.items():
+        *path, name = key.split(".")
+        arr = t.detach().float().cpu().numpy()
+        collection = "params"
+        if name in _STAT_FLAX:
+            collection, name = "batch_stats", _STAT_FLAX[name]
+        elif name == "weight":
+            if arr.ndim == 4:
+                name, arr = "kernel", arr.transpose(2, 3, 1, 0)
+            elif arr.ndim == 2:
+                name, arr = "kernel", arr.T
+            elif arr.ndim == 1:
+                name = "scale"
+            else:
+                raise ValueError(f"weight of rank {arr.ndim} at {key}")
+        node = out.setdefault(collection, {})
+        for p in path:
+            node = node.setdefault(p, {})
+        node[name] = np.ascontiguousarray(arr)
+    return out
+
+
+def to_flax(module):
+    """The module's parameters and BatchNorm statistics as flax variables
+    ({"params": ..., "batch_stats": ...} of numpy arrays)."""
+    return state_dict_to_flax(module.state_dict())
 
 
 def load_flax_variables(module, variables):

@@ -3,10 +3,8 @@
     python -m xpoint_tpu_torch.eval.profile_pipeline
 
 Builds the flagship VMamba XPoint (bf16, seed 0), warms the pipeline up,
-then profiles one call with torch.profiler (CPU + CUDA activities). Prints
-the device time by kernel name and the sum of kernel time against the
-call's wall time (the device's busy share; an upper bound where kernels
-overlap), then the top of the table as one JSON line. Needs a CUDA card.
+then profiles one call with torch.profiler (CPU + CUDA activities) and
+prints what :func:`report` prints. Needs a CUDA card.
 """
 import json
 import sys
@@ -41,25 +39,39 @@ def main():
         run(imgs[2], imgs[3])
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    report(prof, wall_ms, "pipeline call", batch=B, size=S)
+    return 0
+
+
+def report(prof, wall_ms, what, **info):
+    """Print the device time by kernel name of a ``torch.profiler`` run,
+    the sum of kernel time against the wall time (the device's busy share;
+    an upper bound where kernels overlap) and the kernel launches, then the
+    top of the table as one JSON line with ``info``. Returns the summed
+    kernel time in ms."""
     rows = []
     for e in prof.key_averages():
-        # device-side events only: an aten op's own entry would count its
-        # kernels a second time
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+        # device-side kernels only: an aten op's own entry, or a range on
+        # the device timeline such as torch.optim's "Optimizer.step#..."
+        # annotation, would count its kernels a second time
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not e.is_user_annotation):
             rows.append({"name": e.key, "count": e.count,
                          "device_ms": e.self_device_time_total / 1e3})
     rows.sort(key=lambda r: -r["device_ms"])
     busy_ms = sum(r["device_ms"] for r in rows)
+    n_launches = sum(r["count"] for r in rows)
     card = torch.cuda.get_device_name(0)
-    print(f"{card}: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
-          f"({100 * busy_ms / wall_ms:.1f}%)")
+    print(f"{card}: {what} wall {wall_ms:.3f} ms, device busy "
+          f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), "
+          f"{n_launches} kernel launches")
     for r in rows[:TOP]:
         print(f"{r['device_ms']:10.3f} ms  x{r['count']:<5d} {r['name'][:90]}")
     top = [{**r, "name": r["name"][:100]} for r in rows[:TOP]]
-    print(json.dumps({"card": card, "batch": B, "size": S,
-                      "wall_ms": wall_ms, "device_busy_ms": busy_ms,
+    print(json.dumps({"card": card, **info, "wall_ms": wall_ms,
+                      "device_busy_ms": busy_ms, "n_launches": n_launches,
                       "n_kernel_names": len(rows), "top": top}))
-    return 0
+    return busy_ms
 
 
 if __name__ == "__main__":

@@ -1,2 +1,3 @@
-"""Models of the serving path (VMamba XPoint)."""
-from .xpoint import VMAMBA_MODEL_CFG, XPointNet, build_xpoint  # noqa: F401
+"""Models of the serving and training paths (VMamba XPoint, RegNet)."""
+from .xpoint import (VMAMBA_MODEL_CFG, VMAMBA_TRAIN_CFG,  # noqa: F401
+                     XPointNet, build_xpoint)

@@ -1,5 +1,5 @@
 """Detector / descriptor heads, NHWC (port of
-``xpoint_tpu/models/heads.py:84-157``, plain BatchNorm, eval mode).
+``xpoint_tpu/models/heads.py:84-157``, plain BatchNorm).
 
 Head: reflect pad 1 -> conv3 (head channels) -> ReLU -> BN -> conv1 (out)
 -> BN, output fp32. Convs run in the activation dtype, BatchNorm
@@ -11,22 +11,45 @@ from torch import nn
 
 from .vssm import _conv_nhwc
 
+BN_MOMENTUM, BN_EPS = 0.9, 1e-5  # every flax BatchNorm of the model
+
 
 class BatchNorm(nn.Module):
-    """Eval-mode BatchNorm over the last (channel) axis, computed in fp32,
-    flax ``nn.BatchNorm(use_running_average=True)`` arithmetic."""
+    """BatchNorm over the last (channel) axis, computed in fp32, with the
+    arithmetic of flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)``.
 
-    def __init__(self, features, eps=1e-5):
+    Eval mode normalises with the running statistics. Train mode normalises
+    with the batch statistics of the fp32 input over every axis but the
+    last: the mean and the BIASED variance, in flax's form
+    max(0, E[x^2] - E[x]^2). It then updates, in place,
+    running <- 0.9 * running + 0.1 * batch (BN_MOMENTUM), with that same
+    biased variance (``torch.nn.BatchNorm2d`` would use the unbiased one and
+    momentum 0.1 in the other sense). A caller that must undo a step
+    snapshots the buffers.
+    """
+
+    def __init__(self, features):
         super().__init__()
-        self.eps = eps
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x):
-        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
-        return (x.float() - self.running_mean) * mul + self.bias
+        x = x.float()
+        if self.training:
+            dims = tuple(range(x.ndim - 1))
+            mean = x.mean(dims)
+            var = ((x * x).mean(dims) - mean * mean).clamp_min(0.0)
+            with torch.no_grad():
+                m = BN_MOMENTUM
+                self.running_mean.copy_(m * self.running_mean
+                                        + (1 - m) * mean)
+                self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + BN_EPS) * self.weight
+        return (x - mean) * mul + self.bias
 
 
 class Conv(nn.Module):

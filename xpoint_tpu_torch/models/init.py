@@ -7,7 +7,8 @@ defaults used by ``xpoint_tpu/models/heads.py``):
 
   * Dense layers of the encoder and ``x_proj_weight``: normal(0.02)
     truncated to +-2 std;
-  * convolutions: lecun_normal (truncated normal, fan_in scaling), bias 0;
+  * convolutions, and RegNet's dense layers: lecun_normal (truncated
+    normal, fan_in scaling), bias 0;
   * ``dt_projs_weight``: uniform [0, 2 R^-0.5) (stored unshifted);
   * ``dt_projs_bias``: softplus-inverse of log-uniform dt in [1e-3, 0.1];
   * ``A_logs``: log(1..N); ``Ds``: 1;
@@ -19,6 +20,7 @@ import torch
 from torch import nn
 
 from .heads import BatchNorm, Conv
+from .regnet import Conv3x3, Dense
 from .vssm import SS2D, StridedConv3x3
 
 # std of the standard normal truncated to [-2, 2]
@@ -36,7 +38,7 @@ def _trunc_normal_(t, std, gen):
 
 
 def _lecun_normal_(w, gen):
-    fan_in = w.shape[1] * w.shape[2] * w.shape[3]
+    fan_in = math.prod(w.shape[1:])
     _trunc_normal_(w, math.sqrt(1.0 / fan_in) / _TRUNC_STD, gen)
 
 
@@ -67,9 +69,11 @@ def init_xpoint_(module, gen):
             _trunc_normal_(m.weight, 0.02, gen)
             if m.bias is not None:
                 m.bias.zero_()
-        elif isinstance(m, (StridedConv3x3, Conv)):
+        elif isinstance(m, (StridedConv3x3, Conv, Dense)):
             _lecun_normal_(m.weight, gen)
             m.bias.zero_()
+        elif isinstance(m, Conv3x3):
+            _lecun_normal_(m.weight, gen)
         elif isinstance(m, nn.LayerNorm):
             m.weight.fill_(1.0)
             m.bias.zero_()

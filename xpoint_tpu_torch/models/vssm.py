@@ -10,15 +10,21 @@ Submodule and parameter names follow the flax module tree, so the weight
 bridge (``compat.from_flax``) maps names one to one. Parameters are fp32;
 activations run in ``dtype``; LayerNorm (eps 1e-6, flax's) runs in fp32;
 GELU is the tanh approximation (flax's ``nn.gelu`` default).
+
+Train mode (``module.train()``) is the JAX ``deterministic=False``: DropPath
+draws its per-sample masks from the ``torch.Generator`` passed to
+``forward`` (the counterpart of the flax "droppath" rng stream), and SS2D's
+scan runs through the differentiable ``SelectiveScanBidir``.
 """
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ..ops.gridops import depth_to_space
-from ..ops.selective_scan_cuda import selective_scan_bidir
+from ..ops.selective_scan_cuda import scan_bidir
 
 _ROADMAP_ITEM = "ROADMAP.md Queue 1 item 10 (other encoders and forward types)"
 
@@ -58,11 +64,39 @@ class StridedConv3x3(nn.Module):
         return y + self.bias.to(y.dtype)
 
 
-class DropPath(nn.Module):
-    """Stochastic depth; the serving path is eval-only, so identity."""
+def _drop(x, rate, mask_shape, gen):
+    """Keep with probability 1 - rate (jax.random.bernoulli: uniform <
+    keep, a mask of ``mask_shape`` broadcast over x) and scale by 1 / keep.
+    ``gen`` is required: the port draws from explicit generators only."""
+    if gen is None:
+        raise ValueError("a stochastic layer in train mode needs the "
+                         "torch.Generator passed to forward")
+    keep = 1.0 - rate
+    mask = torch.rand(mask_shape, generator=gen, device=x.device) < keep
+    return torch.where(mask, x / keep,
+                       torch.zeros((), dtype=x.dtype, device=x.device))
 
-    def forward(self, x):
+
+def dropout(x, rate, training, gen):
+    """flax ``nn.Dropout``: a mask per element in train mode."""
+    if not training or rate == 0.0:
         return x
+    return _drop(x, rate, x.shape, gen)
+
+
+class DropPath(nn.Module):
+    """Per-sample stochastic depth (timm DropPath, ``vssm.py:87-100``): in
+    train mode each sample is kept with probability 1 - rate and scaled by
+    1 / keep; identity in eval mode or at rate 0."""
+
+    def __init__(self, rate=0.0):
+        super().__init__()
+        self.rate = float(rate)
+
+    def forward(self, x, gen=None):
+        if not self.training or self.rate == 0.0:
+            return x
+        return _drop(x, self.rate, (x.shape[0],) + (1,) * (x.ndim - 1), gen)
 
 
 class Mlp(nn.Module):
@@ -117,7 +151,7 @@ class SS2D(nn.Module):
         dts, Bs, Cs = torch.split(x_dbl, [R, N, N], dim=-1)
         dt_w = (self.dt_projs_weight - R ** -0.5).to(dtype).reshape(2, 2, D, R)
         dts = torch.einsum("rlbjs,rjds->rlbjd", dts, dt_w)
-        ys_f, ys_r = selective_scan_bidir(
+        ys_f, ys_r = scan_bidir(
             u_t.contiguous(), dts.contiguous(), Bs[..., 0].contiguous(),
             Cs[..., 0].contiguous(), -torch.exp(self.A_logs.reshape(-1)),
             self.Ds.contiguous(), self.dt_projs_bias.reshape(-1))
@@ -129,20 +163,21 @@ class SS2D(nn.Module):
 
 
 class VSSBlock(nn.Module):
-    def __init__(self, dim, ssm_ratio=1.0, dt_rank="auto", mlp_ratio=4.0):
+    def __init__(self, dim, ssm_ratio=1.0, dt_rank="auto", mlp_ratio=4.0,
+                 drop_path=0.0):
         super().__init__()
         self.norm = _layer_norm_module(dim)
         self.op = SS2D(dim, ssm_ratio, dt_rank)
-        self.drop_path = DropPath()
+        self.drop_path = DropPath(drop_path)
         self.mlp_ratio = mlp_ratio
         if mlp_ratio > 0:
             self.norm2 = _layer_norm_module(dim)
             self.mlp = Mlp(dim, int(dim * mlp_ratio), dim)
 
-    def forward(self, x):
-        x = x + self.drop_path(self.op(layer_norm(self.norm, x)))
+    def forward(self, x, gen=None):
+        x = x + self.drop_path(self.op(layer_norm(self.norm, x)), gen)
         if self.mlp_ratio > 0:
-            x = x + self.drop_path(self.mlp(layer_norm(self.norm2, x)))
+            x = x + self.drop_path(self.mlp(layer_norm(self.norm2, x)), gen)
         return x
 
 
@@ -150,11 +185,15 @@ class VSSM(nn.Module):
     """4-stage VMamba encoder; (B, H, W, 1|3) -> (B, H/8, W/8, embed/2)."""
 
     def __init__(self, depths=(2, 2, 2, 2), embed_dim=96, ssm_ratio=1.0,
-                 dt_rank="auto", mlp_ratio=4.0, dtype=torch.float32):
+                 dt_rank="auto", mlp_ratio=4.0, drop_path_rate=0.2,
+                 dtype=torch.float32):
         super().__init__()
         self.depths = tuple(depths)
         self.dtype = dtype
         dims = [int(embed_dim * 2 ** i) for i in range(len(depths))]
+        # linear stochastic-depth schedule over all blocks (vssm.py:634-635)
+        dpr = iter(float(v) for v in
+                   np.linspace(0, drop_path_rate, sum(self.depths)))
         self.patch_embed_conv1 = StridedConv3x3(3, embed_dim // 2)
         self.patch_embed_norm1 = _layer_norm_module(embed_dim // 2)
         self.patch_embed_conv2 = StridedConv3x3(embed_dim // 2, embed_dim)
@@ -162,14 +201,14 @@ class VSSM(nn.Module):
         for i, depth in enumerate(depths):
             for d in range(depth):
                 self.add_module(f"layers_{i}_blocks_{d}", VSSBlock(
-                    dims[i], ssm_ratio, dt_rank, mlp_ratio))
+                    dims[i], ssm_ratio, dt_rank, mlp_ratio, next(dpr)))
             if i < len(depths) - 1:
                 self.add_module(f"layers_{i}_downsample_conv",
                                 StridedConv3x3(dims[i], dims[i + 1]))
                 self.add_module(f"layers_{i}_downsample_norm",
                                 _layer_norm_module(dims[i + 1]))
 
-    def forward(self, x):
+    def forward(self, x, gen=None):
         if x.shape[-1] == 1:
             x = torch.cat([x, x, x], dim=-1)      # grayscale -> 3 channels
         x = x.to(self.dtype)
@@ -178,7 +217,7 @@ class VSSM(nn.Module):
         x = layer_norm(self.patch_embed_norm2, self.patch_embed_conv2(x))
         for i, depth in enumerate(self.depths):
             for d in range(depth):
-                x = getattr(self, f"layers_{i}_blocks_{d}")(x)
+                x = getattr(self, f"layers_{i}_blocks_{d}")(x, gen)
             if i < len(self.depths) - 1:
                 x = getattr(self, f"layers_{i}_downsample_conv")(x)
                 x = layer_norm(getattr(self, f"layers_{i}_downsample_norm"), x)
@@ -187,8 +226,10 @@ class VSSM(nn.Module):
 
 
 def build_vssm_from_config(vssm_cfg, dtype=torch.float32):
-    """VSSM from the reference MODEL.VSSM dict, parsed as
-    ``xpoint_tpu.models.vssm.build_vssm_from_config`` parses it. Anything but forward type v05_noz (cross2d, no gate, no
+    """VSSM from the reference MODEL.VSSM dict (with MODEL.DROP_PATH_RATE
+    merged in as ``DROP_PATH_RATE``), parsed as
+    ``xpoint_tpu.models.vssm.build_vssm_from_config`` parses it. Anything
+    but forward type v05_noz (cross2d, no gate, no
     output activation) with d_state 1 and a bias-free 3x3 depthwise conv
     raises NotImplementedError."""
     get = vssm_cfg.get
@@ -211,5 +252,6 @@ def build_vssm_from_config(vssm_cfg, dtype=torch.float32):
         ssm_ratio=float(get("SSM_RATIO", 1.0)),
         dt_rank=dt_rank if dt_rank == "auto" else int(dt_rank),
         mlp_ratio=float(get("MLP_RATIO", 4.0)),
+        drop_path_rate=float(get("DROP_PATH_RATE", 0.2)),
         dtype=dtype,
     )

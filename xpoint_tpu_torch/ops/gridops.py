@@ -1,9 +1,21 @@
-"""depth_to_space in NHWC (port of ``xpoint_tpu/ops/gridops.py:28``).
+"""space_to_depth / depth_to_space in NHWC (port of
+``xpoint_tpu/ops/gridops.py``).
 
 The depth channel order is (i, j, c) with c minor: channel
-``(i * r + j) * C + c`` goes to spatial offset (i, j), channel c. That is
-not ``nn.PixelShuffle``'s (c, i, j) order; the two agree only for C == 1.
+``(i * r + j) * C + c`` holds spatial offset (i, j), channel c. That is
+not ``nn.PixelShuffle``'s / ``F.pixel_unshuffle``'s (c, i, j) order; the two
+agree only for C == 1.
 """
+
+
+def space_to_depth(x, block_size):
+    """(B, H, W) or (B, H, W, C) -> (B, H/r, W/r, r*r*C)."""
+    if x.ndim == 3:
+        x = x[..., None]
+    B, H, W, C = x.shape
+    r = block_size
+    x = x.reshape(B, H // r, r, W // r, r, C).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(B, H // r, W // r, r * r * C)
 
 
 def depth_to_space(x, block_size):

@@ -1,10 +1,14 @@
-"""Bidirectional N=1 selective scan in token layout (port of
-``xpoint_tpu/ops/selective_scan_pallas.py::selective_scan_fused_bidir_tok``).
+"""Bidirectional N=1 selective scan in token layout, forward and backward
+(port of ``xpoint_tpu/ops/selective_scan_pallas.py::
+selective_scan_fused_bidir_tok`` and its custom VJP).
 
 On a CUDA tensor :func:`selective_scan_bidir` launches the Hopper kernel
 ``csrc/selective_scan_bidir.cu`` (replacing the TPU kernel
-``_fused_bidir_kernel``); on a CPU tensor it runs
-:func:`selective_scan_bidir_plain`, a sequential loop over L in fp32.
+``_fused_bidir_kernel``) and :func:`selective_scan_bidir_bwd` launches
+``csrc/selective_scan_bidir_bwd.cu`` (replacing ``_fused_bidir_bwd_kernel``);
+on a CPU tensor each runs its plain version, a sequential loop over L in
+fp32 (fp64 for fp64 operands, so that ``gradcheck`` can hold
+:class:`SelectiveScanBidir`).
 
 Operands (lane m = (b * 2 + j) * Dim + d of an (L, M) plane, M = B*2*Dim):
   u_t (L, B, 2, Dim) token-major input, shared by both directions;
@@ -12,8 +16,12 @@ Operands (lane m = (b * 2 + j) * Dim + d of an (L, M) plane, M = B*2*Dim):
   bc_t, cc_t (2, L, B, 2) compact N=1 B/C scalars, one per (b, j) group;
   A, D, delta_bias (4*Dim,) ordered k = 2r + j:
     [r0 j0 | r0 j1 | r1 j0 | r1 j1].
-Returns (y_f, y_r), each (L, B, 2, Dim) in the dtype of dt_t, in base token
-order (the reversed lanes are scanned right to left, never flipped).
+The forward returns (y_f, y_r), each (L, B, 2, Dim) in the dtype of dt_t, in
+base token order (the reversed lanes are scanned right to left, never
+flipped). With ``emit_ckpt`` it also returns the checkpoints (hck_f, hck_r),
+fp32 (ceil(L / 256), M): each lane's entry state of every 256-token chunk,
+from the left on forward lanes and from the right on reversed lanes (the
+JAX kernel's (nl, 8, Mp) blocks hold the same values in row 0).
 """
 import ctypes
 
@@ -21,6 +29,7 @@ import torch
 
 from ..kernels import build
 
+CKPT_CHUNK = 256
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -29,40 +38,131 @@ def _softplus(x):
     return x.clamp_min(0) + torch.log1p(torch.exp(-x.abs()))
 
 
-def selective_scan_bidir_plain(u_t, dt_t, bc_t, cc_t, A, D, delta_bias):
-    """Plain PyTorch version: fp32 sequential recurrence over L."""
+def _compute_dtype(dtype):
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def _lane_set(r, u_t, dt_t, bc_t, cc_t, A, D, delta_bias):
+    """The (L, M) planes of lane set r in the compute dtype: x = dt + bias,
+    delta, a, the expanded B and C, and the lane constants A and D."""
     L, B, K2, Dim = u_t.shape
     M, G, HD = B * K2 * Dim, B * K2, K2 * Dim
-    u = u_t.reshape(L, M).float()
-    outs = []
+    cd = _compute_dtype(u_t.dtype)
+    lane = lambda v: v[r * HD:(r + 1) * HD].to(cd).repeat(B)  # noqa: E731
+    expand = lambda v: (  # noqa: E731
+        v[r].reshape(L, G).to(cd).repeat_interleave(Dim, dim=1))
+    x = dt_t[r].reshape(L, M).to(cd) + lane(delta_bias)
+    delta = _softplus(x)
+    A_l = lane(A)
+    return x, delta, torch.exp(delta * A_l), expand(bc_t), expand(cc_t), \
+        A_l, lane(D)
+
+
+def _scan_order(r, t0, t1):
+    return range(t0, t1) if r == 0 else range(t1 - 1, t0 - 1, -1)
+
+
+def selective_scan_bidir_plain(u_t, dt_t, bc_t, cc_t, A, D, delta_bias,
+                               emit_ckpt=False):
+    """Plain PyTorch version: fp32 sequential recurrence over L."""
+    L, B, K2, Dim = u_t.shape
+    M = B * K2 * Dim
+    n_chunks = -(-L // CKPT_CHUNK)
+    cd = _compute_dtype(u_t.dtype)
+    u = u_t.reshape(L, M).to(cd)
+    outs, ckpts = [], []
     for r in (0, 1):
-        lane = lambda x: x[r * HD:(r + 1) * HD].float().repeat(B)  # noqa: E731
-        delta = _softplus(dt_t[r].reshape(L, M).float() + lane(delta_bias))
-        a = torch.exp(delta * lane(A))
-        bcx = bc_t[r].reshape(L, G).float().repeat_interleave(Dim, dim=1)
-        ccx = cc_t[r].reshape(L, G).float().repeat_interleave(Dim, dim=1)
+        _, delta, a, bcx, ccx, _, D_l = _lane_set(r, u_t, dt_t, bc_t, cc_t,
+                                                  A, D, delta_bias)
         b = delta * u * bcx
         h = torch.empty_like(b)
-        if r == 0:
-            h[0] = b[0]
-            for t in range(1, L):
-                torch.addcmul(b[t], a[t], h[t - 1], out=h[t])
-        else:
-            h[L - 1] = b[L - 1]
-            for t in range(L - 2, -1, -1):
-                torch.addcmul(b[t], a[t], h[t + 1], out=h[t])
-        y = ccx * h + lane(D) * u
-        outs.append(y.to(dt_t.dtype).reshape(L, B, K2, Dim))
+        hck = torch.zeros(n_chunks, M, dtype=cd, device=u.device)
+        carry = torch.zeros(M, dtype=cd, device=u.device)
+        for t in _scan_order(r, 0, L):
+            if r == 0 and t % CKPT_CHUNK == 0:
+                hck[t // CKPT_CHUNK] = carry
+            elif r == 1 and (t == L - 1 or (t + 1) % CKPT_CHUNK == 0):
+                hck[t // CKPT_CHUNK] = carry
+            carry = torch.addcmul(b[t], a[t], carry)
+            h[t] = carry
+        outs.append((ccx * h + D_l * u).to(dt_t.dtype).reshape(L, B, K2, Dim))
+        ckpts.append(hck)
+    if emit_ckpt:
+        return outs[0], outs[1], ckpts[0], ckpts[1]
     return outs[0], outs[1]
 
 
-def _check_operands(u_t, dt_t, bc_t, cc_t, A, D, delta_bias):
+def selective_scan_bidir_bwd_plain(u_t, dt_t, bc_t, cc_t, A, D, delta_bias,
+                                   hck_f, hck_r, g_f, g_r):
+    """Plain PyTorch version of the backward: rebuilds h chunk by chunk from
+    the checkpoints, then runs the adjoint step by step (fp32 carry).
+
+    g_f, g_r are the cotangents of y_f, y_r. Returns the seven cotangents
+    (du_t, ddt_t, dbc_t, dcc_t, dA, dD, ddelta_bias) in the dtypes and
+    shapes of the inputs; the per-lane dA/dD/dbias are summed over the batch
+    copies of each lane constant."""
+    L, B, K2, Dim = u_t.shape
+    M, G, HD = B * K2 * Dim, B * K2, K2 * Dim
+    cd = _compute_dtype(u_t.dtype)
+    u = u_t.reshape(L, M).to(cd)
+    du = torch.zeros(L, M, dtype=cd, device=u.device)
+    ddt, dbc, dcc, dconst = [], [], [], []
+    for r, hck, gy in ((0, hck_f, g_f), (1, hck_r, g_r)):
+        x, delta, a, bcx, ccx, A_l, D_l = _lane_set(r, u_t, dt_t, bc_t, cc_t,
+                                                    A, D, delta_bias)
+        b = delta * u * bcx
+        g = gy.reshape(L, M).to(cd)
+        # h_t and its predecessor in scan order (h_{t-1} / h_{t+1}), one
+        # chunk at a time from its entry state
+        h, h_prev = torch.empty_like(b), torch.empty_like(b)
+        for c in range(hck.shape[0]):
+            carry = hck[c].to(cd)
+            for t in _scan_order(r, c * CKPT_CHUNK,
+                                 min(L, (c + 1) * CKPT_CHUNK)):
+                h_prev[t] = carry
+                carry = torch.addcmul(b[t], a[t], carry)
+                h[t] = carry
+        gC = g * ccx
+        dh = torch.empty_like(b)
+        e = torch.zeros(M, dtype=cd, device=u.device)     # a_next * dh_next
+        for t in _scan_order(1 - r, 0, L):
+            dh[t] = gC[t] + e
+            e = a[t] * dh[t]
+        da = dh * h_prev
+        ddt_raw = (dh * u * bcx + da * A_l * a) * torch.sigmoid(x)
+        du += g * D_l + dh * delta * bcx
+        ddt.append(ddt_raw)
+        dbc.append((dh * delta * u).reshape(L, G, Dim).sum(-1))
+        dcc.append((g * h).reshape(L, G, Dim).sum(-1))
+        dconst.append(torch.stack([(da * a * delta).sum(0), (g * u).sum(0),
+                                   ddt_raw.sum(0)]))
+    return _cotangents(u_t, dt_t, bc_t, A, du, ddt, dbc, dcc,
+                       torch.stack(dconst))
+
+
+def _cotangents(u_t, dt_t, bc_t, A, du, ddt, dbc, dcc, dconst):
+    """(L, M) / (L, G) / (2, 3, M) results -> the input layouts and dtypes
+    (the JAX ``_fused_bidir_tok_bwd`` glue). dconst: [direction][dA, dD,
+    dbias][lane], summed here over the batch copies of each constant."""
+    L, B, K2, Dim = u_t.shape
+    red = dconst.reshape(2, 3, B, K2 * Dim).sum(2)          # (2, 3, HD)
+    dA, dD, dbias = (red[:, i].reshape(-1).to(A.dtype) for i in range(3))
+    return (du.to(u_t.dtype).reshape(L, B, K2, Dim),
+            torch.stack(ddt).to(dt_t.dtype).reshape(2, L, B, K2, Dim),
+            torch.stack(dbc).to(bc_t.dtype).reshape(2, L, B, K2),
+            torch.stack(dcc).to(bc_t.dtype).reshape(2, L, B, K2),
+            dA, dD, dbias)
+
+
+def _check_operands(u_t, dt_t, bc_t, cc_t, A, D, delta_bias, extra=None):
     L, B, K2, Dim = u_t.shape
     if K2 != 2:
         raise ValueError(f"u_t must be (L, B, 2, Dim), got {tuple(u_t.shape)}")
     want = {"dt_t": (dt_t, (2, L, B, 2, Dim)), "bc_t": (bc_t, (2, L, B, 2)),
             "cc_t": (cc_t, (2, L, B, 2)), "A": (A, (4 * Dim,)),
             "D": (D, (4 * Dim,)), "delta_bias": (delta_bias, (4 * Dim,))}
+    extra = extra or {}
+    want.update(extra)
     for name, (x, shape) in want.items():
         if tuple(x.shape) != shape:
             raise ValueError(f"{name} must be {shape}, got {tuple(x.shape)}")
@@ -71,46 +171,146 @@ def _check_operands(u_t, dt_t, bc_t, cc_t, A, D, delta_bias):
             raise ValueError(f"{name} is on {x.device}, u_t on {u_t.device}")
         if not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    dtypes = {x.dtype for x in (u_t, dt_t, bc_t, cc_t)}
-    if len(dtypes) != 1 or u_t.dtype not in _DTYPE_CODE:
-        raise TypeError(f"u_t/dt_t/bc_t/cc_t must share float32 or bfloat16, "
-                        f"got {sorted(map(str, dtypes))}")
-    if any(x.dtype != torch.float32 for x in (A, D, delta_bias)):
-        raise TypeError("A, D, delta_bias must be float32")
+    planes = [u_t, dt_t, bc_t, cc_t] + [x for n, (x, s) in extra.items()
+                                        if n.startswith("g_")]
+    dtypes = {x.dtype for x in planes}
+    fp64 = dtypes == {torch.float64} and u_t.device.type == "cpu"
+    if len(dtypes) != 1 or not (u_t.dtype in _DTYPE_CODE or fp64):
+        raise TypeError(f"u_t/dt_t/bc_t/cc_t (and the cotangents) must share "
+                        f"float32 or bfloat16 (float64 on the CPU), got "
+                        f"{sorted(map(str, dtypes))}")
+    const = torch.float64 if fp64 else torch.float32
+    ckpts = [x for n, (x, s) in extra.items() if n.startswith("hck")]
+    if any(x.dtype != const for x in (A, D, delta_bias, *ckpts)):
+        raise TypeError(f"A, D, delta_bias (and the checkpoints) must be "
+                        f"{const}")
 
 
-def _launch(u_t, dt_t, bc_t, cc_t, A, D, delta_bias):
+def _device_kind(x, what):
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {x.device}")
+    return x.device.type
+
+
+def _launch(u_t, dt_t, bc_t, cc_t, A, D, delta_bias, emit_ckpt):
     lib = build.load("selective_scan_bidir")
     fn = lib.xp_selective_scan_bidir
     fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 12
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 14
                    + [ctypes.c_int] * 3 + [ctypes.c_void_p])
     L, B, K2, Dim = u_t.shape
+    M = B * K2 * Dim
     y_f = torch.empty_like(u_t)
     y_r = torch.empty_like(u_t)
+    hck = (torch.empty(2, -(-L // CKPT_CHUNK), M, device=u_t.device)
+           if emit_ckpt else None)
     err = fn(_DTYPE_CODE[u_t.dtype], u_t.data_ptr(), dt_t[0].data_ptr(),
              dt_t[1].data_ptr(), bc_t[0].data_ptr(), cc_t[0].data_ptr(),
              bc_t[1].data_ptr(), cc_t[1].data_ptr(), A.data_ptr(),
              D.data_ptr(), delta_bias.data_ptr(), y_f.data_ptr(),
-             y_r.data_ptr(), L, B * K2 * Dim, Dim,
+             y_r.data_ptr(), hck[0].data_ptr() if emit_ckpt else None,
+             hck[1].data_ptr() if emit_ckpt else None, L, M, Dim,
              torch.cuda.current_stream(u_t.device).cuda_stream)
     build.check(lib, err, "selective_scan_bidir launch")
     selective_scan_bidir.launches += 1
+    if emit_ckpt:
+        return y_f, y_r, hck[0], hck[1]
     return y_f, y_r
 
 
-def selective_scan_bidir(u_t, dt_t, bc_t, cc_t, A, D, delta_bias):
+def selective_scan_bidir(u_t, dt_t, bc_t, cc_t, A, D, delta_bias,
+                         emit_ckpt=False):
     """Forward and reversed selective scans of one SS2D block (see module
     docstring). CUDA tensors launch the kernel (counted in
     ``selective_scan_bidir.launches``); CPU tensors run the plain version."""
     _check_operands(u_t, dt_t, bc_t, cc_t, A, D, delta_bias)
-    if u_t.device.type == "cpu":
+    if _device_kind(u_t, "selective_scan_bidir") == "cpu":
         return selective_scan_bidir_plain(u_t, dt_t, bc_t, cc_t, A, D,
-                                          delta_bias)
-    if u_t.device.type != "cuda":
-        raise ValueError(f"selective_scan_bidir: unsupported device "
-                         f"{u_t.device}")
-    return _launch(u_t, dt_t, bc_t, cc_t, A, D, delta_bias)
+                                          delta_bias, emit_ckpt)
+    return _launch(u_t, dt_t, bc_t, cc_t, A, D, delta_bias, emit_ckpt)
 
 
 selective_scan_bidir.launches = 0
+
+
+def _launch_bwd(u_t, dt_t, bc_t, cc_t, A, D, delta_bias, hck_f, hck_r, g_f,
+                g_r):
+    lib = build.load("selective_scan_bidir_bwd")
+    fn = lib.xp_selective_scan_bidir_bwd
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 22
+                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    L, B, K2, Dim = u_t.shape
+    M, G = B * K2 * Dim, B * K2
+    dev = u_t.device
+    du = torch.zeros(L, M, device=dev)
+    ddt = torch.empty(2, L, M, dtype=dt_t.dtype, device=dev)
+    dbcc = torch.zeros(4, L, G, device=dev)        # dbc_f, dcc_f, dbc_r, dcc_r
+    dconst = torch.empty(2, 3, M, device=dev)
+    err = fn(_DTYPE_CODE[u_t.dtype], u_t.data_ptr(), dt_t[0].data_ptr(),
+             dt_t[1].data_ptr(), bc_t[0].data_ptr(), cc_t[0].data_ptr(),
+             bc_t[1].data_ptr(), cc_t[1].data_ptr(), g_f.data_ptr(),
+             g_r.data_ptr(), hck_f.data_ptr(), hck_r.data_ptr(), A.data_ptr(),
+             D.data_ptr(), delta_bias.data_ptr(), du.data_ptr(),
+             ddt[0].data_ptr(), ddt[1].data_ptr(), dbcc[0].data_ptr(),
+             dbcc[1].data_ptr(), dbcc[2].data_ptr(), dbcc[3].data_ptr(),
+             dconst.data_ptr(), L, M, Dim,
+             torch.cuda.current_stream(dev).cuda_stream)
+    build.check(lib, err, "selective_scan_bidir_bwd launch")
+    selective_scan_bidir_bwd.launches += 1
+    return _cotangents(u_t, dt_t, bc_t, A, du, list(ddt), list(dbcc[0::2]),
+                       list(dbcc[1::2]), dconst)
+
+
+def selective_scan_bidir_bwd(u_t, dt_t, bc_t, cc_t, A, D, delta_bias,
+                             hck_f, hck_r, g_f, g_r):
+    """Backward of :func:`selective_scan_bidir` from its inputs, its
+    checkpoints and the cotangents g_f, g_r of (y_f, y_r). CUDA tensors
+    launch the kernel (counted in ``selective_scan_bidir_bwd.launches``);
+    CPU tensors run the plain version."""
+    L, B, K2, Dim = u_t.shape
+    ck = (-(-L // CKPT_CHUNK), B * K2 * Dim)
+    _check_operands(u_t, dt_t, bc_t, cc_t, A, D, delta_bias, extra={
+        "hck_f": (hck_f, ck), "hck_r": (hck_r, ck),
+        "g_f": (g_f, tuple(u_t.shape)), "g_r": (g_r, tuple(u_t.shape))})
+    if _device_kind(u_t, "selective_scan_bidir_bwd") == "cpu":
+        return selective_scan_bidir_bwd_plain(u_t, dt_t, bc_t, cc_t, A, D,
+                                              delta_bias, hck_f, hck_r, g_f,
+                                              g_r)
+    return _launch_bwd(u_t, dt_t, bc_t, cc_t, A, D, delta_bias, hck_f, hck_r,
+                       g_f, g_r)
+
+
+selective_scan_bidir_bwd.launches = 0
+
+
+class SelectiveScanBidir(torch.autograd.Function):
+    """Differentiable :func:`selective_scan_bidir` (the JAX custom VJP): the
+    forward runs the scan with checkpoints and saves only the inputs and the
+    checkpoints; the backward runs :func:`selective_scan_bidir_bwd`."""
+
+    @staticmethod
+    def forward(ctx, u_t, dt_t, bc_t, cc_t, A, D, delta_bias):
+        y_f, y_r, hck_f, hck_r = selective_scan_bidir(
+            u_t, dt_t, bc_t, cc_t, A, D, delta_bias, emit_ckpt=True)
+        ctx.save_for_backward(u_t, dt_t, bc_t, cc_t, A, D, delta_bias,
+                              hck_f, hck_r)
+        return y_f, y_r
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g_f, g_r):
+        saved = ctx.saved_tensors
+        u_t = saved[0]
+        g_f = torch.zeros_like(u_t) if g_f is None else g_f.contiguous()
+        g_r = torch.zeros_like(u_t) if g_r is None else g_r.contiguous()
+        return selective_scan_bidir_bwd(*saved, g_f, g_r)
+
+
+def scan_bidir(u_t, dt_t, bc_t, cc_t, A, D, delta_bias):
+    """The scan as SS2D calls it: through :class:`SelectiveScanBidir` when a
+    gradient is wanted, else the plain forward without checkpoints."""
+    args = (u_t, dt_t, bc_t, cc_t, A, D, delta_bias)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in args):
+        return SelectiveScanBidir.apply(*args)
+    return selective_scan_bidir(*args)

@@ -1,0 +1,109 @@
+"""Where the time of one flagship train step goes, on the card.
+
+    python -m xpoint_tpu_torch.train.profile_step
+
+Builds the flagship train step with :func:`flagship_train` (the one
+``chip_smoke.py`` times), times ``N_TIMED`` unprofiled steps after a
+warm-up, then profiles one more with torch.profiler (CPU + CUDA activities)
+and prints what ``eval/profile_pipeline.report`` prints. The profiler's CPU
+tracing inflates the profiled step's wall time, so the device's idle share
+is also given against the median unprofiled step. Needs a CUDA card.
+"""
+import copy
+import sys
+import time
+
+import numpy as np
+import torch
+
+B, S, N_TIMED = 16, 256, 7
+N_PAIRS, S0, N_KP = 32, 320, 256     # the synthetic corpus
+
+
+class SyntheticPairs:
+    """A seeded synthetic corpus with the ImagePairDataset loading pair
+    (``_load_images`` / ``_load_keypoints``): smooth random optical images,
+    the thermal side a seeded contrast-inverting transform of them, and
+    seeded keypoint coordinates (row, col); N_PAIRS pairs at S0^2 with
+    N_KP keypoints each, from seed 0."""
+
+    def __init__(self):
+        rng = np.random.default_rng(0)
+        base = rng.uniform(size=(N_PAIRS, S0 // 8, S0 // 8)).astype(
+            np.float32)
+        opt = np.kron(base, np.ones((8, 8), np.float32))   # blocky shapes
+        opt += 0.1 * rng.normal(size=opt.shape).astype(np.float32)
+        self.optical = np.clip(opt, 0, 1)
+        self.thermal = np.clip(1.0 - self.optical ** 1.5 + 0.05 * rng.normal(
+            size=opt.shape).astype(np.float32), 0, 1)
+        self.kps = rng.uniform(0, S0, size=(N_PAIRS, N_KP, 2)).astype(
+            np.float32)
+
+    def __len__(self):
+        return len(self.optical)
+
+    def _load_images(self, i):
+        return self.optical[i], self.thermal[i]
+
+    def _load_keypoints(self, i):
+        return self.kps[i]
+
+
+def flagship_train(dev):
+    """The flagship training config (VMAMBA_TRAIN_CFG: 256^2, bf16,
+    DropPath 0.2, RegNet + HM loss, hard negatives) from seed 0, on the
+    SyntheticPairs corpus made resident by load_resident_pair_data and
+    batched by make_resident_batch_fn. Returns (state, step, data, meta):
+    ``step(state, {"data": data, "idx": idx}, gen)`` runs one train step
+    on the samples ``idx``."""
+    from ..data.device_dataset import (load_resident_pair_data,
+                                       make_resident_batch_fn)
+    from ..losses import XPointLoss
+    from ..models import VMAMBA_TRAIN_CFG, build_xpoint
+    from . import TrainState, make_optimizer, make_train_step
+
+    cfg = copy.deepcopy(VMAMBA_TRAIN_CFG)
+    module, _ = build_xpoint(cfg["model"], device=dev, seed=0)
+    state = TrainState(module, make_optimizer(cfg["training"])[0])
+    data, meta = load_resident_pair_data(SyntheticPairs(), device=dev)
+    step = make_train_step(
+        module, XPointLoss(dict(cfg["loss"], space_to_depth_ratio=8)),
+        batch_fn=make_resident_batch_fn(cfg["dataset"], meta, hm_input=True))
+    return state, step, data, meta
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("profile_step: no CUDA device", file=sys.stderr)
+        return 1
+    from torch.profiler import ProfilerActivity, profile
+
+    from ..eval.profile_pipeline import report
+
+    dev = torch.device("cuda")
+    state, step, data, meta = flagship_train(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    idx_gen = torch.Generator(device=dev).manual_seed(1)
+
+    def run():
+        idx = torch.randperm(meta["n"], generator=idx_gen, device=dev)[:B]
+        t0 = time.perf_counter()
+        step(state, {"data": data, "idx": idx}, gen)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    run()                                   # warm-up: kernel builds
+    step_ms = float(np.median([run() for _ in range(N_TIMED)]))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall_ms = run()
+    busy_ms = report(prof, wall_ms, "train step (profiled, wall inflated "
+                     "by the profiler)", batch=B, size=S,
+                     unprofiled_step_ms=step_ms)
+    print(f"unprofiled step {step_ms:.3f} ms (median of {N_TIMED}): device "
+          f"busy {busy_ms:.3f} ms, idle {100 * (1 - busy_ms / step_ms):.1f}%")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
