@@ -31,6 +31,30 @@ Phases (any failure exits non-zero and prints no result):
      before, read just after);
   8. the tiny fp32 train step (no DropPath, no HM head) on the card against
      the CPU from the same weights and batch: loss and every gradient;
+  9. K4 (projective warp): kernel against its plain version at the calls
+     one homographic-adaptation (HA) step makes at 512^2 with 8 warps
+     (image warp multi bilinear/reflection, probability unwarp batch
+     bilinear/zeros of one map (prod, sum) or two (window), mask unwarp
+     batch nearest/zeros), homographies from the HA sampler plus a
+     near-90-degree rotation and the identity: bilinear max abs error
+     (limit 1e-5: only the blend's FMA contraction differs), nearest
+     exactly equal; device times (events behind queued work, so that the
+     host's launch path is not in them), bytes bound, and the time of
+     F.grid_sample(align_corners=True) on the same coordinates, held to the
+     kernel loosely (mean 1e-3; nearest 1% of the values);
+ 10. HA label export at full width: the flagship detector (bf16, seed 0)
+     on 512^2 synthetic pairs, HA_DEFAULT_CONFIG (num 100, prod) for three
+     timed samples after a warm-up, then the export settings
+     (EXPORT_HA_CONFIG: window, num 10) through export_keypoints into the
+     numpy sink; finite non-zero maps in [0, 1], count within [min_count,
+     num], keypoints for every sample, K4 / K1 / K2 launches per sample
+     (counts zeroed just before, read just after) as the code predicts;
+ 11. K5 (single-direction fused scan): kernel against its plain version at
+     the serving stage shapes (B=8, bf16; limit 2e-2 as K1's), then the
+     v052d_noz flagship-width model through make_pair_pipeline at 512^2,
+     B=8 (16 K5 launches per call);
+ 12. the tiny fp32 model's HA (prod, num 5, 64^2) on the card against the
+     CPU: prob within 1e-4 where both hold the same count, keypoint sets;
 then a details JSON line, the per-kernel JSON line, the card line and the
 final JSON line.
 """
@@ -41,6 +65,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
@@ -58,6 +83,26 @@ def cuda_ms(fn, inputs):
     for args in inputs:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(*args)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def cuda_ms_queued(fn, inputs, delay):
+    """As cuda_ms, for work of some microseconds: ``delay()`` first queues a
+    few milliseconds of device work, so that the start event, the launches
+    of ``fn`` and the end event are all enqueued while the card is still
+    busy and the events bracket device time only, not the host's launch
+    path."""
+    times = []
+    for args in inputs:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        delay()
         start.record()
         fn(*args)
         end.record()
@@ -466,6 +511,377 @@ def phase_train_reference(dev):
             "grad_err": worst}
 
 
+HA_S, HA_WB = 512, 8            # the HA image size and warps per step
+
+
+def _ha_homography_sets(n_sets, dev):
+    """n_sets stacks of HA_WB fp32 homographies at HA_S^2: six from the HA
+    sampler (max_angle pi), a rotation 0.05 rad short of 90 degrees about
+    the image centre, and the identity."""
+    from xpoint_tpu_torch.geometry.homography import sample_homography
+    from xpoint_tpu_torch.selfsup.homographic_adaptation import (
+        HA_DEFAULT_CONFIG)
+    rng = np.random.default_rng(9)
+    c, th = (HA_S - 1) / 2.0, math.pi / 2 - 0.05
+    rot = np.array([[math.cos(th), -math.sin(th), 0],
+                    [math.sin(th), math.cos(th), 0], [0, 0, 1]])
+    shift = np.array([[1, 0, c], [0, 1, c], [0, 0, 1]])
+    near90 = shift @ rot @ np.linalg.inv(shift)
+    sets = []
+    for _ in range(n_sets):
+        hs = [sample_homography((HA_S, HA_S), rng=rng,
+                                **HA_DEFAULT_CONFIG["homographies"])
+              for _ in range(HA_WB - 2)] + [near90, np.eye(3)]
+        sets.append(torch.from_numpy(np.stack(hs).astype(np.float32)).to(dev))
+    return sets
+
+
+def phase_warp(dev):
+    """K4 against its plain version at the calls of one HA step."""
+    import torch.nn.functional as F
+    from xpoint_tpu_torch.geometry.homography import (
+        compute_valid_mask_device)
+    from xpoint_tpu_torch.ops.warp import (_source_coords_from_inverse,
+                                           inverse_homographies,
+                                           multi_source, warp_from_inverse)
+    from xpoint_tpu_torch.ops.warp_projective import (warp_batch,
+                                                      warp_projective)
+    g = torch.Generator(device=dev).manual_seed(3)
+    S, n = HA_S, HA_WB
+    h_sets = _ha_homography_sets(6, dev)
+    # ~10 ms of queued device work (eight 8192^3 bf16 products) ahead of
+    # each timed call: the plain version enqueues some 40 small kernels
+    big = torch.ones(8192, 8192, dtype=torch.bfloat16, device=dev)
+    delay = lambda: [torch.mm(big, big) for _ in range(8)]  # noqa: E731
+    rows = []
+    for name, multi, mode, padding, C in (
+            ("image warp", True, "bilinear", "reflection", 2),
+            ("prob unwarp", False, "bilinear", "zeros", 1),
+            ("prob unwarp, 2 maps", False, "bilinear", "zeros", 2),
+            ("mask unwarp", False, "nearest", "zeros", 1)):
+        inputs = []
+        for hs in h_sets:
+            if multi:
+                img, hinv = torch.rand(1, S, S, C, generator=g,
+                                       device=dev), inverse_homographies(hs)
+            else:
+                # HA unwarps by the inverse homographies: the sampling
+                # matrix is the inverse of the inverse
+                hinv = inverse_homographies(torch.linalg.inv(hs))
+                img = (compute_valid_mask_device(hs, (S, S), 5, True)[
+                    ..., None] if mode == "nearest" else
+                    torch.rand(n, S, S, C, generator=g, device=dev))
+            inputs.append((img.contiguous(), hinv))
+        kernel = lambda img, hinv: warp_projective(  # noqa: E731
+            img, hinv, mode, padding, multi)
+        plain = lambda img, hinv: warp_from_inverse(  # noqa: E731
+            multi_source(img, n) if multi else img, hinv, mode, padding)
+        # the library's form: grid_sample on channels-first images and the
+        # normalised source coordinates, both prepared outside its time
+        library = lambda x, gr: F.grid_sample(  # noqa: E731
+            x, gr, mode=mode, padding_mode=padding, align_corners=True)
+        grids = []
+        for img, hinv in inputs:
+            ys, xs = _source_coords_from_inverse(hinv, S, S)
+            grid = torch.stack([xs / (S - 1) * 2 - 1, ys / (S - 1) * 2 - 1],
+                               -1).reshape(n, S, S, 2)
+            x = img.permute(0, 3, 1, 2).contiguous()
+            grids.append((x.expand(n, C, S, S) if multi else x, grid))
+        out = kernel(*inputs[0])
+        ref = plain(*inputs[0])
+        lib = library(*grids[0]).permute(0, 2, 3, 1)
+        torch.cuda.synchronize()
+        if multi:
+            ref = ref.reshape(n, S, S, 1, C).permute(0, 3, 1, 2, 4)
+            lib = lib.reshape(n, 1, S, S, C)
+        err = float((out - ref).abs().max())
+        n_diff = int((out != ref).sum())
+        finite = bool(torch.isfinite(out).all())
+        # grid_sample's coordinates pass through the normalisation, a few
+        # ulps away from the kernel's: held loosely, to show that it is the
+        # same function that is timed
+        lib_mean = float((out - lib).abs().mean())
+        lib_max = float((out - lib).abs().max())
+        lib_share = float((out != lib).float().mean())
+        ms = cuda_ms_queued(kernel, inputs[1:], delay)
+        launch_ms = cuda_ms(kernel, inputs[1:])     # host launch path incl.
+        plain_ms = cuda_ms_queued(plain, inputs[1:4], delay)
+        library_ms = cuda_ms_queued(library, grids[1:], delay)
+        # the whole entry point (inverse included), for the record
+        entry_ms = None if multi else cuda_ms(
+            lambda img, hs: warp_batch(img, hs, mode, padding),
+            [(i[0], torch.linalg.inv(hs)) for i, hs in
+             zip(inputs[1:], h_sets[1:])])
+        n_src = inputs[0][0].numel()
+        b_ms, b_by = bound(4 * (n_src + out.numel() + 9 * n),
+                           out.numel() * 8 + n * S * S * 30)
+        rows.append({"call": name, "multi": multi, "mode": mode,
+                     "padding": padding, "src": list(inputs[0][0].shape),
+                     "out": list(out.shape), "max_abs_err": err,
+                     "n_diff": n_diff, "ms": ms,
+                     "ms_with_host_launch": launch_ms, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by,
+                     "library_ms": library_ms,
+                     "library_mean_abs_diff": lib_mean,
+                     "library_max_abs_diff": lib_max,
+                     "library_share_differing": lib_share,
+                     "entry_point_ms": entry_ms})
+        print(f"K4 {name} {mode}/{padding} {list(inputs[0][0].shape)} x {n} "
+              f"-> {list(out.shape)}: max_abs_err={err} differing={n_diff} "
+              f"kernel_ms={ms} (with the host's launch path {launch_ms}) "
+              f"plain_ms={plain_ms} bound_ms={b_ms} ({b_by}) "
+              f"library_ms={library_ms} (grid_sample against the kernel: "
+              f"mean {lib_mean} max {lib_max} share differing {lib_share}) "
+              f"entry_point_ms={entry_ms}", flush=True)
+        if not finite or (n_diff if mode == "nearest" else err > 1e-5):
+            raise SystemExit(f"K4 disagrees with its plain version in the "
+                             f"{name}: {err}, {n_diff} values differ")
+        if lib_share > 1e-2 if mode == "nearest" else lib_mean > 1e-3:
+            raise SystemExit(f"grid_sample does not compute the {name}: "
+                             f"mean {lib_mean}, share {lib_share}")
+    return rows
+
+
+def _zero_counts():
+    from xpoint_tpu_torch.ops.nms import grid_nms_keep
+    from xpoint_tpu_torch.ops.selective_scan_cuda import (
+        selective_scan_bidir, selective_scan_fused_bkld)
+    from xpoint_tpu_torch.ops.warp_projective import warp_projective
+    fns = {"warp_projective": warp_projective,
+           "selective_scan_bidir": selective_scan_bidir,
+           "nms_sweep": grid_nms_keep,
+           "selective_scan_fused": selective_scan_fused_bkld}
+    for f in fns.values():
+        f.launches = 0
+    return lambda: {k: f.launches for k, f in fns.items()}
+
+
+def phase_ha(dev):
+    """HA at full width, then the label export (see the module docstring)."""
+    from xpoint_tpu_torch.eval.infer import XPointInference
+    from xpoint_tpu_torch.selfsup.export import NumpySink, export_keypoints
+    from xpoint_tpu_torch.selfsup.homographic_adaptation import (
+        EXPORT_HA_CONFIG, EXPORT_PREDICTION_CONFIG)
+    from xpoint_tpu_torch.selfsup.profile_ha import flagship_ha
+    module, sample_fn, cfg, dataset = flagship_ha(dev)
+    infer = XPointInference(module, EXPORT_PREDICTION_CONFIG)
+    rng = np.random.default_rng(0)
+    n_warps = cfg["num"] - 1
+    chunks = -(-n_warps // HA_WB)
+    # per sample: three warps a chunk; 8 SS2D blocks a forward, two forwards
+    # for the originals and two a chunk
+    expect = {"warp_projective": 3 * chunks,
+              "selective_scan_bidir": 8 * 2 * (1 + chunks)}
+    sample_fn(0, rng)                                       # warm-up
+    torch.cuda.synchronize()
+    samples = []
+    for i in (1, 2, 3):
+        read = _zero_counts()
+        t0 = time.perf_counter()
+        out = sample_fn(i, rng)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        prob, count = out["prob"], out["count"]
+        kps = infer.keypoints_from_prob(infer.nms(prob)[0])
+        counts = read()
+        row = {"seconds": sec, "forwards_per_s": 2 * cfg["num"] / sec,
+               "prob_max": float(prob.max()), "prob_mean": float(prob.mean()),
+               "count_max": float(count.max()),
+               "count_min": float(count.min()), "keypoints": len(kps),
+               "nms_sweeps": counts["nms_sweep"], "launches": counts}
+        samples.append(row)
+        print(f"HA sample {i} ({HA_S}^2, num {cfg['num']}, "
+              f"{cfg['aggregation']}): {row}", flush=True)
+        ok = (bool(torch.isfinite(prob).all()) and float(prob.min()) >= 0
+              and float(prob.max()) <= 1 and float(prob.max()) > 0
+              and cfg["min_count"] <= row["count_max"] <= cfg["num"]
+              and len(kps) > 0 and row["nms_sweeps"] > 0)
+        if not ok or any(counts[k] != v for k, v in expect.items()):
+            raise SystemExit(f"HA sample {i} failed its checks (expected "
+                             f"launches {expect})")
+
+    # the label export with the export settings
+    n_exp = 3
+    exp_chunks = -(-(EXPORT_HA_CONFIG["num"] - 1) // HA_WB)
+    sink = NumpySink()
+    kw = dict(ha_config=EXPORT_HA_CONFIG,
+              prediction_config=EXPORT_PREDICTION_CONFIG, seed=0)
+    export_keypoints(module, dataset, sink, max_samples=1, **kw)  # warm-up
+    torch.cuda.synchronize()
+    read = _zero_counts()
+    t0 = time.perf_counter()
+    n_done = export_keypoints(module, dataset, sink, max_samples=n_exp, **kw)
+    torch.cuda.synchronize()
+    sec = (time.perf_counter() - t0) / max(n_done, 1)
+    counts = read()
+    exp_expect = {"warp_projective": 3 * exp_chunks * n_done,
+                  "selective_scan_bidir": 8 * 2 * (1 + exp_chunks) * n_done}
+    n_kps = {n: {k: len(v) for k, v in g.items()}
+             for n, g in sink.groups.items()}
+    print(f"HA export ({HA_S}^2, num {EXPORT_HA_CONFIG['num']}, window): "
+          f"{n_done} samples, {sec} s/sample, launches {counts}, keypoints "
+          f"{n_kps}", flush=True)
+    if (n_done != n_exp - 1 or len(n_kps) != n_exp
+            or any(v == 0 for g in n_kps.values() for v in g.values())
+            or sorted(next(iter(n_kps.values()))) != ["keypoints_optical",
+                                                      "keypoints_thermal"]
+            or any(counts[k] != v for k, v in exp_expect.items())
+            or counts["nms_sweep"] < 2 * n_done):
+        raise SystemExit(f"HA export failed its checks (expected launches "
+                         f"{exp_expect})")
+    sec_med = sorted(r["seconds"] for r in samples)[len(samples) // 2]
+    launches = {k: sum(r["launches"][k] for r in samples) + counts[k]
+                for k in counts}
+    return {"num": cfg["num"], "chunks": chunks, "samples": samples,
+            "seconds_per_sample": sec_med,
+            "forwards_per_s": 2 * cfg["num"] / sec_med,
+            "launches_per_sample": expect,
+            "export": {"samples": n_done, "seconds_per_sample": sec,
+                       "launches": counts, "keypoints": n_kps},
+            "launches": launches,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+
+
+def fused_operands(g, L, Dim, dev, batch=B):
+    """bf16 operands of the single-direction scan at one stage shape; the
+    constants are the flagship's initialisation, as scan_operands'."""
+    bf = torch.bfloat16
+    r = lambda *s: (torch.randn(*s, generator=g, device=dev)  # noqa: E731
+                    * 0.5).to(bf)
+    u, dt = r(batch, 4, L, Dim), r(batch, 4, L, Dim)
+    bs, cs = r(batch, 4, L, 1), r(batch, 4, L, 1)
+    A = -torch.ones(4 * Dim, device=dev)
+    D = torch.ones(4 * Dim, device=dev)
+    lo, hi = math.log(0.001), math.log(0.1)
+    dt0 = torch.exp(torch.rand(4 * Dim, generator=g, device=dev) * (hi - lo)
+                    + lo)
+    return u, dt, A, bs, cs, D, dt0 + torch.log(-torch.expm1(-dt0))
+
+
+def phase_fused_scan(dev, stages, blocks_per_stage):
+    """K5 against its plain version at the serving stage shapes."""
+    from xpoint_tpu_torch.ops.selective_scan_cuda import (
+        selective_scan_fused_bkld, selective_scan_fused_bkld_plain)
+    g = torch.Generator(device=dev).manual_seed(5)
+    rows, tot = [], {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    max_err = 0.0
+    with torch.no_grad():
+        for (L, Dim), n_launch in zip(stages, blocks_per_stage):
+            inputs = [fused_operands(g, L, Dim, dev) for _ in range(6)]
+            y = selective_scan_fused_bkld(*inputs[0])
+            p = selective_scan_fused_bkld_plain(*inputs[0])
+            torch.cuda.synchronize()
+            err = float((y.float() - p.float()).abs().max())
+            finite = bool(torch.isfinite(y).all())
+            ms = cuda_ms(selective_scan_fused_bkld, inputs[1:])
+            plain_ms = cuda_ms(selective_scan_fused_bkld_plain, inputs[1:3])
+            M, G = B * 4 * Dim, B * 4
+            b_ms, b_by = bound(2 * (3 * L * M + 2 * L * G) + 3 * 4 * 4 * Dim,
+                               14 * L * M)
+            rows.append({"L": L, "Dim": Dim, "M": M, "max_abs_err": err,
+                         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                         "bound_by": b_by,
+                         "launches_per_pipeline_call": n_launch})
+            print(f"K5 L={L} Dim={Dim} M={M}: max_abs_err={err} "
+                  f"kernel_ms={ms} plain_ms={plain_ms} bound_ms={b_ms} "
+                  f"({b_by})", flush=True)
+            if not finite or err > 2e-2:
+                raise SystemExit(f"K5 disagrees with its plain version at "
+                                 f"L={L} Dim={Dim}: {err}")
+            max_err = max(max_err, err)
+            tot["ms"] += ms * n_launch
+            tot["plain_ms"] += plain_ms * n_launch
+            tot["bound_ms"] += b_ms * n_launch
+            del inputs
+    return rows, tot, max_err
+
+
+def phase_bidi_path(dev):
+    """The v052d_noz model at the flagship's width and depth through the
+    serving pipeline."""
+    from xpoint_tpu_torch.eval import make_pair_pipeline
+    from xpoint_tpu_torch.models import VMAMBA_MODEL_CFG, build_xpoint
+    cfg = copy.deepcopy(VMAMBA_MODEL_CFG)
+    cfg["use_attention"]["model_parameters"]["MODEL"]["VSSM"][
+        "SSM_FORWARDTYPE"] = "v052d_noz"
+    module, _ = build_xpoint(cfg, device=dev, seed=0)
+    run = make_pair_pipeline(module, (H, W), k=1024, nms_size=8,
+                             detection_threshold=0.015)
+    g = torch.Generator(device=dev).manual_seed(6)
+    images = [(torch.rand(B, H, W, 1, generator=g, device=dev),
+               torch.rand(B, H, W, 1, generator=g, device=dev))
+              for _ in range(4)]
+    run(*images[0])                                          # warm-up
+    torch.cuda.synchronize()
+    read = _zero_counts()
+    lat = []
+    for img_o, img_t in images[1:]:
+        t0 = time.perf_counter()
+        out = run(img_o, img_t)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+        for key, v in out.items():
+            if v.is_floating_point() and not bool(torch.isfinite(v).all()):
+                raise SystemExit(f"v052d_noz path: non-finite {key}")
+    counts = read()
+    n_calls = len(images) - 1
+    if (counts["selective_scan_fused"] != 16 * n_calls
+            or counts["selective_scan_bidir"] != 0
+            or tuple(out["prob_optical"].shape) != (B, H, W)):
+        raise SystemExit(f"v052d_noz path: launches {counts}, expected 16 "
+                         f"selective_scan_fused per call")
+    lat_ms = sorted(lat)[len(lat) // 2]
+    res = {"latency_ms": lat_ms, "latency_all_ms": lat,
+           "pairs_per_s": B / lat_ms * 1e3, "launches": counts,
+           "k5_launches_per_call": counts["selective_scan_fused"] / n_calls,
+           "matches": int(out["matched"].sum())}
+    print(f"v052d_noz path 512^2 B={B}: {res}", flush=True)
+    return res
+
+
+def phase_ha_reference(dev):
+    """The tiny fp32 model's HA on the card against the CPU. The two invert
+    the homographies with different last bits, so a mask pixel can flip and
+    move that pixel's count; the maps are compared where the counts agree."""
+    from xpoint_tpu_torch.eval.infer import XPointInference
+    from xpoint_tpu_torch.models import VMAMBA_MODEL_CFG, build_xpoint
+    from xpoint_tpu_torch.selfsup.export import make_prob_fn
+    from xpoint_tpu_torch.selfsup.homographic_adaptation import (
+        make_ha_fn, sample_ha_homographies)
+    cfg = copy.deepcopy(VMAMBA_MODEL_CFG)
+    cfg["use_attention"]["model_parameters"]["MODEL"]["VSSM"].update(
+        DEPTHS=[1, 1, 1, 1], EMBED_DIM=24)
+    cfg.update(descriptor_size=32, mixed_precision=False)
+    ha_cfg = {"aggregation": "prod", "num": 5, "erosion_radius": 2}
+    g = torch.Generator().manual_seed(0)
+    img_o, img_t = (torch.rand(2, 64, 64, 1, generator=g) for _ in range(2))
+    outs = []
+    for d in ("cpu", dev):
+        m, _ = build_xpoint(cfg, device=d)
+        run, merged = make_ha_fn(make_prob_fn(m), ha_cfg)
+        hs = torch.from_numpy(sample_ha_homographies(
+            merged, (64, 64), np.random.default_rng(1)))
+        out = run(img_o.to(d), img_t.to(d), hs.to(d))
+        infer = XPointInference(m, {"detection_threshold": 0.001, "nms": 4})
+        nms = infer.nms(out["prob"])
+        outs.append((out["prob"].cpu(), out["count"].cpu(),
+                     [{tuple(p) for p in infer.keypoints_from_prob(x)}
+                      for x in nms]))
+    (p_cpu, c_cpu, k_cpu), (p_gpu, c_gpu, k_gpu) = outs
+    same = c_cpu == c_gpu
+    err = float((p_cpu - p_gpu)[same].abs().max())
+    n_kp = sum(len(a | b) for a, b in zip(k_cpu, k_gpu))
+    n_kp_diff = sum(len(a ^ b) for a, b in zip(k_cpu, k_gpu))
+    res = {"prob_max_abs_err": err, "prob_max": float(p_cpu.max()),
+           "count_differs_px": int((~same).sum()), "pixels": same.numel(),
+           "keypoints": n_kp, "keypoints_differing": n_kp_diff}
+    print(f"HA reference (tiny fp32, card vs CPU): {res}", flush=True)
+    if (err > 1e-4 or (~same).float().mean() > 5e-3 or n_kp == 0
+            or n_kp_diff > 0.05 * n_kp):
+        raise SystemExit("the card's HA disagrees with the CPU's")
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -503,7 +919,25 @@ def main():
         dev, train_stages, [2 * d for d in depths])
     train_res = phase_train(dev)
     tref_res = phase_train_reference(dev)
+    warp_rows = phase_warp(dev)
+    ha_res = phase_ha(dev)
+    fused_rows, fused_tot, fused_err = phase_fused_scan(
+        dev, stages, [2 * d for d in depths])
+    bidi_res = phase_bidi_path(dev)
+    haref_res = phase_ha_reference(dev)
 
+    # each HA step makes the image warp, the mask unwarp and one probability
+    # unwarp: of one map per pair in prod aggregation (the three samples),
+    # of two in window aggregation (the export)
+    k4_prod = sum(r["launches"]["warp_projective"] for r in ha_res["samples"])
+    k4_export = ha_res["export"]["launches"]["warp_projective"]
+    if k4_prod % 3 or k4_export % 3:
+        raise SystemExit("HA launched K4 a number of times that is no "
+                         "multiple of its three calls per step")
+    k4_launches = {"image warp": (k4_prod + k4_export) // 3,
+                   "mask unwarp": (k4_prod + k4_export) // 3,
+                   "prob unwarp": k4_prod // 3,
+                   "prob unwarp, 2 maps": k4_export // 3}
     k1 = {"route": "cuda",
           "source": "xpoint_tpu_torch/csrc/selective_scan_bidir.cu",
           "replaces": "xpoint_tpu/ops/selective_scan_pallas.py:306",
@@ -534,16 +968,43 @@ def main():
          "plain_ms": tscan_tot["k3_plain_ms"],
          "bound_ms": tscan_tot["k3_bound_ms"], "bound_by": "bytes",
          "library_ms": None},
+    ] + [
+        {"name": "warp_projective", "path": f"ha ({r['call']})",
+         "route": "cuda",
+         "source": "xpoint_tpu_torch/csrc/warp_projective.cu",
+         "replaces": "xpoint_tpu/ops/warp_tiled.py:129",
+         "launches": k4_launches[r["call"]],
+         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+         "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+        for r in warp_rows
+    ] + [
+        {"name": "selective_scan_fused", "path": "serve (v052d_noz)",
+         "route": "cuda",
+         "source": "xpoint_tpu_torch/csrc/selective_scan_fused.cu",
+         "replaces": "xpoint_tpu/ops/selective_scan_pallas.py:121",
+         "launches": bidi_res["launches"]["selective_scan_fused"],
+         "max_abs_err": fused_err, "ms": fused_tot["ms"],
+         "plain_ms": fused_tot["plain_ms"],
+         "bound_ms": fused_tot["bound_ms"], "bound_by": "bytes",
+         "library_ms": None},
     ]
     print("details: " + json.dumps(
         {"card": card, "build_s": build_s, "k1_stages": scan_rows,
          "main_path": main_res, "k2": nms_res, "reference": ref_res,
          "train_scan_stages": tscan_rows, "train_path": train_res,
-         "train_reference": tref_res}), flush=True)
+         "train_reference": tref_res, "k4_calls": warp_rows, "ha": ha_res,
+         "k5_stages": fused_rows, "v052d_path": bidi_res,
+         "ha_reference": haref_res}), flush=True)
     print("serve: K1 ms/plain_ms/bound_ms are per pipeline call (sum over "
           "stage shapes x launches), K2's over all sweeps of one call; "
           "train: K1 and K3 per train step (sum over stage shapes x 4 "
-          "launches); launches count the whole run of each path", flush=True)
+          "launches); K4: one row per call of an HA step (8 warps at 512^2), "
+          "one launch each; each step makes the image warp, the mask unwarp "
+          "and one probability unwarp (one map in the prod samples, two in "
+          "the window export), and launches are the HA phase's; K5 per v052d_noz "
+          "pipeline call (16 launches); launches count the whole run of "
+          "each path", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

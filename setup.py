@@ -7,7 +7,7 @@ setup(
                  "multispectral image registration"),
     packages=find_packages(include=["xpoint_tpu", "xpoint_tpu.*",
                                     "xpoint_tpu_torch", "xpoint_tpu_torch.*"]),
-    package_data={"xpoint_tpu_torch": ["csrc/*.cu"]},
+    package_data={"xpoint_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     python_requires=">=3.10",
     install_requires=[
         "jax", "flax", "optax", "orbax-checkpoint", "einops",

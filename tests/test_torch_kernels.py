@@ -10,10 +10,13 @@ import numpy as np
 import pytest
 import torch
 
+from xpoint_tpu_torch.geometry.homography import sample_homography
+from xpoint_tpu_torch.ops import warp, warp_projective
 from xpoint_tpu_torch.ops.nms import grid_nms_keep, grid_nms_keep_plain
 from xpoint_tpu_torch.ops.selective_scan_cuda import (
     SelectiveScanBidir, selective_scan_bidir, selective_scan_bidir_bwd,
-    selective_scan_bidir_bwd_plain, selective_scan_bidir_plain)
+    selective_scan_bidir_bwd_plain, selective_scan_bidir_plain,
+    selective_scan_fused_bkld, selective_scan_fused_bkld_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -172,3 +175,162 @@ def test_tiny_pipeline_on_card_matches_cpu(cuda):
                                    atol=1e-5, rtol=0)
         assert torch.equal(b[f"mask_{s}"].sum(1).cpu(), a[f"mask_{s}"].sum(1))
 
+
+
+def _warp_homographies(seed, n, H, W):
+    """n fp32 homographies at (H, W): from the HA sampler (max_angle pi),
+    then a rotation 0.05 rad short of 90 degrees about the centre, one whose
+    horizon line crosses the canvas, and the identity."""
+    rng = np.random.default_rng(seed)
+    hs = [sample_homography((H, W), rng=rng, max_angle=np.pi,
+                            scaling_amplitude=0.15, patch_ratio=0.9,
+                            perspective_amplitude_x=0.15,
+                            perspective_amplitude_y=0.15)
+          for _ in range(n - 3)]
+    cx, cy, th = (W - 1) / 2.0, (H - 1) / 2.0, np.pi / 2 - 0.05
+    shift = np.array([[1, 0, cx], [0, 1, cy], [0, 0, 1]])
+    rot = np.array([[np.cos(th), -np.sin(th), 0],
+                    [np.sin(th), np.cos(th), 0], [0, 0, 1]])
+    horizon = np.linalg.inv(np.array([[1.0, 0, 0], [0, 1.0, 0],
+                                      [2.0 / W, 0, -1.0]]))
+    hs += [shift @ rot @ np.linalg.inv(shift), horizon, np.eye(3)]
+    return torch.from_numpy(np.stack(hs).astype(np.float32))
+
+
+@pytest.mark.parametrize("padding", ["zeros", "reflection"])
+@pytest.mark.parametrize("mode", ["bilinear", "nearest"])
+@pytest.mark.parametrize("kind", ["multi", "batch"])
+@pytest.mark.parametrize("H,W,C", [(64, 64, 1), (96, 160, 2), (128, 128, 16),
+                                   (240, 320, 1), (75, 301, 3), (512, 512, 2)])
+def test_warp_kernel_matches_plain(cuda, H, W, C, kind, mode, padding):
+    """K4 against the plain gather on the card, same inverse homographies,
+    at sizes that are and are not multiples of 32 (the kernel has no tile):
+    nearest exactly equal (the coordinates are formed by the same fp32
+    operations), bilinear within 1e-5 on [0, 1) images (only the blend's
+    FMA contraction differs)."""
+    n = 6
+    g = torch.Generator().manual_seed(H + C)
+    hs = _warp_homographies(C, n, H, W).to(cuda)
+    img = torch.rand(2 if kind == "multi" else n, H, W, C,
+                     generator=g).to(cuda)
+    before = warp_projective.warp_projective.launches
+    out = getattr(warp_projective, f"warp_{kind}")(img, hs, mode, padding)
+    torch.cuda.synchronize()
+    assert warp_projective.warp_projective.launches == before + 1
+    ref = getattr(warp, f"warp_image_{kind}")(img, hs, mode, padding)
+    assert out.shape == ref.shape and out.dtype == torch.float32
+    assert bool(torch.isfinite(out).all())
+    if mode == "nearest":
+        assert torch.equal(out, ref)
+    else:
+        torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+    assert float(out.std()) > 0.01
+
+
+def test_warp_kernel_rejects_other_dtypes(cuda):
+    img = torch.rand(1, 32, 32, 1, device=cuda).bfloat16()
+    with pytest.raises(TypeError):
+        warp_projective.warp_multi(img, torch.eye(3, device=cuda)[None])
+
+
+def _fused_operands(seed, B, L, Dim, dtype, device):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    f = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
+    K = 4
+    u, dt = f(B, K, L, Dim) * 0.5, f(B, K, L, Dim) * 0.5
+    A = -torch.exp(f(K * Dim) * 0.3)
+    bs, cs = f(B, K, L, 1) * 0.5, f(B, K, L, 1) * 0.5
+    D, bias = f(K * Dim), f(K * Dim) * 0.2
+    return [u.to(device, dtype), dt.to(device, dtype), A.to(device),
+            bs.to(device, dtype), cs.to(device, dtype), D.to(device),
+            bias.to(device)]
+
+
+@pytest.mark.parametrize("L,B,Dim", [(300, 2, 96), (100, 2, 192),
+                                     (77, 1, 384), (37, 1, 768),
+                                     (1024, 8, 96), (50, 3, 40)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_scan_kernel_matches_plain(cuda, L, B, Dim, dtype):
+    """K5 over the flagship widths, L no multiple of 256. fp32: only the
+    rounding of exp/log1p/fma differs (atol 1e-4); bf16 outputs may round
+    to neighbouring values (one ulp: 2^-7 relative, 1e-2 absolute)."""
+    args = _fused_operands(5, B, L, Dim, dtype, cuda)
+    before = selective_scan_fused_bkld.launches
+    y = selective_scan_fused_bkld(*args)
+    torch.cuda.synchronize()
+    assert selective_scan_fused_bkld.launches == before + 1
+    p = selective_scan_fused_bkld_plain(*args)
+    assert y.dtype == dtype and y.shape == (B, 4, L, Dim)
+    atol, rtol = (1e-4, 0) if dtype == torch.float32 else (1e-2, 2 ** -7)
+    torch.testing.assert_close(y.float(), p.float(), atol=atol, rtol=rtol)
+
+
+def test_fused_scan_kernel_refuses_a_gradient(cuda):
+    args = _fused_operands(6, 1, 16, 8, torch.float32, cuda)
+    args[0].requires_grad_()
+    with pytest.raises(NotImplementedError):
+        selective_scan_fused_bkld(*args)
+
+
+def test_tiny_ha_on_card_matches_cpu(cuda):
+    """The tiny fp32 model's HA: the card's path (K4, K1) against the CPU
+    path (plain versions), compared where both hold the same count."""
+    import copy
+    from xpoint_tpu_torch.models import VMAMBA_MODEL_CFG, build_xpoint
+    from xpoint_tpu_torch.selfsup.export import make_prob_fn
+    from xpoint_tpu_torch.selfsup.homographic_adaptation import (
+        make_ha_fn, sample_ha_homographies)
+
+    cfg = copy.deepcopy(VMAMBA_MODEL_CFG)
+    cfg["use_attention"]["model_parameters"]["MODEL"]["VSSM"].update(
+        DEPTHS=[1, 1, 1, 1], EMBED_DIM=24)
+    cfg.update(descriptor_size=32, mixed_precision=False)
+    g = torch.Generator().manual_seed(0)
+    img_o, img_t = (torch.rand(2, 64, 64, 1, generator=g) for _ in range(2))
+    outs = []
+    for dev in ("cpu", cuda):
+        m, _ = build_xpoint(cfg, device=dev)
+        run, merged = make_ha_fn(make_prob_fn(m), {"aggregation": "window",
+                                                   "num": 4, "min_count": 2})
+        hs = torch.from_numpy(sample_ha_homographies(
+            merged, (64, 64), np.random.default_rng(1)))
+        out = run(img_o.to(dev), img_t.to(dev), hs.to(dev))
+        outs.append({k: v.cpu() for k, v in out.items() if v is not None})
+    a, b = outs
+    same = a["count"] == b["count"]
+    assert same.float().mean() > 0.995
+    for k in ("prob_optical", "prob_thermal"):
+        assert float(a[k].max()) > 0
+        torch.testing.assert_close(b[k][same], a[k][same], atol=1e-5, rtol=0)
+
+
+def test_ha_on_card_launches_the_warp_kernel_at_any_size(cuda):
+    """HA's warps go by the device alone: at 48 x 80 (no multiple of 32)
+    every step on the card makes its three K4 launches, and the result
+    agrees with the CPU's (plain warps) where both hold the same count."""
+    from xpoint_tpu_torch.selfsup.homographic_adaptation import (
+        make_ha_fn, sample_ha_homographies)
+
+    g = torch.Generator().manual_seed(2)
+    k = torch.randn(1, 1, 5, 5, generator=g)
+
+    def prob_fn(img, is_optical):
+        x = img.permute(0, 3, 1, 2) - 0.5
+        y = torch.nn.functional.conv2d(x, k.to(img.device), padding=2)
+        return torch.sigmoid(y if is_optical else -y)[:, 0]
+
+    H, W = 48, 80
+    img_o, img_t = (torch.rand(2, H, W, 1, generator=g) for _ in range(2))
+    run, merged = make_ha_fn(prob_fn, {"num": 6, "min_count": 2,
+                                       "erosion_radius": 2}, warp_batch=2)
+    hs = torch.from_numpy(sample_ha_homographies(
+        merged, (H, W), np.random.default_rng(3)))
+    a = run(img_o, img_t, hs)
+    before = warp_projective.warp_projective.launches
+    b = run(img_o.to(cuda), img_t.to(cuda), hs.to(cuda))
+    assert warp_projective.warp_projective.launches == before + 3 * 3
+    same = a["count"] == b["count"].cpu()
+    assert same.float().mean() > 0.995
+    assert float(a["prob"].max()) > 0
+    torch.testing.assert_close(b["prob"].cpu()[same], a["prob"][same],
+                               atol=1e-5, rtol=0)

@@ -178,7 +178,7 @@ def test_port_init_matches_flax_distributions():
 
 
 @pytest.mark.parametrize("cfg", [
-    {"SSM_FORWARDTYPE": f} for f in ("v05", "v051d_noz", "v052dc_noz",
+    {"SSM_FORWARDTYPE": f} for f in ("v05", "v051d", "v052dc_noz",
                                      "m0_noz", "xv1a", "v05_noz_oact")] + [
     {"SSM_D_STATE": 2}, {"SSM_CONV_BIAS": True}])
 def test_unported_encoder_configs_raise(cfg):

@@ -32,29 +32,17 @@
 // has CHUNK loads in flight instead of one. Only 2 M threads exist (3,072
 // at the flagship's first stage), far too few to fill the card: a chunked
 // two-pass scan over L is the redesign that fixes it.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
+#include "scan_common.cuh"
 
 namespace {
+
+using xp::from_f32;
+using xp::softplus;
+using xp::to_f32;
 
 constexpr int kThreads = 64;
 constexpr int kChunk = 16;
 constexpr int kCkptChunk = 256;   // checkpoint chunk (the JAX DEFAULT_CHUNK)
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);   // round to nearest even, like torch's cast
-}
-
-// softplus(x) = log(1 + e^x) = max(x, 0) + log1p(e^-|x|), the overflow-free
-// form (jax.nn.softplus is logaddexp(x, 0)).
-__device__ __forceinline__ float softplus(float x) {
-  return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)

@@ -36,27 +36,17 @@
 // into a zeroed fp32 plane; with exactly two addends onto zero the sum does
 // not depend on their order. Only 2 M threads exist, as in the forward: the
 // kernel is latency-bound, and a chunk-parallel design is the redesign.
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
+#include "scan_common.cuh"
 
 namespace {
+
+using xp::from_f32;
+using xp::softplus;
+using xp::to_f32;
 
 constexpr int kThreads = 32;     // one warp per block
 constexpr int kCkptChunk = 256;  // the forward kernel's checkpoint chunk
 constexpr int kPre = 16;         // steps whose operands are loaded ahead
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);   // round to nearest even, like torch's cast
-}
-
-__device__ __forceinline__ float softplus(float x) {
-  return fmaxf(x, 0.f) + log1pf(expf(-fabsf(x)));
-}
 
 __device__ __forceinline__ float sigmoid(float x) {
   return 1.f / (1.f + expf(-x));

@@ -1,10 +1,146 @@
-"""Homography helpers on tensors (port of
-``xpoint_tpu/geometry/homography.py:206-256``: ``compute_valid_mask_device``
-and ``warp_points``)."""
+"""Homography sampling and point warping (port of
+``xpoint_tpu/geometry/homography.py``).
+
+Host side (numpy): ``sample_homography`` (the same draws from the same
+``np.random.Generator`` in the same order as the JAX package's, so one seed
+gives the same matrix). The 4-point perspective fit is solved here in
+numpy; the JAX package calls ``cv2.getPerspectiveTransform`` for it. Its
+``warp_keypoints`` and ``filter_points`` come with the evaluation code that
+calls them.
+
+Device side (tensors): ``compute_valid_mask_device`` and ``warp_points``.
+"""
+from math import pi
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..ops.warp import _source_coords
+
+
+def perspective_transform(src, dst):
+    """The homography that maps the four (x, y) points ``src`` onto ``dst``
+    (both (4, 2), cast to float32 first and solved in float64, as
+    cv2.getPerspectiveTransform does): the 8x8 linear system of
+    u = (a x + b y + c) / (g x + h y + 1), v = (d x + e y + f) / (...)."""
+    src = np.asarray(src, np.float32).astype(np.float64)
+    dst = np.asarray(dst, np.float32).astype(np.float64)
+    x, y = src[:, 0], src[:, 1]
+    u, v = dst[:, 0], dst[:, 1]
+    zero, one = np.zeros(4), np.ones(4)
+    A = np.concatenate([
+        np.stack([x, y, one, zero, zero, zero, -x * u, -y * u], axis=1),
+        np.stack([zero, zero, zero, x, y, one, -x * v, -y * v], axis=1)])
+    h = np.linalg.solve(A, np.concatenate([u, v]))
+    return np.append(h, 1.0).reshape(3, 3)
+
+
+def sample_homography(image_shape, perspective=True, scaling=True,
+                      rotation=True, translation=True, n_scales=10,
+                      n_angles=25, scaling_amplitude=0.2,
+                      perspective_amplitude_x=0.1,
+                      perspective_amplitude_y=0.1, patch_ratio=0.8,
+                      max_angle=pi / 2, allow_artifacts=True,
+                      translation_overflow=0.1, rng=None):
+    """Sample a random homography as a perturbation of the unit square.
+
+    The output patch corners start as a centered ``patch_ratio`` square and
+    are perturbed by perspective / scale / translation / rotation transforms
+    applied in a random order; the result is rescaled to pixel units and
+    fitted with a 4-point perspective transform.
+
+    Args:
+        image_shape: (H, W) of the image the homography will warp.
+        rng: ``np.random.Generator``; None seeds one from the global
+            ``np.random`` stream, as the JAX package does.
+
+    Returns:
+        (3, 3) float64 homography mapping original -> warped pixel coords
+        in cv2 (x=col, y=row) convention.
+    """
+    if rng is None:
+        rng = np.random.default_rng(np.random.randint(0, 2**31))
+
+    def _uniform(lo, hi):
+        # Generator.uniform does not take hi < lo
+        return rng.uniform(min(lo, hi), max(lo, hi))
+
+    def transform_perspective(points):
+        t_min, t_max = -points.min(axis=0), 1.0 - points.max(axis=0)
+        t_max[1] = min(abs(t_min[1]), abs(t_max[1]))
+        t_min[1] = -t_max[1]
+        amp = np.array([perspective_amplitude_x, perspective_amplitude_y])
+        if not allow_artifacts:
+            amp_min = np.maximum(-amp, t_min)
+            amp_max = np.minimum(amp, t_max)
+        else:
+            amp_min, amp_max = -amp, amp
+        persp_disp = _uniform(amp_min[1], amp_max[1])
+        h_left = _uniform(amp_min[0], amp_max[0])
+        h_right = _uniform(amp_min[0], amp_max[0])
+        return points + np.array([[h_left, persp_disp],
+                                  [h_left, -persp_disp],
+                                  [h_right, persp_disp],
+                                  [h_right, -persp_disp]])
+
+    def transform_scale(points):
+        scales = rng.uniform(-scaling_amplitude, scaling_amplitude,
+                             n_scales) + 1.0
+        center = points.mean(axis=0)
+        scaled = (points - center)[None] * scales[:, None, None] + center
+        if allow_artifacts:
+            valid = np.arange(n_scales)
+        else:
+            valid = [i for i in range(n_scales)
+                     if scaled[i].max() < 1.0 and scaled[i].min() >= 0.0]
+            if not valid:
+                return points
+        return scaled[rng.choice(valid)]
+
+    def transform_translation(points):
+        t_min, t_max = -points.min(axis=0), 1.0 - points.max(axis=0)
+        if allow_artifacts:
+            t_min = t_min - translation_overflow
+            t_max = t_max + translation_overflow
+        return points + np.array([_uniform(t_min[0], t_max[0]),
+                                  _uniform(t_min[1], t_max[1])])
+
+    def transform_rotation(points):
+        angles = rng.uniform(-max_angle, max_angle, n_angles)
+        angles = np.append(angles, 0)  # fallback: no rotation
+        center = points.mean(axis=0)
+        rot = np.stack([np.cos(angles), -np.sin(angles),
+                        np.sin(angles), np.cos(angles)],
+                       axis=1).reshape(-1, 2, 2)
+        rotated = np.matmul((points - center)[None], rot) + center
+        if allow_artifacts:
+            valid = np.arange(n_angles)
+        else:
+            valid = [i for i in range(len(angles))
+                     if rotated[i].max() < 1.0 and rotated[i].min() >= 0.0]
+        return rotated[rng.choice(valid)]
+
+    pts1 = np.array([[0.0, 0.0], [0.0, 1.0], [1.0, 1.0], [1.0, 0.0]])
+    margin = (1 - patch_ratio) * 0.5
+    pts2 = margin + patch_ratio * pts1
+
+    functions = []
+    if perspective:
+        functions.append(transform_perspective)
+    if scaling:
+        functions.append(transform_scale)
+    if translation:
+        functions.append(transform_translation)
+    if rotation:
+        functions.append(transform_rotation)
+
+    for idx in rng.permutation(len(functions)):
+        pts2 = functions[idx](pts2)
+
+    # rescale unit square to pixel units; shape is (H, W) -> (x, y) = (W, H)
+    shape = np.asarray(image_shape)[::-1]
+    return perspective_transform(pts1 * shape, pts2 * shape)
 
 
 def compute_valid_mask_device(homographies, image_shape, erosion_radius=0,

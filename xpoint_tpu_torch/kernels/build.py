@@ -6,8 +6,9 @@ use with
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -o build/xpoint_tpu_torch/lib<name>-<hash>.so
 
-The file name carries a hash of the source, so an edited source is rebuilt
-and a stale library is never loaded. Nothing here runs at import time:
+The file name carries a hash of the source and of the shared headers
+(``csrc/*.cuh``), so an edited source is rebuilt and a stale library is never
+loaded. Nothing here runs at import time:
 the CPU tests import every module on a machine without ``nvcc``.
 Every C entry point returns ``cudaGetLastError()``; :func:`check` raises
 if it is not 0.
@@ -23,7 +24,7 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "xpoint_tpu_torch")
 KERNEL_SOURCES = ("selective_scan_bidir", "selective_scan_bidir_bwd",
-                  "nms_sweep")
+                  "nms_sweep", "warp_projective", "selective_scan_fused")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
@@ -45,8 +46,11 @@ def _nvcc():
 
 def _lib_path(name):
     src = os.path.join(CSRC_DIR, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(n for n in os.listdir(CSRC_DIR) if n.endswith(".cuh"))
+    for path in [src] + [os.path.join(CSRC_DIR, n) for n in headers]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
     tag = digest.hexdigest()[:12]
     return src, os.path.join(BUILD_DIR, f"lib{name}-{tag}.so")
 

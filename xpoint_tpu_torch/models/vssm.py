@@ -1,10 +1,12 @@
 """VSSM (VMamba) encoder, NHWC (port of ``xpoint_tpu/models/vssm.py``).
 
-Supported: the flagship forward type ``v05_noz`` with d_state 1, i.e. SS2D
-in scan mode 0 (cross2d) without the gate branch, through the flip-free
-token-major bidirectional scan (``ops.selective_scan_cuda``). Other scan
-modes, gated or output-activated SS2D, ``SS2Dv3`` (xv) and ``SS2Dm0`` raise
-NotImplementedError (ROADMAP.md, Queue 1 item 10).
+Supported, all with d_state 1 and without the gate branch: the flagship
+forward type ``v05_noz``, i.e. SS2D in scan mode 0 (cross2d) through the
+flip-free token-major bidirectional scan, forward and backward; and
+``v051d_noz`` / ``v052d_noz`` (scan modes 1 unidi and 2 bidi) through
+``cross_scan``, the single-direction fused scan and ``cross_merge``, forward
+only. Cascade2d, gated or output-activated SS2D, ``SS2Dv3`` (xv) and
+``SS2Dm0`` raise NotImplementedError (ROADMAP.md, Queue 1 item 10).
 
 Submodule and parameter names follow the flax module tree, so the weight
 bridge (``compat.from_flax``) maps names one to one. Parameters are fp32;
@@ -14,7 +16,8 @@ GELU is the tanh approximation (flax's ``nn.gelu`` default).
 Train mode (``module.train()``) is the JAX ``deterministic=False``: DropPath
 draws its per-sample masks from the ``torch.Generator`` passed to
 ``forward`` (the counterpart of the flax "droppath" rng stream), and SS2D's
-scan runs through the differentiable ``SelectiveScanBidir``.
+scan runs through the differentiable ``SelectiveScanBidir`` (scan mode 0
+only: the other modes' scan has no backward yet and raises).
 """
 import math
 
@@ -23,8 +26,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.cross_scan import cross_merge, cross_scan
 from ..ops.gridops import depth_to_space
-from ..ops.selective_scan_cuda import scan_bidir
+from ..ops.selective_scan_cuda import scan_bidir, selective_scan_fused_bkld
 
 _ROADMAP_ITEM = "ROADMAP.md Queue 1 item 10 (other encoders and forward types)"
 
@@ -114,11 +118,16 @@ class Mlp(nn.Module):
 
 
 class SS2D(nn.Module):
-    """2D selective scan block, forward type v05_noz (cross2d, no gate),
-    d_state N = 1: B and C are one scalar per token and direction."""
+    """2D selective scan block without the gate branch, d_state N = 1: B
+    and C are one scalar per token and direction. ``scan_mode`` 0 is
+    cross2d (v05), 1 unidi (v051d), 2 bidi (v052d)."""
 
-    def __init__(self, d_model, ssm_ratio=1.0, dt_rank="auto"):
+    def __init__(self, d_model, ssm_ratio=1.0, dt_rank="auto", scan_mode=0):
         super().__init__()
+        if scan_mode not in (0, 1, 2):
+            raise NotImplementedError(
+                f"SS2D scan mode {scan_mode}; see {_ROADMAP_ITEM}")
+        self.scan_mode = scan_mode
         D = int(ssm_ratio * d_model)
         R = int(math.ceil(d_model / 16)) if dt_rank == "auto" else int(dt_rank)
         self.d_inner, self.dt_rank = D, R
@@ -136,12 +145,34 @@ class SS2D(nn.Module):
         self.out_proj = nn.Linear(D, d_model, bias=False)
 
     def forward(self, x):
-        B, H, W, _ = x.shape
+        _, H, W, _ = x.shape
         D, R, N = self.d_inner, self.dt_rank, 1
-        L = H * W
         dtype = x.dtype
         xs = F.linear(x, self.in_proj.weight.to(dtype))
         xs = F.silu(_conv_nhwc(xs, self.conv2d.weight, padding=1, groups=D))
+        A = -torch.exp(self.A_logs.reshape(-1))
+        dt_w = (self.dt_projs_weight - R ** -0.5).to(dtype)
+        if self.scan_mode == 0:
+            y = self._cross2d(xs, A, dt_w)
+        else:
+            # unidi / bidi: token-wise projections per direction k on the
+            # expanded (B, K, L, D) planes, the single-direction scan, merge
+            xk = cross_scan(xs, self.scan_mode)
+            x_dbl = torch.einsum("bkld,kcd->bklc", xk,
+                                 self.x_proj_weight.to(dtype))
+            dts, Bs, Cs = torch.split(x_dbl, [R, N, N], dim=-1)
+            dts = torch.einsum("bklr,kdr->bkld", dts, dt_w)
+            ys = selective_scan_fused_bkld(
+                xk.contiguous(), dts.contiguous(), A, Bs.contiguous(),
+                Cs.contiguous(), self.Ds, self.dt_projs_bias.reshape(-1))
+            y = cross_merge(ys, H, W, self.scan_mode)
+        y = layer_norm(self.out_norm, y)
+        return F.linear(y, self.out_proj.weight.to(dtype))
+
+    def _cross2d(self, xs, A, dt_w):
+        """Scan mode 0 on (B, H, W, D) activations -> merged (B, H, W, D)."""
+        B, H, W, D = xs.shape
+        R, N, L, dtype = self.dt_rank, 1, H * W, xs.dtype
         # token-major operands: row-major (j=0) and column-major (j=1)
         # base orders; direction k = 2 r + j, r = reversed
         u_t = torch.stack([xs.permute(1, 2, 0, 3).reshape(L, B, D),
@@ -149,25 +180,23 @@ class SS2D(nn.Module):
         w4 = self.x_proj_weight.to(dtype).reshape(2, 2, R + 2 * N, D)
         x_dbl = torch.einsum("lbjd,rjcd->rlbjc", u_t, w4)
         dts, Bs, Cs = torch.split(x_dbl, [R, N, N], dim=-1)
-        dt_w = (self.dt_projs_weight - R ** -0.5).to(dtype).reshape(2, 2, D, R)
-        dts = torch.einsum("rlbjs,rjds->rlbjd", dts, dt_w)
+        dts = torch.einsum("rlbjs,rjds->rlbjd", dts,
+                           dt_w.reshape(2, 2, D, R))
         ys_f, ys_r = scan_bidir(
             u_t.contiguous(), dts.contiguous(), Bs[..., 0].contiguous(),
-            Cs[..., 0].contiguous(), -torch.exp(self.A_logs.reshape(-1)),
-            self.Ds.contiguous(), self.dt_projs_bias.reshape(-1))
+            Cs[..., 0].contiguous(), A, self.Ds.contiguous(),
+            self.dt_projs_bias.reshape(-1))
         ysum = ys_f + ys_r                                  # (L, B, 2, D)
-        y = (ysum[:, :, 0].reshape(H, W, B, D).permute(2, 0, 1, 3)
-             + ysum[:, :, 1].reshape(W, H, B, D).permute(2, 1, 0, 3))
-        y = layer_norm(self.out_norm, y)
-        return F.linear(y, self.out_proj.weight.to(dtype))
+        return (ysum[:, :, 0].reshape(H, W, B, D).permute(2, 0, 1, 3)
+                + ysum[:, :, 1].reshape(W, H, B, D).permute(2, 1, 0, 3))
 
 
 class VSSBlock(nn.Module):
     def __init__(self, dim, ssm_ratio=1.0, dt_rank="auto", mlp_ratio=4.0,
-                 drop_path=0.0):
+                 drop_path=0.0, scan_mode=0):
         super().__init__()
         self.norm = _layer_norm_module(dim)
-        self.op = SS2D(dim, ssm_ratio, dt_rank)
+        self.op = SS2D(dim, ssm_ratio, dt_rank, scan_mode)
         self.drop_path = DropPath(drop_path)
         self.mlp_ratio = mlp_ratio
         if mlp_ratio > 0:
@@ -186,7 +215,7 @@ class VSSM(nn.Module):
 
     def __init__(self, depths=(2, 2, 2, 2), embed_dim=96, ssm_ratio=1.0,
                  dt_rank="auto", mlp_ratio=4.0, drop_path_rate=0.2,
-                 dtype=torch.float32):
+                 dtype=torch.float32, scan_mode=0):
         super().__init__()
         self.depths = tuple(depths)
         self.dtype = dtype
@@ -201,7 +230,8 @@ class VSSM(nn.Module):
         for i, depth in enumerate(depths):
             for d in range(depth):
                 self.add_module(f"layers_{i}_blocks_{d}", VSSBlock(
-                    dims[i], ssm_ratio, dt_rank, mlp_ratio, next(dpr)))
+                    dims[i], ssm_ratio, dt_rank, mlp_ratio, next(dpr),
+                    scan_mode))
             if i < len(depths) - 1:
                 self.add_module(f"layers_{i}_downsample_conv",
                                 StridedConv3x3(dims[i], dims[i + 1]))
@@ -229,22 +259,23 @@ def build_vssm_from_config(vssm_cfg, dtype=torch.float32):
     """VSSM from the reference MODEL.VSSM dict (with MODEL.DROP_PATH_RATE
     merged in as ``DROP_PATH_RATE``), parsed as
     ``xpoint_tpu.models.vssm.build_vssm_from_config`` parses it. Anything
-    but forward type v05_noz (cross2d, no gate, no
-    output activation) with d_state 1 and a bias-free 3x3 depthwise conv
-    raises NotImplementedError."""
+    but the forward types v05_noz, v051d_noz and v052d_noz (cross2d, unidi,
+    bidi; no gate, no output activation) with d_state 1 and a bias-free 3x3
+    depthwise conv raises NotImplementedError."""
     get = vssm_cfg.get
     ftype = str(get("SSM_FORWARDTYPE", "v05_noz"))
     base = ftype.split("_")[0]
     disable_z = ftype.endswith("_noz") or "_noz_" in ftype
     scan_mode = {"v051d": 1, "v052d": 2, "v052dc": -1}.get(base, 0)
     d_state = int(get("SSM_D_STATE", 1))
-    if (base.startswith(("m", "xv")) or scan_mode != 0 or not disable_z
+    if (base.startswith(("m", "xv")) or scan_mode < 0 or not disable_z
             or "_oact" in ftype or d_state != 1
             or int(get("SSM_CONV", 3)) != 3
             or bool(get("SSM_CONV_BIAS", False))):
         raise NotImplementedError(
-            f"VSSM forward type {ftype}, d_state {d_state}: only v05_noz "
-            f"with d_state 1 is ported; see {_ROADMAP_ITEM}")
+            f"VSSM forward type {ftype}, d_state {d_state}: only v05_noz, "
+            f"v051d_noz and v052d_noz with d_state 1 are ported; see "
+            f"{_ROADMAP_ITEM}")
     dt_rank = get("SSM_DT_RANK", "auto")
     return VSSM(
         depths=tuple(get("DEPTHS", [2, 2, 2, 2])),
@@ -254,4 +285,5 @@ def build_vssm_from_config(vssm_cfg, dtype=torch.float32):
         mlp_ratio=float(get("MLP_RATIO", 4.0)),
         drop_path_rate=float(get("DROP_PATH_RATE", 0.2)),
         dtype=dtype,
+        scan_mode=scan_mode,
     )

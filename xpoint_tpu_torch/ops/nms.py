@@ -132,6 +132,26 @@ def grid_nms_keep(prob, valid, size, iou):
 grid_nms_keep.launches = 0
 
 
+def box_nms(prob, size, min_prob, iou=0.1, keep_top_k=0):
+    """NMS a heatmap; returns the heatmap with suppressed scores zeroed
+    (``xpoint_tpu/ops/nms.py::box_nms``).
+
+    prob: (H, W) or (B, H, W). min_prob (>= 0: 0 is the suppressed
+    sentinel) is the detection threshold applied before NMS; with
+    keep_top_k > 0 only the k highest surviving scores of each map stay."""
+    squeeze = prob.dim() == 2
+    p = prob[None] if squeeze else prob
+    keep, _ = grid_nms_keep(p, p > min_prob, size, iou)
+    out = torch.where(keep, p, torch.zeros((), dtype=p.dtype,
+                                           device=p.device))
+    if keep_top_k and keep_top_k > 0:
+        B, H, W = out.shape
+        flat = out.reshape(B, H * W)
+        scores, idx = torch.topk(flat, min(keep_top_k, H * W), dim=1)
+        out = torch.zeros_like(flat).scatter_(1, idx, scores).reshape(B, H, W)
+    return out[0] if squeeze else out
+
+
 def nms_block_edge(size, iou, H, W):
     """Largest power-of-2 block edge b (<= 8) such that two NMS survivors
     never share a b x b block; 0 if none >= 2 divides the grid

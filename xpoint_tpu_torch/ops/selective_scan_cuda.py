@@ -1,6 +1,8 @@
-"""Bidirectional N=1 selective scan in token layout, forward and backward
-(port of ``xpoint_tpu/ops/selective_scan_pallas.py::
-selective_scan_fused_bidir_tok`` and its custom VJP).
+"""N=1 selective scans: the bidirectional scan in token layout, forward and
+backward (port of ``xpoint_tpu/ops/selective_scan_pallas.py::
+selective_scan_fused_bidir_tok`` and its custom VJP), and the
+single-direction fused scan in (B, K, L, Dim) layout, forward only
+(``selective_scan_fused_bkld``, at the end of this module).
 
 On a CUDA tensor :func:`selective_scan_bidir` launches the Hopper kernel
 ``csrc/selective_scan_bidir.cu`` (replacing the TPU kernel
@@ -314,3 +316,86 @@ def scan_bidir(u_t, dt_t, bc_t, cc_t, A, D, delta_bias):
     if torch.is_grad_enabled() and any(x.requires_grad for x in args):
         return SelectiveScanBidir.apply(*args)
     return selective_scan_bidir(*args)
+
+
+# ---- single-direction fused scan, (B, K, L, Dim) layout -------------------
+
+def selective_scan_fused_bkld_plain(u, dt, A, Bs, Cs, D, delta_bias):
+    """Plain PyTorch version of :func:`selective_scan_fused_bkld`: fp32
+    sequential recurrence over L (fp64 for fp64 operands)."""
+    B, K, L, Dim = u.shape
+    cd = _compute_dtype(u.dtype)
+    const = lambda v: v.to(cd).reshape(1, K, 1, Dim)  # noqa: E731
+    uf = u.to(cd)
+    delta = _softplus(dt.to(cd) + const(delta_bias))
+    a = torch.exp(delta * const(A))
+    b = delta * uf * Bs.to(cd)
+    h = torch.empty_like(b)
+    carry = torch.zeros(B, K, Dim, dtype=cd, device=u.device)
+    for t in range(L):
+        carry = torch.addcmul(b[:, :, t], a[:, :, t], carry)
+        h[:, :, t] = carry
+    return (Cs.to(cd) * h + const(D) * uf).to(dt.dtype)
+
+
+def _launch_fused(u, dt, A, Bs, Cs, D, delta_bias):
+    lib = build.load("selective_scan_fused")
+    fn = lib.xp_selective_scan_fused
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
+                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    B, K, L, Dim = u.shape
+    y = torch.empty_like(u)
+    err = fn(_DTYPE_CODE[u.dtype], u.data_ptr(), dt.data_ptr(),
+             Bs.data_ptr(), Cs.data_ptr(), A.data_ptr(), D.data_ptr(),
+             delta_bias.data_ptr(), y.data_ptr(), L, B * K * Dim, Dim,
+             K * Dim, torch.cuda.current_stream(u.device).cuda_stream)
+    build.check(lib, err, "selective_scan_fused launch")
+    selective_scan_fused_bkld.launches += 1
+    return y
+
+
+def selective_scan_fused_bkld(u, dt, A, Bs, Cs, D, delta_bias):
+    """Single-direction fused N=1 selective scan in SS2D's layout (port of
+    ``selective_scan_pallas.py::selective_scan_fused_bkld``, forward only).
+
+    u, dt: (B, K, L, Dim); Bs, Cs: (B, K, L, 1); A, D, delta_bias: (K*Dim,)
+    fp32. Per lane: delta = softplus(dt + bias), h_t = exp(delta A) h_{t-1}
+    + delta u Bs, y = Cs h + D u with an fp32 carry; returns (B, K, L, Dim)
+    in the operands' dtype. CUDA tensors launch ``csrc/
+    selective_scan_fused.cu`` (replacing the TPU kernel
+    ``_fused_scan_kernel``; counted in
+    ``selective_scan_fused_bkld.launches``); CPU tensors run the plain
+    version. Its backward needs the generic linear-recurrence kernel
+    (``selective_scan_pallas.py::_scan_kernel``), which is not ported: when
+    a gradient is wanted this raises NotImplementedError."""
+    args = (u, dt, A, Bs, Cs, D, delta_bias)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in args):
+        raise NotImplementedError(
+            "selective_scan_fused_bkld has no backward yet: it needs the "
+            "linear-recurrence kernel (_scan_kernel, K6 in ROADMAP.md "
+            "Queue 2); scan modes 1 and 2 run forward only")
+    B, K, L, Dim = u.shape
+    want = {"dt": (dt, (B, K, L, Dim)), "Bs": (Bs, (B, K, L, 1)),
+            "Cs": (Cs, (B, K, L, 1)), "A": (A, (K * Dim,)),
+            "D": (D, (K * Dim,)), "delta_bias": (delta_bias, (K * Dim,))}
+    for name, (x, shape) in want.items():
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name} must be {shape}, got {tuple(x.shape)}")
+        if x.device != u.device:
+            raise ValueError(f"{name} is on {x.device}, u on {u.device}")
+    dtypes = {x.dtype for x in (u, dt, Bs, Cs)}
+    fp64 = dtypes == {torch.float64} and u.device.type == "cpu"
+    if len(dtypes) != 1 or not (u.dtype in _DTYPE_CODE or fp64):
+        raise TypeError(f"u/dt/Bs/Cs must share float32 or bfloat16 "
+                        f"(float64 on the CPU), got "
+                        f"{sorted(map(str, dtypes))}")
+    const = torch.float64 if fp64 else torch.float32
+    if any(x.dtype != const for x in (A, D, delta_bias)):
+        raise TypeError(f"A, D, delta_bias must be {const}")
+    if _device_kind(u, "selective_scan_fused_bkld") == "cpu":
+        return selective_scan_fused_bkld_plain(*args)
+    return _launch_fused(*(x.contiguous() for x in args))
+
+
+selective_scan_fused_bkld.launches = 0

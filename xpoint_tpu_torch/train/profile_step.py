@@ -17,47 +17,19 @@ import numpy as np
 import torch
 
 B, S, N_TIMED = 16, 256, 7
-N_PAIRS, S0, N_KP = 32, 320, 256     # the synthetic corpus
-
-
-class SyntheticPairs:
-    """A seeded synthetic corpus with the ImagePairDataset loading pair
-    (``_load_images`` / ``_load_keypoints``): smooth random optical images,
-    the thermal side a seeded contrast-inverting transform of them, and
-    seeded keypoint coordinates (row, col); N_PAIRS pairs at S0^2 with
-    N_KP keypoints each, from seed 0."""
-
-    def __init__(self):
-        rng = np.random.default_rng(0)
-        base = rng.uniform(size=(N_PAIRS, S0 // 8, S0 // 8)).astype(
-            np.float32)
-        opt = np.kron(base, np.ones((8, 8), np.float32))   # blocky shapes
-        opt += 0.1 * rng.normal(size=opt.shape).astype(np.float32)
-        self.optical = np.clip(opt, 0, 1)
-        self.thermal = np.clip(1.0 - self.optical ** 1.5 + 0.05 * rng.normal(
-            size=opt.shape).astype(np.float32), 0, 1)
-        self.kps = rng.uniform(0, S0, size=(N_PAIRS, N_KP, 2)).astype(
-            np.float32)
-
-    def __len__(self):
-        return len(self.optical)
-
-    def _load_images(self, i):
-        return self.optical[i], self.thermal[i]
-
-    def _load_keypoints(self, i):
-        return self.kps[i]
 
 
 def flagship_train(dev):
     """The flagship training config (VMAMBA_TRAIN_CFG: 256^2, bf16,
     DropPath 0.2, RegNet + HM loss, hard negatives) from seed 0, on the
-    SyntheticPairs corpus made resident by load_resident_pair_data and
+    SyntheticPairs corpus (32 pairs at 320^2, 256 keypoints each, seed 0)
+    made resident by load_resident_pair_data and
     batched by make_resident_batch_fn. Returns (state, step, data, meta):
     ``step(state, {"data": data, "idx": idx}, gen)`` runs one train step
     on the samples ``idx``."""
     from ..data.device_dataset import (load_resident_pair_data,
                                        make_resident_batch_fn)
+    from ..data.synthetic_pairs import SyntheticPairs
     from ..losses import XPointLoss
     from ..models import VMAMBA_TRAIN_CFG, build_xpoint
     from . import TrainState, make_optimizer, make_train_step
