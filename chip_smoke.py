@@ -55,6 +55,23 @@ Phases (any failure exits non-zero and prints no result):
      B=8 (16 K5 launches per call);
  12. the tiny fp32 model's HA (prod, num 5, 64^2) on the card against the
      CPU: prob within 1e-4 where both hold the same count, keypoint sets;
+ 13. K6 (linear recurrence) against its plain version at the shapes the
+     v052d_noz train step gives it (256^2, B=16: fp32 (16, 4, L, Dim) planes
+     scanned along L, a = exp(-delta) in (0, 1]), forward and reversed with
+     the shifted coefficient (the backward's form), and at one N > 1 shape
+     in the general scan's time-major layout ((L, M) for d_state 4, B=4 at
+     the first stage); limit 1e-5 of max |plain| (the segments are combined
+     in scan order, only the rounding of the segment products differs);
+     device times (events behind queued work, as K4's), the bytes bound 12 L M / 3.35e12 s and the plain version's time;
+     K5 against its plain version at the same training stage shapes;
+ 14. the v052d_noz train path at full width: VMAMBA_TRAIN_CFG with that
+     forward type, otherwise as phase 7, for 5 steps; per step 16 K5
+     launches (forward) and 32 K6 launches (in each of the 16 block
+     backwards one to rebuild h and one reversed), no K1 or K3;
+ 15. the tiny fp32 train step on the card against the CPU, as phase 8, for
+     v052d_noz (K5, K6), the gated v05 with d_state 4 (the general scan: K6
+     forward and backward) and cascade2d v052dc_noz (K5 fed from the
+     reference layout, K6 in its backward): loss and every gradient;
 then a details JSON line, the per-kernel JSON line, the card line and the
 final JSON line.
 """
@@ -110,6 +127,14 @@ def cuda_ms_queued(fn, inputs, delay):
         times.append(start.elapsed_time(end))
     times.sort()
     return times[len(times) // 2]
+
+
+def queued_delay(dev):
+    """A ``delay`` for cuda_ms_queued: ~10 ms of device work (eight 8192^3
+    bf16 products) ahead of each timed call; a plain version may enqueue
+    some 40 small kernels behind it."""
+    big = torch.ones(8192, 8192, dtype=torch.bfloat16, device=dev)
+    return lambda: [torch.mm(big, big) for _ in range(8)]
 
 
 def bound(nbytes, nflops):
@@ -395,24 +420,34 @@ ZERO_GRAD_PARAMS = ("detector_head.Conv_0.bias",
                     "descriptor_head.ConvBNRelu_0.BatchNorm_0.bias")
 
 
-def phase_train(dev):
-    """The flagship train step on the resident synthetic corpus, as
+# launches per train step by forward type, as the code predicts: 16 SS2D
+# blocks a step (8 blocks x 2 images); v05_noz runs K1 with checkpoints
+# forward and K3 backward; v052d_noz runs K5 forward and, in each block's
+# backward, K6 once to rebuild h and once reversed
+TRAIN_LAUNCHES = {
+    None: {"selective_scan_bidir": 16, "selective_scan_bidir_bwd": 16,
+           "selective_scan_fused": 0, "linear_scan": 0},
+    "v052d_noz": {"selective_scan_bidir": 0, "selective_scan_bidir_bwd": 0,
+                  "selective_scan_fused": 16, "linear_scan": 32}}
+
+
+def phase_train(dev, forward_type=None, n_steps=TRAIN_STEPS):
+    """The flagship train step (with ``forward_type`` in place of v05_noz)
+    on the resident synthetic corpus, as
     xpoint_tpu_torch.train.profile_step builds and profiles it."""
-    from xpoint_tpu_torch.ops.selective_scan_cuda import (
-        selective_scan_bidir, selective_scan_bidir_bwd)
     from xpoint_tpu_torch.train.profile_step import flagship_train
+    tag = forward_type or "v05_noz"
     t0 = time.time()
-    state, step, data, meta = flagship_train(dev)
+    state, step, data, meta = flagship_train(dev, forward_type)
     init_s = time.time() - t0
     gen = torch.Generator(device=dev).manual_seed(0)
     idx_gen = torch.Generator(device=dev).manual_seed(1)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    selective_scan_bidir.launches = 0
-    selective_scan_bidir_bwd.launches = 0
+    read = _zero_counts()
     per_step, ms = [], []
-    for i in range(TRAIN_STEPS):
+    for i in range(n_steps):
         idx = torch.randperm(meta["n"], generator=idx_gen,
                              device=dev)[:TRAIN_B]
         t1 = time.perf_counter()
@@ -421,19 +456,20 @@ def phase_train(dev):
         ms.append((time.perf_counter() - t1) * 1e3)
         row = {k: float(v) for k, v in comps.items()}
         per_step.append(row)
-        print(f"train step {i + 1}: ms={ms[-1]:.3f} loss={row['loss']} "
+        print(f"train step {i + 1} ({tag}): ms={ms[-1]:.3f} "
+              f"loss={row['loss']} "
               f"skipped_nonfinite={row['skipped_nonfinite']} " + " ".join(
                   f"{k}={v:.5g}" for k, v in row.items()
                   if k not in ("loss", "skipped_nonfinite")), flush=True)
         if not math.isfinite(row["loss"]) or row["skipped_nonfinite"]:
-            raise SystemExit(f"train step {i + 1}: non-finite loss or a "
-                             f"skipped step")
-    launches = {"selective_scan_bidir": selective_scan_bidir.launches,
-                "selective_scan_bidir_bwd": selective_scan_bidir_bwd.launches}
+            raise SystemExit(f"train step {i + 1} ({tag}): non-finite loss "
+                             f"or a skipped step")
+    expect = TRAIN_LAUNCHES[forward_type]
+    launches = {k: v for k, v in read().items() if k in expect}
     for name, n in launches.items():
-        if n != 16 * TRAIN_STEPS:
-            raise SystemExit(f"train path launched {name} {n} times, "
-                             f"expected 16 per step")
+        if n != expect[name] * n_steps:
+            raise SystemExit(f"{tag} train path launched {name} {n} times, "
+                             f"expected {expect[name]} per step")
     # every parameter that should get a gradient got a finite, non-zero
     # one: Adam's first moment is an average of them
     mu = dict(zip(state.names, state.opt_state["mu"]))
@@ -447,11 +483,12 @@ def phase_train(dev):
            "samples_per_s": TRAIN_B / step_ms * 1e3,
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
            "launches": launches,
-           "launches_per_step": {k: v / TRAIN_STEPS
+           "launches_per_step": {k: v / n_steps
                                  for k, v in launches.items()},
            "zero_grad_params": zero, "steps": per_step,
            "n_params": sum(m.numel() for m in mu.values())}
-    print(f"train path {TRAIN_S}^2 B={TRAIN_B} bf16: step_ms={step_ms} "
+    print(f"train path {tag} {TRAIN_S}^2 B={TRAIN_B} bf16: "
+          f"step_ms={step_ms} "
           f"samples_per_s={res['samples_per_s']} peak_mem_gib="
           f"{res['peak_mem_gib']} launches={launches} params="
           f"{res['n_params']} exactly-zero-gradient params={zero}",
@@ -459,19 +496,25 @@ def phase_train(dev):
     return res
 
 
-def phase_train_reference(dev):
-    """The tiny fp32 train step (no DropPath, no HM head) on the card and
+def phase_train_reference(dev, forward_type=None, d_state=1, ran=()):
+    """The tiny fp32 train step (no DropPath, no HM head; ``forward_type``
+    and ``d_state`` in place of v05_noz and 1) on the card and
     on the CPU from the same weights and batch: the loss within rtol 1e-4,
     every gradient (Adam's first moment after one step, 0.1 g) within 1e-3
     of its leaf's max |g| + 1e-6 of the largest (fp32 sums in other
-    orders: cuBLAS/cuDNN with TF32 off, K3's atomics)."""
+    orders: cuBLAS/cuDNN with TF32 off, K3's atomics, K6's segments). The
+    card's step must launch every kernel named in ``ran``."""
     from xpoint_tpu_torch.losses import XPointLoss
     from xpoint_tpu_torch.models import VMAMBA_MODEL_CFG, build_xpoint
     from xpoint_tpu_torch.train import (TrainState, make_optimizer,
                                         make_train_step)
     cfg = copy.deepcopy(VMAMBA_MODEL_CFG)
     mp = cfg["use_attention"]["model_parameters"]["MODEL"]
-    mp["VSSM"].update(DEPTHS=[1, 1, 1, 1], EMBED_DIM=24)
+    mp["VSSM"].update(DEPTHS=[1, 1, 1, 1], EMBED_DIM=24,
+                      SSM_D_STATE=d_state)
+    if forward_type is not None:
+        mp["VSSM"]["SSM_FORWARDTYPE"] = forward_type
+    tag = f"{forward_type or 'v05_noz'}, d_state {d_state}"
     mp["DROP_PATH_RATE"] = 0.0
     cfg.update(descriptor_size=32, mixed_precision=False,
                homography_regression_head={"check": False})
@@ -487,6 +530,7 @@ def phase_train_reference(dev):
              for side in ("optical", "thermal")}
     batch["thermal"]["homography"][:, 0, 2] = 3.0
     out = []
+    read = _zero_counts()
     for d in ("cpu", dev):
         m, _ = build_xpoint(cfg, device=d, seed=4)
         st = TrainState(m, make_optimizer({"learningrate": 1e-4})[0])
@@ -502,13 +546,20 @@ def phase_train_reference(dev):
     worst = max(float((g_gpu[n] - g_cpu[n]).abs().max())
                 / (float(g_cpu[n].abs().max()) + 1e-3 * top) for n in g_cpu)
     loss_rel = abs(l_gpu - l_cpu) / abs(l_cpu)
-    print(f"train reference (tiny fp32, card vs CPU): loss {l_gpu} vs "
+    counts = {k: v for k, v in read().items() if v}
+    print(f"train reference (tiny fp32 {tag}, card vs CPU): loss {l_gpu} vs "
           f"{l_cpu} (rel {loss_rel:.3g}); worst gradient error "
-          f"{worst:.3g} of (leaf max + 1e-3 x largest)", flush=True)
+          f"{worst:.3g} of (leaf max + 1e-3 x largest); launches {counts}",
+          flush=True)
     if loss_rel > 1e-4 or worst > 1e-3:
-        raise SystemExit("the card's train step disagrees with the CPU's")
-    return {"loss_gpu": l_gpu, "loss_cpu": l_cpu, "loss_rel_err": loss_rel,
-            "grad_err": worst}
+        raise SystemExit(f"the card's train step ({tag}) disagrees with the "
+                         f"CPU's")
+    if any(k not in counts for k in ran):
+        raise SystemExit(f"the card's train step ({tag}) launched {counts}, "
+                         f"expected every one of {ran}")
+    return {"forward_type": forward_type or "v05_noz", "d_state": d_state,
+            "loss_gpu": l_gpu, "loss_cpu": l_cpu, "loss_rel_err": loss_rel,
+            "grad_err": worst, "launches": counts}
 
 
 HA_S, HA_WB = 512, 8            # the HA image size and warps per step
@@ -549,10 +600,7 @@ def phase_warp(dev):
     g = torch.Generator(device=dev).manual_seed(3)
     S, n = HA_S, HA_WB
     h_sets = _ha_homography_sets(6, dev)
-    # ~10 ms of queued device work (eight 8192^3 bf16 products) ahead of
-    # each timed call: the plain version enqueues some 40 small kernels
-    big = torch.ones(8192, 8192, dtype=torch.bfloat16, device=dev)
-    delay = lambda: [torch.mm(big, big) for _ in range(8)]  # noqa: E731
+    delay = queued_delay(dev)
     rows = []
     for name, multi, mode, padding, C in (
             ("image warp", True, "bilinear", "reflection", 2),
@@ -644,13 +692,17 @@ def phase_warp(dev):
 
 def _zero_counts():
     from xpoint_tpu_torch.ops.nms import grid_nms_keep
+    from xpoint_tpu_torch.ops.linear_scan import linear_scan
     from xpoint_tpu_torch.ops.selective_scan_cuda import (
-        selective_scan_bidir, selective_scan_fused_bkld)
+        selective_scan_bidir, selective_scan_bidir_bwd,
+        selective_scan_fused_bkld)
     from xpoint_tpu_torch.ops.warp_projective import warp_projective
     fns = {"warp_projective": warp_projective,
            "selective_scan_bidir": selective_scan_bidir,
+           "selective_scan_bidir_bwd": selective_scan_bidir_bwd,
            "nms_sweep": grid_nms_keep,
-           "selective_scan_fused": selective_scan_fused_bkld}
+           "selective_scan_fused": selective_scan_fused_bkld,
+           "linear_scan": linear_scan}
     for f in fns.values():
         f.launches = 0
     return lambda: {k: f.launches for k, f in fns.items()}
@@ -758,8 +810,8 @@ def fused_operands(g, L, Dim, dev, batch=B):
     return u, dt, A, bs, cs, D, dt0 + torch.log(-torch.expm1(-dt0))
 
 
-def phase_fused_scan(dev, stages, blocks_per_stage):
-    """K5 against its plain version at the serving stage shapes."""
+def phase_fused_scan(dev, stages, blocks_per_stage, batch=B):
+    """K5 against its plain version at the stage shapes of one path."""
     from xpoint_tpu_torch.ops.selective_scan_cuda import (
         selective_scan_fused_bkld, selective_scan_fused_bkld_plain)
     g = torch.Generator(device=dev).manual_seed(5)
@@ -767,7 +819,8 @@ def phase_fused_scan(dev, stages, blocks_per_stage):
     max_err = 0.0
     with torch.no_grad():
         for (L, Dim), n_launch in zip(stages, blocks_per_stage):
-            inputs = [fused_operands(g, L, Dim, dev) for _ in range(6)]
+            inputs = [fused_operands(g, L, Dim, dev, batch)
+                      for _ in range(6)]
             y = selective_scan_fused_bkld(*inputs[0])
             p = selective_scan_fused_bkld_plain(*inputs[0])
             torch.cuda.synchronize()
@@ -775,14 +828,13 @@ def phase_fused_scan(dev, stages, blocks_per_stage):
             finite = bool(torch.isfinite(y).all())
             ms = cuda_ms(selective_scan_fused_bkld, inputs[1:])
             plain_ms = cuda_ms(selective_scan_fused_bkld_plain, inputs[1:3])
-            M, G = B * 4 * Dim, B * 4
+            M, G = batch * 4 * Dim, batch * 4
             b_ms, b_by = bound(2 * (3 * L * M + 2 * L * G) + 3 * 4 * 4 * Dim,
                                14 * L * M)
             rows.append({"L": L, "Dim": Dim, "M": M, "max_abs_err": err,
                          "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-                         "bound_by": b_by,
-                         "launches_per_pipeline_call": n_launch})
-            print(f"K5 L={L} Dim={Dim} M={M}: max_abs_err={err} "
+                         "bound_by": b_by, "launches_per_call": n_launch})
+            print(f"K5 B={batch} L={L} Dim={Dim} M={M}: max_abs_err={err} "
                   f"kernel_ms={ms} plain_ms={plain_ms} bound_ms={b_ms} "
                   f"({b_by})", flush=True)
             if not finite or err > 2e-2:
@@ -793,6 +845,71 @@ def phase_fused_scan(dev, stages, blocks_per_stage):
             tot["plain_ms"] += plain_ms * n_launch
             tot["bound_ms"] += b_ms * n_launch
             del inputs
+    return rows, tot, max_err
+
+
+def recurrence_operands(g, shape, dev):
+    """fp32 planes of the linear recurrence as the selective scan forms
+    them: a = exp(-delta) in (0, 1] with delta = softplus(0.5 n + bias), bias
+    from the flagship's log-uniform dt initialisation, and b = 0.1 n."""
+    lo, hi = math.log(0.001), math.log(0.1)
+    dt0 = torch.exp(torch.rand(shape[-1], generator=g, device=dev)
+                    * (hi - lo) + lo)
+    delta = torch.nn.functional.softplus(
+        torch.randn(shape, generator=g, device=dev) * 0.5
+        + dt0 + torch.log(-torch.expm1(-dt0)))
+    return (torch.exp(-delta),
+            torch.randn(shape, generator=g, device=dev) * 0.1)
+
+
+def phase_linear_scan(dev, stages, blocks_per_stage):
+    """K6 against its plain version: forward and reversed-shifted at the
+    shapes the v052d_noz train step gives it, and in the time-major layout
+    of the general (N > 1) scan."""
+    from xpoint_tpu_torch.ops.linear_scan import (linear_scan_launch,
+                                                  linear_scan_plain)
+    g = torch.Generator(device=dev).manual_seed(7)
+    cases = [((TRAIN_B, 4, L, Dim), 2, n, f"train L={L} Dim={Dim}")
+             for (L, Dim), n in zip(stages, blocks_per_stage)]
+    # the general scan at the first stage with d_state 4, B=4: (L, M) planes
+    # with M = B * 4 * Dim * N lanes, as many as the first train shape has
+    L0, Dim0 = stages[0]
+    cases.append(((L0, 4 * 4 * Dim0 * 4), 0, 0, f"N=4 B=4 L={L0} Dim={Dim0}"))
+    rows, max_err = [], 0.0
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    delay = queued_delay(dev)
+    for shape, dim, n_launch, name in cases:
+        inputs = [recurrence_operands(g, shape, dev) for _ in range(6)]
+        L, M = shape[dim], math.prod(shape) // shape[dim]
+        b_ms, b_by = bound(12 * L * M, 2 * L * M)
+        row = {"case": name, "shape": list(shape), "dim": dim, "L": L,
+               "M": M, "bound_ms": b_ms, "bound_by": b_by,
+               "launches_per_train_step": 2 * n_launch}
+        for tag, kw in (("fwd", {}), ("rev", {"reverse": True, "shift": 1})):
+            h = linear_scan_launch(*inputs[0], dim=dim, **kw)
+            p = linear_scan_plain(*inputs[0], dim=dim, **kw)
+            torch.cuda.synchronize()
+            err, top = float((h - p).abs().max()), float(p.abs().max())
+            # device time: a launch takes tens of microseconds, as long as
+            # the host's path to it
+            ms = cuda_ms_queued(lambda a, b: linear_scan_launch(
+                a, b, dim=dim, **kw), inputs[1:], delay)
+            plain_ms = cuda_ms(lambda a, b: linear_scan_plain(
+                a, b, dim=dim, **kw), inputs[1:2])
+            row.update({f"{tag}_max_abs_err": err, f"{tag}_max_plain": top,
+                        f"{tag}_ms": ms, f"{tag}_plain_ms": plain_ms})
+            print(f"K6 {name} {tag} shape={list(shape)} dim={dim} M={M}: "
+                  f"max_abs_err={err} (max |plain| {top}) kernel_ms={ms} "
+                  f"plain_ms={plain_ms} bound_ms={b_ms} ({b_by})", flush=True)
+            if not bool(torch.isfinite(h).all()) or err > 1e-5 * top:
+                raise SystemExit(f"K6 disagrees with its plain version at "
+                                 f"{name} {tag}: {err} of {top}")
+            max_err = max(max_err, err)
+            tot["ms"] += ms * n_launch
+            tot["plain_ms"] += plain_ms * n_launch
+            tot["bound_ms"] += b_ms * n_launch
+        rows.append(row)
+        del inputs
     return rows, tot, max_err
 
 
@@ -925,6 +1042,15 @@ def main():
         dev, stages, [2 * d for d in depths])
     bidi_res = phase_bidi_path(dev)
     haref_res = phase_ha_reference(dev)
+    k6_rows, k6_tot, k6_err = phase_linear_scan(
+        dev, train_stages, [2 * d for d in depths])
+    tfused_rows, tfused_tot, tfused_err = phase_fused_scan(
+        dev, train_stages, [2 * d for d in depths], batch=TRAIN_B)
+    bidi_train_res = phase_train(dev, "v052d_noz", n_steps=5)
+    trefs = [phase_train_reference(dev, *args) for args in (
+        ("v052d_noz", 1, ("selective_scan_fused", "linear_scan")),
+        ("v05", 4, ("linear_scan",)),
+        ("v052dc_noz", 1, ("selective_scan_fused", "linear_scan")))]
 
     # each HA step makes the image warp, the mask unwarp and one probability
     # unwarp: of one map per pair in prod aggregation (the three samples),
@@ -988,6 +1114,23 @@ def main():
          "plain_ms": fused_tot["plain_ms"],
          "bound_ms": fused_tot["bound_ms"], "bound_by": "bytes",
          "library_ms": None},
+        {"name": "selective_scan_fused", "path": "train (v052d_noz)",
+         "route": "cuda",
+         "source": "xpoint_tpu_torch/csrc/selective_scan_fused.cu",
+         "replaces": "xpoint_tpu/ops/selective_scan_pallas.py:121",
+         "launches": bidi_train_res["launches"]["selective_scan_fused"],
+         "max_abs_err": tfused_err, "ms": tfused_tot["ms"],
+         "plain_ms": tfused_tot["plain_ms"],
+         "bound_ms": tfused_tot["bound_ms"], "bound_by": "bytes",
+         "library_ms": None},
+        {"name": "linear_scan", "path": "train (v052d_noz)",
+         "route": "cuda",
+         "source": "xpoint_tpu_torch/csrc/linear_scan.cu",
+         "replaces": "xpoint_tpu/ops/selective_scan_pallas.py:34",
+         "launches": bidi_train_res["launches"]["linear_scan"],
+         "max_abs_err": k6_err, "ms": k6_tot["ms"],
+         "plain_ms": k6_tot["plain_ms"], "bound_ms": k6_tot["bound_ms"],
+         "bound_by": "bytes", "library_ms": None},
     ]
     print("details: " + json.dumps(
         {"card": card, "build_s": build_s, "k1_stages": scan_rows,
@@ -995,7 +1138,9 @@ def main():
          "train_scan_stages": tscan_rows, "train_path": train_res,
          "train_reference": tref_res, "k4_calls": warp_rows, "ha": ha_res,
          "k5_stages": fused_rows, "v052d_path": bidi_res,
-         "ha_reference": haref_res}), flush=True)
+         "ha_reference": haref_res, "k6_cases": k6_rows,
+         "k5_train_stages": tfused_rows, "v052d_train_path": bidi_train_res,
+         "forward_type_train_references": trefs}), flush=True)
     print("serve: K1 ms/plain_ms/bound_ms are per pipeline call (sum over "
           "stage shapes x launches), K2's over all sweeps of one call; "
           "train: K1 and K3 per train step (sum over stage shapes x 4 "
@@ -1003,8 +1148,10 @@ def main():
           "one launch each; each step makes the image warp, the mask unwarp "
           "and one probability unwarp (one map in the prod samples, two in "
           "the window export), and launches are the HA phase's; K5 per v052d_noz "
-          "pipeline call (16 launches); launches count the whole run of "
-          "each path", flush=True)
+          "pipeline call (16 launches) and per v052d_noz train step (16); K6 "
+          "per v052d_noz train step (sum over stage shapes x 4 forward and 4 "
+          "reversed launches); launches count the whole run of each path",
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

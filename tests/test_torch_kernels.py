@@ -12,6 +12,9 @@ import torch
 
 from xpoint_tpu_torch.geometry.homography import sample_homography
 from xpoint_tpu_torch.ops import warp, warp_projective
+from xpoint_tpu_torch.ops.linear_scan import (linear_scan,
+                                              linear_scan_launch,
+                                              linear_scan_plain)
 from xpoint_tpu_torch.ops.nms import grid_nms_keep, grid_nms_keep_plain
 from xpoint_tpu_torch.ops.selective_scan_cuda import (
     SelectiveScanBidir, selective_scan_bidir, selective_scan_bidir_bwd,
@@ -265,11 +268,127 @@ def test_fused_scan_kernel_matches_plain(cuda, L, B, Dim, dtype):
     torch.testing.assert_close(y.float(), p.float(), atol=atol, rtol=rtol)
 
 
-def test_fused_scan_kernel_refuses_a_gradient(cuda):
-    args = _fused_operands(6, 1, 16, 8, torch.float32, cuda)
-    args[0].requires_grad_()
-    with pytest.raises(NotImplementedError):
-        selective_scan_fused_bkld(*args)
+def test_fused_scan_gradients_on_card_match_cpu(cuda):
+    """SelectiveScanFusedBkld: K5 forward, then K6 twice in the backward
+    (h rebuilt, then the reversed scan), against the plain versions on the
+    CPU, fp32: every gradient within 1e-4 of its max."""
+    cpu = _fused_operands(6, 2, 300, 24, torch.float32, "cpu")
+    grads = []
+    for dev in ("cpu", cuda):
+        xs = [x.detach().to(dev).requires_grad_() for x in cpu]
+        k5, k6 = selective_scan_fused_bkld.launches, linear_scan.launches
+        y = selective_scan_fused_bkld(*xs)
+        (y * torch.cos(y)).sum().backward()
+        if dev != "cpu":
+            assert selective_scan_fused_bkld.launches == k5 + 1
+            assert linear_scan.launches == k6 + 2
+        grads.append([x.grad.cpu() for x in xs])
+    for a, b in zip(*grads):
+        assert _rel_err(b, a) <= 1e-4
+
+
+def _recurrence_planes(seed, shape, dtype, device):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    a = torch.exp(-torch.rand(shape, generator=g) * 1.5)
+    b = torch.randn(shape, generator=g)
+    return a.to(device, dtype), b.to(device, dtype)
+
+
+@pytest.mark.parametrize("reverse,shift", [(False, 0), (True, 0), (True, 1),
+                                           (False, -1)])
+@pytest.mark.parametrize("shape,dim", [
+    ((1, 96), 0), ((7, 96), 0), ((255, 192), 0), ((256, 288), 0),
+    ((257, 96), 0), ((513, 37), 0), ((1031, 480), 0),
+    ((2, 4, 300, 96), 2), ((3, 77, 5), 1), ((2, 3, 19), 2)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_linear_scan_kernel_matches_plain(cuda, shape, dim, reverse, shift,
+                                          dtype):
+    """K6 over lane counts that are multiples of 96 and not of 32, L of 1,
+    below, at and beyond its span of 256 steps and odd, along the first, a
+    middle and the last dim, forward, reversed and with the coefficient
+    shifted either way: within 1e-5 of max |plain| (the segments are
+    combined in scan order; only the rounding of a segment's product and
+    the FMA contraction differ)."""
+    a, b = _recurrence_planes(sum(shape) + dim, shape, dtype, cuda)
+    before = linear_scan.launches
+    h = linear_scan_launch(a, b, reverse=reverse, shift=shift, dim=dim)
+    torch.cuda.synchronize()
+    assert linear_scan.launches == before + 1
+    p = linear_scan_plain(a, b, reverse=reverse, shift=shift, dim=dim)
+    assert h.dtype == torch.float32 and h.shape == a.shape
+    assert _rel_err(h, p) <= 1e-5
+
+
+def test_linear_scan_kernel_long_decay(cuda):
+    """Coefficients whose products underflow to 0 (and exact zeros): finite
+    and equal to the plain version within 1e-5 of its max."""
+    g = torch.Generator().manual_seed(1)
+    a = (torch.rand(4096, 64, generator=g) * 0.2).to(cuda)
+    a[:, 0] = 0.0
+    b = torch.randn(4096, 64, generator=g).to(cuda)
+    h = linear_scan_launch(a, b)
+    assert bool(torch.isfinite(h).all())
+    assert _rel_err(h, linear_scan_plain(a, b)) <= 1e-5
+
+
+def test_linear_scan_autograd_on_card_matches_cpu(cuda):
+    """LinearScan on the card (K6 forward, K6 reversed) against the CPU's
+    plain versions, fp32, along dim 0 and along an inner dim."""
+    for shape, dim in (((300, 96), 0), ((2, 4, 130, 24), 2)):
+        cpu = _recurrence_planes(3, shape, torch.float32, "cpu")
+        grads = []
+        for dev in ("cpu", cuda):
+            a, b = (x.detach().to(dev).requires_grad_() for x in cpu)
+            h = linear_scan(a, b, dim=dim)
+            (h * torch.cos(h)).sum().backward()
+            grads.append((a.grad.cpu(), b.grad.cpu()))
+        for x, y in zip(*grads):
+            assert _rel_err(y, x) <= 1e-5
+
+
+def test_linear_scan_kernel_rejects_mixed_dtypes(cuda):
+    a, b = _recurrence_planes(0, (16, 32), torch.float32, cuda)
+    with pytest.raises(ValueError):
+        linear_scan_launch(a, b.bfloat16())
+    with pytest.raises(TypeError):
+        linear_scan_launch(a.half(), b.half())
+
+
+@pytest.mark.parametrize("ftype,d_state", [("v052d_noz", 1), ("v05", 4),
+                                           ("v052dc", 2)])
+def test_tiny_forward_types_on_card_match_cpu(cuda, ftype, d_state):
+    """The tiny fp32 model in a forward type that runs K5 + K6 (v052d_noz),
+    the general scan on K6 (gated v05, d_state 4) and cascade2d: logits and
+    descriptors (atol 1e-4) and every encoder gradient (1e-3 of the leaf's
+    max + 1e-6 of the largest) on the card against the CPU."""
+    import copy
+    from xpoint_tpu_torch.models import VMAMBA_MODEL_CFG, build_xpoint
+
+    cfg = copy.deepcopy(VMAMBA_MODEL_CFG)
+    cfg["use_attention"]["model_parameters"]["MODEL"]["VSSM"].update(
+        DEPTHS=[1, 1, 1, 1], EMBED_DIM=24, SSM_FORWARDTYPE=ftype,
+        SSM_D_STATE=d_state)
+    cfg.update(descriptor_size=32, mixed_precision=False)
+    img = torch.rand(2, 64, 64, 1, generator=torch.Generator().manual_seed(0))
+    res = []
+    for dev in ("cpu", cuda):
+        m, _ = build_xpoint(cfg, device=dev)
+        before = linear_scan.launches
+        out = m(img.to(dev))
+        (out["logits"].square().mean() + out["desc"].square().mean()
+         ).backward()
+        if dev != "cpu":
+            assert linear_scan.launches > before
+        res.append(({k: out[k].detach().cpu() for k in ("logits", "desc")},
+                    {n: p.grad.cpu() for n, p in
+                     m.encoder.named_parameters()}))
+    (o_cpu, g_cpu), (o_gpu, g_gpu) = res
+    for k in o_cpu:
+        torch.testing.assert_close(o_gpu[k], o_cpu[k], atol=1e-4, rtol=0)
+    top = max(float(g.abs().max()) for g in g_cpu.values())
+    for n, g in g_cpu.items():
+        tol = 1e-3 * float(g.abs().max()) + 1e-6 * top
+        assert float((g_gpu[n] - g).abs().max()) <= tol, n
 
 
 def test_tiny_ha_on_card_matches_cpu(cuda):

@@ -358,6 +358,43 @@ def test_train_step_matches_jax():
     assert tstate.step == 3 and tstate.opt_state["count"] == 3
 
 
+@pytest.mark.parametrize("ftype,d_state", [("v052d_noz", 1), ("v051d", 2)])
+def test_train_step_forward_types_match_jax(ftype, d_state):
+    """One train step of the tiny model in the bidi forward type (the fused
+    single-direction scan, its gradient through the linear recurrence) and
+    in the gated unidi type with d_state 2 (the general scan), JAX on the
+    Pallas backend with its custom VJPs: loss components within 1e-5
+    relative and every gradient leaf (Adam's first moment, mu = 0.1 g)
+    within 1e-4 of the leaf's max + 1e-7 of the largest, as
+    test_train_step_matches_jax holds the flagship type."""
+    cfg = _tiny_train_cfg()
+    cfg["use_attention"]["model_parameters"]["MODEL"]["VSSM"].update(
+        SSM_FORWARDTYPE=ftype, SSM_D_STATE=d_state)
+    jm, _ = jx_build_xpoint(cfg, dtype=jnp.float32, scan_backend="pallas")
+    v = jax.jit(lambda r: jm.init(r, jnp.zeros((1, 64, 64, 1), jnp.float32),
+                                  method=jm.init_all))(jax.random.PRNGKey(0))
+    v = _perturb(v, 22, scale=0.05)
+    loss_cfg = dict(VMAMBA_TRAIN_CFG["loss"], space_to_depth_ratio=8)
+    jtx, _ = jx_make_optimizer({"learningrate": 1e-4})
+    jstate = JxTrainState.create(v["params"], v["batch_stats"], jtx)
+    jstep = jx_make_train_step(jm, JxXPointLoss(loss_cfg), donate=False)
+    tm, _ = build_xpoint(cfg, device="cpu")
+    load_flax_variables(tm, v)
+    tstate = TrainState(tm, make_optimizer({"learningrate": 1e-4})[0])
+    tstep = make_train_step(tm, XPointLoss(loss_cfg))
+    batch = _pair_batch(4)
+    jstate, jc = jstep(jstate, jax.tree.map(jnp.asarray, batch),
+                       jax.random.PRNGKey(0))
+    tc = tstep(tstate, _torch_batch(batch), torch.Generator().manual_seed(0))
+    assert float(tc["skipped_nonfinite"]) == 0.0 and set(tc) == set(jc)
+    for k in tc:
+        tol = 1.5 / 128 if "ratio" in k else 1e-5 * abs(float(jc[k])) + 1e-6
+        assert abs(float(tc[k]) - float(jc[k])) <= tol, k
+    _, mu, _ = _port_state_tree(tstate)
+    _assert_trees_close(mu, jstate.opt_state[0].mu, 1e-4,
+                        "gradients (mu / 0.1)", floor=1e-7)
+
+
 def test_flagship_model_trains_a_step_on_cpu():
     """The flagship structure (RegNet, HM loss, DropPath, bf16) at a tiny
     width: a device-batch step runs, RegNet and every encoder block get a

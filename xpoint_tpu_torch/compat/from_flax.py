@@ -12,6 +12,12 @@ The port's submodules carry the flax module names, so a flax path
   everything else (``bias``, ``x_proj_weight``, ``dt_projs_weight``,
   ``dt_projs_bias``, ``A_logs``, ``Ds``) keeps its name and layout.
 
+SS2D's variants need no rule of their own: the gate doubles ``in_proj``'s
+width (D, 2 D) -> (2 D, D), the conv bias is a ``bias`` leaf beside
+``conv2d/kernel``, and with a state size N > 1 ``A_logs`` is (K D, N) and
+``x_proj_weight`` (K, R + 2 N, D) on both sides; the shape check below
+holds the module to the leaves it was built for.
+
 The homography head (``hm_regressor/*``: RegNet's convs, BatchNorms and
 dense layers) maps like the rest. Any flax leaf without a torch
 counterpart, and any torch entry left unset, raises. :func:`to_flax` and

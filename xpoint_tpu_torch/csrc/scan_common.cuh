@@ -1,6 +1,7 @@
 // Device helpers shared by the selective-scan kernels
 // (selective_scan_bidir.cu, selective_scan_bidir_bwd.cu,
-// selective_scan_fused.cu): operand conversion and the fused softplus.
+// selective_scan_fused.cu, linear_scan.cu): operand conversion and the fused
+// softplus.
 #pragma once
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>

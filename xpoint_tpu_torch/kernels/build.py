@@ -24,7 +24,8 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(PKG_DIR), "build", "xpoint_tpu_torch")
 KERNEL_SOURCES = ("selective_scan_bidir", "selective_scan_bidir_bwd",
-                  "nms_sweep", "warp_projective", "selective_scan_fused")
+                  "nms_sweep", "warp_projective", "selective_scan_fused",
+                  "linear_scan")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 

@@ -5,13 +5,15 @@ from a seeded ``torch.Generator`` (the numbers differ from flax's; the
 distributions match ``xpoint_tpu/models/vssm.py:83-134`` and the flax
 defaults used by ``xpoint_tpu/models/heads.py``):
 
-  * Dense layers of the encoder and ``x_proj_weight``: normal(0.02)
-    truncated to +-2 std;
+  * Dense layers of the encoder (``in_proj`` of width D, or 2 D with the
+    gate) and ``x_proj_weight`` (K, R + 2 N, D): normal(0.02) truncated to
+    +-2 std;
   * convolutions, and RegNet's dense layers: lecun_normal (truncated
     normal, fan_in scaling), bias 0;
   * ``dt_projs_weight``: uniform [0, 2 R^-0.5) (stored unshifted);
   * ``dt_projs_bias``: softplus-inverse of log-uniform dt in [1e-3, 0.1];
-  * ``A_logs``: log(1..N); ``Ds``: 1;
+  * ``A_logs`` (K D, N): log(1..N) in every row; ``Ds``: 1; SS2D's conv
+    bias, where configured: 0;
   * LayerNorm / BatchNorm: scale 1, bias 0, running stats 0 / 1.
 """
 import math
@@ -64,7 +66,10 @@ def init_xpoint_(module, gen):
     for m in module.modules():
         if isinstance(m, SS2D):
             _init_ss2d_(m, gen)
-            _lecun_normal_(m.conv2d.weight, gen)
+            if hasattr(m, "conv2d"):
+                _lecun_normal_(m.conv2d.weight, gen)
+                if m.conv2d.bias is not None:
+                    m.conv2d.bias.zero_()
         elif isinstance(m, nn.Linear):
             _trunc_normal_(m.weight, 0.02, gen)
             if m.bias is not None:

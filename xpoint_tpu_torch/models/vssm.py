@@ -1,12 +1,13 @@
 """VSSM (VMamba) encoder, NHWC (port of ``xpoint_tpu/models/vssm.py``).
 
-Supported, all with d_state 1 and without the gate branch: the flagship
-forward type ``v05_noz``, i.e. SS2D in scan mode 0 (cross2d) through the
-flip-free token-major bidirectional scan, forward and backward; and
-``v051d_noz`` / ``v052d_noz`` (scan modes 1 unidi and 2 bidi) through
-``cross_scan``, the single-direction fused scan and ``cross_merge``, forward
-only. Cascade2d, gated or output-activated SS2D, ``SS2Dv3`` (xv) and
-``SS2Dm0`` raise NotImplementedError (ROADMAP.md, Queue 1 item 10).
+Supported: the forward types v05, v051d, v052d and v052dc (SS2D in scan
+modes 0 cross2d, 1 unidi, 2 bidi and -1 cascade2d) with their ``_noz`` /
+``_nozact`` / ``_oact`` tags, any ``d_state`` N >= 1, with or without the conv
+bias, forward and backward. The flagship ``v05_noz`` with N = 1 runs the
+flip-free token-major bidirectional scan; ``v051d`` / ``v052d`` with N = 1
+run ``cross_scan``, the single-direction fused scan and ``cross_merge``;
+N > 1 and cascade2d run ``ops.selective_scan.selective_scan``. ``SS2Dv3``
+(xv) and ``SS2Dm0`` raise NotImplementedError (ROADMAP.md, Queue 1 item 10).
 
 Submodule and parameter names follow the flax module tree, so the weight
 bridge (``compat.from_flax``) maps names one to one. Parameters are fp32;
@@ -16,8 +17,8 @@ GELU is the tanh approximation (flax's ``nn.gelu`` default).
 Train mode (``module.train()``) is the JAX ``deterministic=False``: DropPath
 draws its per-sample masks from the ``torch.Generator`` passed to
 ``forward`` (the counterpart of the flax "droppath" rng stream), and SS2D's
-scan runs through the differentiable ``SelectiveScanBidir`` (scan mode 0
-only: the other modes' scan has no backward yet and raises).
+scans run through their autograd Functions (``SelectiveScanBidir``,
+``SelectiveScanFusedBkld``, ``LinearScan``).
 """
 import math
 
@@ -28,6 +29,7 @@ from torch import nn
 
 from ..ops.cross_scan import cross_merge, cross_scan
 from ..ops.gridops import depth_to_space
+from ..ops.selective_scan import selective_scan
 from ..ops.selective_scan_cuda import scan_bidir, selective_scan_fused_bkld
 
 _ROADMAP_ITEM = "ROADMAP.md Queue 1 item 10 (other encoders and forward types)"
@@ -118,22 +120,37 @@ class Mlp(nn.Module):
 
 
 class SS2D(nn.Module):
-    """2D selective scan block without the gate branch, d_state N = 1: B
-    and C are one scalar per token and direction. ``scan_mode`` 0 is
-    cross2d (v05), 1 unidi (v051d), 2 bidi (v052d)."""
+    """2D selective scan block, forward types v05 / v051d / v052d / v052dc
+    (``scan_mode`` 0 cross2d, 1 unidi, 2 bidi, -1 cascade2d), with the
+    state size ``d_state`` N >= 1, the optional gate branch (``disable_z``
+    False: ``in_proj`` emits x and z, y is multiplied by SiLU(z), or by z
+    itself with ``disable_z_act``) and the optional GELU on the normalised
+    output (``out_act``). Constructor arguments in the flax module's order.
 
-    def __init__(self, d_model, ssm_ratio=1.0, dt_rank="auto", scan_mode=0):
+    With N = 1, mode 0 runs the token-major bidirectional scan and modes 1
+    and 2 the single-direction fused scan in (B, K, L, D) layout; N > 1 and
+    cascade2d go through ``ops.selective_scan.selective_scan`` in the
+    reference layout."""
+
+    def __init__(self, d_model, d_state=1, ssm_ratio=1.0, dt_rank="auto",
+                 d_conv=3, conv_bias=False, disable_z=True,
+                 disable_z_act=False, out_act=False, scan_mode=0):
         super().__init__()
-        if scan_mode not in (0, 1, 2):
-            raise NotImplementedError(
-                f"SS2D scan mode {scan_mode}; see {_ROADMAP_ITEM}")
+        if scan_mode not in (-1, 0, 1, 2):
+            raise ValueError(f"unknown SS2D scan mode {scan_mode}")
         self.scan_mode = scan_mode
+        self.disable_z, self.disable_z_act = disable_z, disable_z_act
+        self.out_act = out_act
         D = int(ssm_ratio * d_model)
         R = int(math.ceil(d_model / 16)) if dt_rank == "auto" else int(dt_rank)
-        self.d_inner, self.dt_rank = D, R
-        K, N = 4, 1
-        self.in_proj = nn.Linear(d_model, D, bias=False)
-        self.conv2d = nn.Conv2d(D, D, 3, padding=1, groups=D, bias=False)
+        K, N = 4, int(d_state)
+        self.d_inner, self.dt_rank, self.d_state = D, R, N
+        self.in_proj = nn.Linear(d_model, D if disable_z else 2 * D,
+                                 bias=False)
+        if d_conv > 1:
+            # padding 1 whatever the kernel size, as the flax module has it
+            self.conv2d = nn.Conv2d(D, D, d_conv, padding=1, groups=D,
+                                    bias=conv_bias)
         self.x_proj_weight = nn.Parameter(torch.empty(K, R + 2 * N, D))
         # stored unshifted in [0, 2 R^-0.5); the effective weight is
         # dt_projs_weight - R^-0.5 (vssm.py:181-185)
@@ -146,31 +163,91 @@ class SS2D(nn.Module):
 
     def forward(self, x):
         _, H, W, _ = x.shape
-        D, R, N = self.d_inner, self.dt_rank, 1
+        D, R, N = self.d_inner, self.dt_rank, self.d_state
         dtype = x.dtype
-        xs = F.linear(x, self.in_proj.weight.to(dtype))
-        xs = F.silu(_conv_nhwc(xs, self.conv2d.weight, padding=1, groups=D))
-        A = -torch.exp(self.A_logs.reshape(-1))
+        xs, z = F.linear(x, self.in_proj.weight.to(dtype)), None
+        if not self.disable_z:
+            xs, z = xs.chunk(2, dim=-1)
+            if not self.disable_z_act:
+                z = F.silu(z)
+        if hasattr(self, "conv2d"):
+            bias = self.conv2d.bias
+            xs = _conv_nhwc(xs, self.conv2d.weight, padding=1, groups=D)
+            if bias is not None:
+                xs = xs + bias.to(dtype)
+        xs = F.silu(xs)
         dt_w = (self.dt_projs_weight - R ** -0.5).to(dtype)
-        if self.scan_mode == 0:
-            y = self._cross2d(xs, A, dt_w)
+        if self.scan_mode == -1:
+            y = self._cascade2d(xs, dt_w)
+        elif self.scan_mode == 0 and N == 1:
+            y = self._cross2d(xs, -torch.exp(self.A_logs.reshape(-1)), dt_w)
         else:
-            # unidi / bidi: token-wise projections per direction k on the
-            # expanded (B, K, L, D) planes, the single-direction scan, merge
+            # token-wise projections per direction k on the expanded
+            # (B, K, L, D) planes, the scan, merge
             xk = cross_scan(xs, self.scan_mode)
             x_dbl = torch.einsum("bkld,kcd->bklc", xk,
                                  self.x_proj_weight.to(dtype))
             dts, Bs, Cs = torch.split(x_dbl, [R, N, N], dim=-1)
             dts = torch.einsum("bklr,kdr->bkld", dts, dt_w)
-            ys = selective_scan_fused_bkld(
-                xk.contiguous(), dts.contiguous(), A, Bs.contiguous(),
-                Cs.contiguous(), self.Ds, self.dt_projs_bias.reshape(-1))
+            if N == 1:
+                ys = selective_scan_fused_bkld(
+                    xk.contiguous(), dts.contiguous(),
+                    -torch.exp(self.A_logs.reshape(-1)), Bs.contiguous(),
+                    Cs.contiguous(), self.Ds, self.dt_projs_bias.reshape(-1))
+            else:
+                ys = self._reference_scan(xk, dts, Bs, Cs, slice(0, 4))
             y = cross_merge(ys, H, W, self.scan_mode)
-        y = layer_norm(self.out_norm, y)
+        y = layer_norm(self.out_norm, y).to(dtype)
+        if self.out_act:
+            y = F.gelu(y, approximate="tanh")
+        if z is not None:
+            y = y * z
         return F.linear(y, self.out_proj.weight.to(dtype))
 
+    def _reference_scan(self, xk, dts, Bs, Cs, ks):
+        """(B, k, L, D) planes of directions ``ks`` through the scan in the
+        canonical layout (B, k*D, L) -> fp32 (B, k, L, D)."""
+        B, k, L, D = xk.shape
+        N = self.d_state
+        cl = lambda v: v.transpose(2, 3).reshape(B, k * D, L)  # noqa: E731
+        A = -torch.exp(self.A_logs.reshape(4, D, N)[ks].reshape(-1, N))
+        ys = selective_scan(
+            cl(xk), cl(dts), A, Bs.transpose(2, 3), Cs.transpose(2, 3),
+            self.Ds.reshape(4, D)[ks].reshape(-1),
+            self.dt_projs_bias[ks].reshape(-1), True)
+        return ys.reshape(B, k, D, L).transpose(2, 3)
+
+    def _cascade2d(self, xs, dt_w):
+        """Scan mode -1 (v052dc): rows scanned in both directions with the
+        parameters of directions 0-1, a parameter-free LayerNorm, then
+        columns with those of directions 2-3."""
+        D, R, N, dtype = self.d_inner, self.dt_rank, self.d_state, xs.dtype
+
+        def plain_ln(v):
+            return F.layer_norm(v.float(), (D,), None, None, 1e-5)
+
+        def scan_axis(v, k0, along_w):
+            seq = v if along_w else v.transpose(1, 2)
+            Bb, S, Ln, _ = seq.shape                  # (B, n_seq, L, D)
+            seq = seq.reshape(Bb * S, Ln, D)
+            xk2 = torch.stack([seq, seq.flip(1)], dim=1)    # (BS, 2, L, D)
+            ks = slice(k0, k0 + 2)
+            x_dbl = torch.einsum("bkld,kcd->bklc", xk2,
+                                 self.x_proj_weight[ks].to(dtype))
+            dts, Bs, Cs = torch.split(x_dbl, [R, N, N], dim=-1)
+            dts = torch.einsum("bklr,kdr->bkld", dts, dt_w[ks])
+            ys = self._reference_scan(xk2, dts, Bs, Cs, ks)
+            # the two directions are summed WITHOUT un-reversing the flipped
+            # one, as the reference does (kept for checkpoint parity)
+            merged = (ys[:, 0] + ys[:, 1]).reshape(Bb, S, Ln, D)
+            return merged if along_w else merged.transpose(1, 2)
+
+        y_row = scan_axis(plain_ln(xs).to(dtype), 0, True)
+        return scan_axis(plain_ln(y_row).to(dtype), 2, False)
+
     def _cross2d(self, xs, A, dt_w):
-        """Scan mode 0 on (B, H, W, D) activations -> merged (B, H, W, D)."""
+        """Scan mode 0, N = 1, on (B, H, W, D) activations -> merged
+        (B, H, W, D)."""
         B, H, W, D = xs.shape
         R, N, L, dtype = self.dt_rank, 1, H * W, xs.dtype
         # token-major operands: row-major (j=0) and column-major (j=1)
@@ -193,10 +270,14 @@ class SS2D(nn.Module):
 
 class VSSBlock(nn.Module):
     def __init__(self, dim, ssm_ratio=1.0, dt_rank="auto", mlp_ratio=4.0,
-                 drop_path=0.0, scan_mode=0):
+                 drop_path=0.0, scan_mode=0, d_state=1, ssm_conv=3,
+                 ssm_conv_bias=False, disable_z=True, disable_z_act=False,
+                 out_act=False):
         super().__init__()
         self.norm = _layer_norm_module(dim)
-        self.op = SS2D(dim, ssm_ratio, dt_rank, scan_mode)
+        self.op = SS2D(dim, d_state, ssm_ratio, dt_rank, ssm_conv,
+                       ssm_conv_bias, disable_z, disable_z_act, out_act,
+                       scan_mode)
         self.drop_path = DropPath(drop_path)
         self.mlp_ratio = mlp_ratio
         if mlp_ratio > 0:
@@ -215,7 +296,9 @@ class VSSM(nn.Module):
 
     def __init__(self, depths=(2, 2, 2, 2), embed_dim=96, ssm_ratio=1.0,
                  dt_rank="auto", mlp_ratio=4.0, drop_path_rate=0.2,
-                 dtype=torch.float32, scan_mode=0):
+                 dtype=torch.float32, scan_mode=0, **ss2d_args):
+        """``ss2d_args``: VSSBlock's d_state, ssm_conv, ssm_conv_bias,
+        disable_z, disable_z_act and out_act, the same for every block."""
         super().__init__()
         self.depths = tuple(depths)
         self.dtype = dtype
@@ -231,7 +314,7 @@ class VSSM(nn.Module):
             for d in range(depth):
                 self.add_module(f"layers_{i}_blocks_{d}", VSSBlock(
                     dims[i], ssm_ratio, dt_rank, mlp_ratio, next(dpr),
-                    scan_mode))
+                    scan_mode, **ss2d_args))
             if i < len(depths) - 1:
                 self.add_module(f"layers_{i}_downsample_conv",
                                 StridedConv3x3(dims[i], dims[i + 1]))
@@ -258,24 +341,17 @@ class VSSM(nn.Module):
 def build_vssm_from_config(vssm_cfg, dtype=torch.float32):
     """VSSM from the reference MODEL.VSSM dict (with MODEL.DROP_PATH_RATE
     merged in as ``DROP_PATH_RATE``), parsed as
-    ``xpoint_tpu.models.vssm.build_vssm_from_config`` parses it. Anything
-    but the forward types v05_noz, v051d_noz and v052d_noz (cross2d, unidi,
-    bidi; no gate, no output activation) with d_state 1 and a bias-free 3x3
-    depthwise conv raises NotImplementedError."""
+    ``xpoint_tpu.models.vssm.build_vssm_from_config`` parses it: the
+    forward type's base (v05 cross2d, v051d unidi, v052d bidi, v052dc
+    cascade2d) and its postfix tags (_noz, _nozact, _oact). The xv (SS2Dv3)
+    and m0 (SS2Dm0) forward types raise NotImplementedError."""
     get = vssm_cfg.get
     ftype = str(get("SSM_FORWARDTYPE", "v05_noz"))
     base = ftype.split("_")[0]
-    disable_z = ftype.endswith("_noz") or "_noz_" in ftype
-    scan_mode = {"v051d": 1, "v052d": 2, "v052dc": -1}.get(base, 0)
-    d_state = int(get("SSM_D_STATE", 1))
-    if (base.startswith(("m", "xv")) or scan_mode < 0 or not disable_z
-            or "_oact" in ftype or d_state != 1
-            or int(get("SSM_CONV", 3)) != 3
-            or bool(get("SSM_CONV_BIAS", False))):
+    if base.startswith(("m", "xv")):
         raise NotImplementedError(
-            f"VSSM forward type {ftype}, d_state {d_state}: only v05_noz, "
-            f"v051d_noz and v052d_noz with d_state 1 are ported; see "
-            f"{_ROADMAP_ITEM}")
+            f"VSSM forward type {ftype}: the xv and m0 families are not "
+            f"ported; see {_ROADMAP_ITEM}")
     dt_rank = get("SSM_DT_RANK", "auto")
     return VSSM(
         depths=tuple(get("DEPTHS", [2, 2, 2, 2])),
@@ -285,5 +361,11 @@ def build_vssm_from_config(vssm_cfg, dtype=torch.float32):
         mlp_ratio=float(get("MLP_RATIO", 4.0)),
         drop_path_rate=float(get("DROP_PATH_RATE", 0.2)),
         dtype=dtype,
-        scan_mode=scan_mode,
+        scan_mode={"v051d": 1, "v052d": 2, "v052dc": -1}.get(base, 0),
+        d_state=int(get("SSM_D_STATE", 1)),
+        ssm_conv=int(get("SSM_CONV", 3)),
+        ssm_conv_bias=bool(get("SSM_CONV_BIAS", False)),
+        disable_z=ftype.endswith("_noz") or "_noz_" in ftype,
+        disable_z_act="_nozact" in ftype,
+        out_act="_oact" in ftype,
     )

@@ -1,8 +1,9 @@
 """N=1 selective scans: the bidirectional scan in token layout, forward and
 backward (port of ``xpoint_tpu/ops/selective_scan_pallas.py::
 selective_scan_fused_bidir_tok`` and its custom VJP), and the
-single-direction fused scan in (B, K, L, Dim) layout, forward only
-(``selective_scan_fused_bkld``, at the end of this module).
+single-direction fused scan in (B, K, L, Dim) layout with its backward
+through the linear recurrence (``selective_scan_fused_bkld``, at the end of
+this module).
 
 On a CUDA tensor :func:`selective_scan_bidir` launches the Hopper kernel
 ``csrc/selective_scan_bidir.cu`` (replacing the TPU kernel
@@ -28,20 +29,17 @@ JAX kernel's (nl, 8, Mp) blocks hold the same values in row 0).
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from ..kernels import build
+from .linear_scan import _DTYPE_CODE, _compute_dtype, linear_scan
 
 CKPT_CHUNK = 256
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
 def _softplus(x):
     """log(1 + e^x) in the overflow-free form jax.nn.softplus uses."""
     return x.clamp_min(0) + torch.log1p(torch.exp(-x.abs()))
-
-
-def _compute_dtype(dtype):
-    return torch.float64 if dtype == torch.float64 else torch.float32
 
 
 def _lane_set(r, u_t, dt_t, bc_t, cc_t, A, D, delta_bias):
@@ -355,26 +353,9 @@ def _launch_fused(u, dt, A, Bs, Cs, D, delta_bias):
     return y
 
 
-def selective_scan_fused_bkld(u, dt, A, Bs, Cs, D, delta_bias):
-    """Single-direction fused N=1 selective scan in SS2D's layout (port of
-    ``selective_scan_pallas.py::selective_scan_fused_bkld``, forward only).
-
-    u, dt: (B, K, L, Dim); Bs, Cs: (B, K, L, 1); A, D, delta_bias: (K*Dim,)
-    fp32. Per lane: delta = softplus(dt + bias), h_t = exp(delta A) h_{t-1}
-    + delta u Bs, y = Cs h + D u with an fp32 carry; returns (B, K, L, Dim)
-    in the operands' dtype. CUDA tensors launch ``csrc/
-    selective_scan_fused.cu`` (replacing the TPU kernel
-    ``_fused_scan_kernel``; counted in
-    ``selective_scan_fused_bkld.launches``); CPU tensors run the plain
-    version. Its backward needs the generic linear-recurrence kernel
-    (``selective_scan_pallas.py::_scan_kernel``), which is not ported: when
-    a gradient is wanted this raises NotImplementedError."""
+def _fused_bkld_forward(u, dt, A, Bs, Cs, D, delta_bias):
+    """Checks and the forward alone: K5 on CUDA tensors, plain on the CPU."""
     args = (u, dt, A, Bs, Cs, D, delta_bias)
-    if torch.is_grad_enabled() and any(x.requires_grad for x in args):
-        raise NotImplementedError(
-            "selective_scan_fused_bkld has no backward yet: it needs the "
-            "linear-recurrence kernel (_scan_kernel, K6 in ROADMAP.md "
-            "Queue 2); scan modes 1 and 2 run forward only")
     B, K, L, Dim = u.shape
     want = {"dt": (dt, (B, K, L, Dim)), "Bs": (Bs, (B, K, L, 1)),
             "Cs": (Cs, (B, K, L, 1)), "A": (A, (K * Dim,)),
@@ -396,6 +377,69 @@ def selective_scan_fused_bkld(u, dt, A, Bs, Cs, D, delta_bias):
     if _device_kind(u, "selective_scan_fused_bkld") == "cpu":
         return selective_scan_fused_bkld_plain(*args)
     return _launch_fused(*(x.contiguous() for x in args))
+
+
+def _unfused_bkld(u, dt, A, Bs, Cs, D, delta_bias):
+    """The function of :func:`selective_scan_fused_bkld` composed around
+    :func:`linear_scan` in fp32 (fp64), differentiable: what the backward
+    differentiates (port of ``_unfused_bkld_ref``). The planes stay in
+    (B, K, L, Dim) and are scanned along L where they lie."""
+    B, K, L, Dim = u.shape
+    cd = _compute_dtype(u.dtype)
+    const = lambda v: v.to(cd).reshape(1, K, 1, Dim)  # noqa: E731
+    uf = u.to(cd)
+    # F.softplus: the same values as _softplus, and sigmoid as gradient
+    # also at 0, where clamp and abs have a kink
+    delta = F.softplus(dt.to(cd) + const(delta_bias))
+    a = torch.exp(delta * const(A))
+    b = delta * uf * Bs.to(cd)
+    h = linear_scan(a, b, dim=2)
+    return Cs.to(cd) * h + const(D) * uf
+
+
+class SelectiveScanFusedBkld(torch.autograd.Function):
+    """Differentiable :func:`selective_scan_fused_bkld` (the JAX custom
+    VJP): the forward is the fused scan and saves only its inputs; the
+    backward differentiates :func:`_unfused_bkld` on them, with the
+    cotangent cast to fp32, so the gradient is that of the fp32 function."""
+
+    @staticmethod
+    def forward(ctx, *args):
+        ctx.save_for_backward(*args)
+        return _fused_bkld_forward(*args)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        with torch.enable_grad():
+            args = [x.detach().requires_grad_(need) for x, need in
+                    zip(ctx.saved_tensors, ctx.needs_input_grad)]
+            y = _unfused_bkld(*args)
+            wanted = [x for x in args if x.requires_grad]
+            grads = iter(torch.autograd.grad(y, wanted, g.to(y.dtype)))
+        return tuple(next(grads).to(x.dtype) if x.requires_grad else None
+                     for x in args)
+
+
+def selective_scan_fused_bkld(u, dt, A, Bs, Cs, D, delta_bias):
+    """Single-direction fused N=1 selective scan in SS2D's layout (port of
+    ``selective_scan_pallas.py::selective_scan_fused_bkld``).
+
+    u, dt: (B, K, L, Dim); Bs, Cs: (B, K, L, 1); A, D, delta_bias: (K*Dim,)
+    fp32. Per lane: delta = softplus(dt + bias), h_t = exp(delta A) h_{t-1}
+    + delta u Bs, y = Cs h + D u with an fp32 carry; returns (B, K, L, Dim)
+    in the operands' dtype. CUDA tensors launch ``csrc/
+    selective_scan_fused.cu`` (replacing the TPU kernel
+    ``_fused_scan_kernel``; counted in
+    ``selective_scan_fused_bkld.launches``); CPU tensors run the plain
+    version. When a gradient is wanted it goes through
+    :class:`SelectiveScanFusedBkld`, whose backward runs the
+    linear-recurrence kernel twice (``ops/linear_scan.py``): once to
+    rebuild h, once reversed."""
+    args = (u, dt, A, Bs, Cs, D, delta_bias)
+    if torch.is_grad_enabled() and any(x.requires_grad for x in args):
+        return SelectiveScanFusedBkld.apply(*args)
+    return _fused_bkld_forward(*args)
 
 
 selective_scan_fused_bkld.launches = 0

@@ -1,9 +1,10 @@
 """Where the time of one flagship train step goes, on the card.
 
-    python -m xpoint_tpu_torch.train.profile_step
+    python -m xpoint_tpu_torch.train.profile_step [forward_type]
 
 Builds the flagship train step with :func:`flagship_train` (the one
-``chip_smoke.py`` times), times ``N_TIMED`` unprofiled steps after a
+``chip_smoke.py`` times; ``forward_type``, e.g. ``v052d_noz``, replaces the
+config's ``SSM_FORWARDTYPE``), times ``N_TIMED`` unprofiled steps after a
 warm-up, then profiles one more with torch.profiler (CPU + CUDA activities)
 and prints what ``eval/profile_pipeline.report`` prints. The profiler's CPU
 tracing inflates the profiled step's wall time, so the device's idle share
@@ -19,9 +20,10 @@ import torch
 B, S, N_TIMED = 16, 256, 7
 
 
-def flagship_train(dev):
+def flagship_train(dev, forward_type=None):
     """The flagship training config (VMAMBA_TRAIN_CFG: 256^2, bf16,
-    DropPath 0.2, RegNet + HM loss, hard negatives) from seed 0, on the
+    DropPath 0.2, RegNet + HM loss, hard negatives; with ``forward_type``
+    in place of its SSM_FORWARDTYPE v05_noz) from seed 0, on the
     SyntheticPairs corpus (32 pairs at 320^2, 256 keypoints each, seed 0)
     made resident by load_resident_pair_data and
     batched by make_resident_batch_fn. Returns (state, step, data, meta):
@@ -35,6 +37,9 @@ def flagship_train(dev):
     from . import TrainState, make_optimizer, make_train_step
 
     cfg = copy.deepcopy(VMAMBA_TRAIN_CFG)
+    if forward_type is not None:
+        cfg["model"]["use_attention"]["model_parameters"]["MODEL"]["VSSM"][
+            "SSM_FORWARDTYPE"] = forward_type
     module, _ = build_xpoint(cfg["model"], device=dev, seed=0)
     state = TrainState(module, make_optimizer(cfg["training"])[0])
     data, meta = load_resident_pair_data(SyntheticPairs(), device=dev)
@@ -44,7 +49,9 @@ def flagship_train(dev):
     return state, step, data, meta
 
 
-def main():
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
+    forward_type = argv[0] if argv else None
     if not torch.cuda.is_available():
         print("profile_step: no CUDA device", file=sys.stderr)
         return 1
@@ -53,7 +60,7 @@ def main():
     from ..eval.profile_pipeline import report
 
     dev = torch.device("cuda")
-    state, step, data, meta = flagship_train(dev)
+    state, step, data, meta = flagship_train(dev, forward_type)
     gen = torch.Generator(device=dev).manual_seed(0)
     idx_gen = torch.Generator(device=dev).manual_seed(1)
 
@@ -69,8 +76,9 @@ def main():
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         wall_ms = run()
-    busy_ms = report(prof, wall_ms, "train step (profiled, wall inflated "
-                     "by the profiler)", batch=B, size=S,
+    busy_ms = report(prof, wall_ms, f"train step {forward_type or 'v05_noz'} "
+                     "(profiled, wall inflated by the profiler)", batch=B,
+                     size=S,
                      unprofiled_step_ms=step_ms)
     print(f"unprofiled step {step_ms:.3f} ms (median of {N_TIMED}): device "
           f"busy {busy_ms:.3f} ms, idle {100 * (1 - busy_ms / step_ms):.1f}%")
