@@ -9,7 +9,8 @@ Phases (any failure exits non-zero and prints no result):
      each flagship serving stage shape (512^2, B=8), bf16 operands from a
      seeded generator; max abs error (limit 2e-2: one bf16 ulp at |y| < 4
      over fp32-carry sums in both) and times (CUDA events, fresh inputs,
-     median);
+     median); a second run on the same inputs must give the same bits; the
+     same checks at two shapes with tails (L = 300 and 64, 240 lanes);
   3. serving path: the flagship VMamba XPoint (bf16, port initialisation,
      seed 0) through make_pair_pipeline at 512^2, B=8, on fresh random
      images; launch counts are zeroed just before and read just after;
@@ -22,7 +23,8 @@ Phases (any failure exits non-zero and prints no result):
      recomputation (limit 1e-4 of max |plain|), K3's outputs against
      selective_scan_bidir_bwd_plain (bf16 planes 2e-2 of max |plain|: a
      bf16 ulp; fp32 dA/dD/dbias 1e-3 of max |plain|: sums over L in
-     another order), K3's time, bound and the plain version's time;
+     another order), K3's time, bound and the plain version's time; K1's
+     bit-equal repeat and tail shapes as in phase 2, with checkpoints;
   7. train path: the flagship training config (VMAMBA_TRAIN_CFG: 256^2,
      B=16, bf16, DropPath 0.2, RegNet + HM loss, hard negatives) from seed
      0 on a seeded synthetic resident corpus through make_resident_batch_fn
@@ -41,7 +43,11 @@ Phases (any failure exits non-zero and prints no result):
      exactly equal; device times (events behind queued work, so that the
      host's launch path is not in them), bytes bound, and the time of
      F.grid_sample(align_corners=True) on the same coordinates, held to the
-     kernel loosely (mean 1e-3; nearest 1% of the values);
+     kernel loosely (mean 1e-3; nearest 1% of the values), alone
+     (library_ms: its normalised grid prepared outside the timed call) and
+     with the grid built from the inverse homographies inside the call
+     (library_with_grid_ms: what the library costs from the kernel's own
+     inputs); the bilinear calls once more at 301 x 511, an odd size;
  10. HA label export at full width: the flagship detector (bf16, seed 0)
      on 512^2 synthetic pairs, HA_DEFAULT_CONFIG (num 100, prod) for three
      timed samples after a warm-up, then the export settings
@@ -165,13 +171,19 @@ def phase_scan(dev, stages, blocks_per_stage):
     from xpoint_tpu_torch.ops.selective_scan_cuda import (
         selective_scan_bidir, selective_scan_bidir_plain)
     g = torch.Generator(device=dev).manual_seed(1)
-    rows, tot = [], {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    rows, tot = [], {"ms": 0.0, "ms_with_host_launch": 0.0, "plain_ms": 0.0,
+                     "bound_ms": 0.0}
     max_err = 0.0
+    delay = queued_delay(dev)
     for (L, Dim), n_launch in zip(stages, blocks_per_stage):
         inputs = [scan_operands(g, L, Dim, dev) for _ in range(6)]
         y_f, y_r = selective_scan_bidir(*inputs[0])          # warm-up + check
+        again = selective_scan_bidir(*inputs[0])
         p_f, p_r = selective_scan_bidir_plain(*inputs[0])
         torch.cuda.synchronize()
+        if not (torch.equal(y_f, again[0]) and torch.equal(y_r, again[1])):
+            raise SystemExit(f"K1 gave other bits on the same inputs at "
+                             f"L={L} Dim={Dim}")
         err = max(float((y_f.float() - p_f.float()).abs().max()),
                   float((y_r.float() - p_r.float()).abs().max()))
         rel = max(float(((y_f.float() - p_f.float()).abs()
@@ -179,27 +191,71 @@ def phase_scan(dev, stages, blocks_per_stage):
                   float(((y_r.float() - p_r.float()).abs()
                          / p_r.float().abs().clamp_min(1e-3)).max()))
         finite = bool(torch.isfinite(y_f).all() and torch.isfinite(y_r).all())
-        ms = cuda_ms(selective_scan_bidir, inputs[1:])
+        # device time (a launch takes tens of microseconds at the late
+        # stages, as long as the host's path to it), and the time with that
+        # path, as an idle card sees one call
+        ms = cuda_ms_queued(selective_scan_bidir, inputs[1:], delay)
+        launch_ms = cuda_ms(selective_scan_bidir, inputs[1:])
         plain_ms = cuda_ms(selective_scan_bidir_plain, inputs[1:3])
         M, G = B * 2 * Dim, B * 2
         nbytes = 2 * (5 * L * M + 4 * L * G) + 3 * 4 * 4 * Dim
         b_ms, b_by = bound(nbytes, 2 * 14 * L * M)
         rows.append({"L": L, "Dim": Dim, "M": M, "max_abs_err": err,
                      "max_rel_err": rel, "finite": finite, "ms": ms,
-                     "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                     "ms_with_host_launch": launch_ms, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": b_by,
                      "launches_per_pipeline_call": n_launch})
         print(f"K1 L={L} Dim={Dim} M={M}: max_abs_err={err} "
-              f"max_rel_err={rel} kernel_ms={ms} plain_ms={plain_ms} "
+              f"max_rel_err={rel} kernel_ms={ms} (with the host's launch "
+              f"path {launch_ms}) plain_ms={plain_ms} "
               f"bound_ms={b_ms} ({b_by})", flush=True)
         max_err = max(max_err, err)
         if not finite or err > 2e-2:
             raise SystemExit(f"K1 disagrees with its plain version at "
                              f"L={L} Dim={Dim}: {err}")
         tot["ms"] += ms * n_launch
+        tot["ms_with_host_launch"] += launch_ms * n_launch
         tot["plain_ms"] += plain_ms * n_launch
         tot["bound_ms"] += b_ms * n_launch
         del inputs
-    return rows, tot, max_err
+    print(f"K1 per pipeline call: kernel_ms={tot['ms']} (with the host's "
+          f"launch path {tot['ms_with_host_launch']}) "
+          f"bound_ms={tot['bound_ms']}", flush=True)
+    tails = scan_tail_checks(g, dev, emit_ckpt=False)
+    return rows, tot, max(max_err, tails["max_abs_err"]), tails
+
+
+def scan_tail_checks(g, dev, emit_ckpt):
+    """K1 where its blocks have tails: L = 300 (three spans, the last of 44
+    tokens) and L = 64 (one span of shorter segments) with B = 3, Dim = 40
+    (240 lanes: no multiple of a block's 32), bf16: against the plain version
+    (y 2e-2 abs, checkpoints 1e-4 of max |plain|), and a second run on the
+    same inputs bit for bit."""
+    from xpoint_tpu_torch.ops.selective_scan_cuda import (
+        selective_scan_bidir, selective_scan_bidir_plain)
+    res = {"shapes": [], "max_abs_err": 0.0, "ckpt_rel_err": 0.0}
+    for L in (300, 64):
+        args = scan_operands(g, L, 40, dev, batch=3)
+        out = selective_scan_bidir(*args, emit_ckpt=emit_ckpt)
+        again = selective_scan_bidir(*args, emit_ckpt=emit_ckpt)
+        ref = selective_scan_bidir_plain(*args, emit_ckpt=emit_ckpt)
+        torch.cuda.synchronize()
+        err = max(float((a.float() - b.float()).abs().max())
+                  for a, b in zip(out[:2], ref[:2]))
+        ck = max((_rel_err(a, b) for a, b in zip(out[2:], ref[2:])),
+                 default=0.0)
+        same = all(torch.equal(a, b) for a, b in zip(out, again))
+        print(f"K1 tails L={L} B=3 Dim=40 emit_ckpt={emit_ckpt}: "
+              f"max_abs_err={err} ckpt_rel_err={ck} bit-equal repeat={same}",
+              flush=True)
+        if (not same or err > 2e-2 or ck > 1e-4
+                or not all(bool(torch.isfinite(x).all()) for x in out)):
+            raise SystemExit(f"K1 fails at the tail shape L={L}: {err} {ck} "
+                             f"repeat {same}")
+        res["shapes"].append([L, 3, 40])
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        res["ckpt_rel_err"] = max(res["ckpt_rel_err"], ck)
+    return res
 
 
 def phase_main_path(dev):
@@ -335,9 +391,11 @@ def phase_train_scan(dev, stages, launches_per_stage):
     g = torch.Generator(device=dev).manual_seed(2)
     names = ("du", "ddt", "dbc", "dcc", "dA", "dD", "dbias")
     rows = []
-    tot = {k: 0.0 for k in ("k1_ms", "k1_plain_ms", "k1_bound_ms", "k3_ms",
-                            "k3_plain_ms", "k3_bound_ms")}
+    tot = {k: 0.0 for k in ("k1_ms", "k1_ms_with_host_launch", "k1_plain_ms",
+                            "k1_bound_ms", "k3_ms", "k3_plain_ms",
+                            "k3_bound_ms")}
     k1_err = k3_err = 0.0
+    delay = queued_delay(dev)
     for (L, Dim), n_launch in zip(stages, launches_per_stage):
         sets = []
         for _ in range(6):
@@ -348,7 +406,12 @@ def phase_train_scan(dev, stages, launches_per_stage):
             sets.append((args, gy))
         args, (g_f, g_r) = sets[0]
         out = selective_scan_bidir(*args, emit_ckpt=True)
+        again = selective_scan_bidir(*args, emit_ckpt=True)
         ref = selective_scan_bidir_plain(*args, emit_ckpt=True)
+        if not all(torch.equal(a, b) for a, b in zip(out, again)):
+            raise SystemExit(f"K1 with checkpoints gave other bits on the "
+                             f"same inputs at L={L} Dim={Dim}")
+        del again
         bwd = selective_scan_bidir_bwd(*args, *out[2:], g_f, g_r)
         bwd_ref = selective_scan_bidir_bwd_plain(*args, *ref[2:], g_f, g_r)
         torch.cuda.synchronize()
@@ -371,8 +434,10 @@ def phase_train_scan(dev, stages, launches_per_stage):
             raise SystemExit(f"K1/K3 disagree with their plain versions at "
                              f"L={L} Dim={Dim}: {bad} ckpt {ck_err} "
                              f"y {y_err}")
-        k1_ms = cuda_ms(lambda a: selective_scan_bidir(*a, emit_ckpt=True),
-                        [(a,) for a, _ in sets[1:]])
+        k1_call = lambda a: selective_scan_bidir(  # noqa: E731
+            *a, emit_ckpt=True)
+        k1_ms = cuda_ms_queued(k1_call, [(a,) for a, _ in sets[1:]], delay)
+        k1_launch_ms = cuda_ms(k1_call, [(a,) for a, _ in sets[1:]])
         ckpts = [selective_scan_bidir(*a, emit_ckpt=True)[2:]
                  for a, _ in sets]
         k3_ms = cuda_ms(selective_scan_bidir_bwd,
@@ -393,22 +458,27 @@ def phase_train_scan(dev, stages, launches_per_stage):
                             2 * 40 * L * M)
         rows.append({"L": L, "Dim": Dim, "M": M, "k3_rel_err": errs,
                      "k3_abs_err": abs_errs, "k1_ckpt_rel_err": ck_err,
-                     "k1_ms": k1_ms, "k1_plain_ms": k1_plain,
+                     "k1_ms": k1_ms, "k1_ms_with_host_launch": k1_launch_ms,
+                     "k1_plain_ms": k1_plain,
                      "k1_bound_ms": k1_b, "k3_ms": k3_ms,
                      "k3_plain_ms": k3_plain, "k3_bound_ms": k3_b,
                      "k3_bound_by": k3_by,
                      "launches_per_train_step": n_launch})
-        print(f"  K1+ckpt ms={k1_ms} plain_ms={k1_plain} bound_ms={k1_b} "
+        print(f"  K1+ckpt ms={k1_ms} (with the host's launch path "
+              f"{k1_launch_ms}) plain_ms={k1_plain} bound_ms={k1_b} "
               f"({k1_by}); K3 ms={k3_ms} plain_ms={k3_plain} "
               f"bound_ms={k3_b} ({k3_by})", flush=True)
-        for k, v in (("k1_ms", k1_ms), ("k1_plain_ms", k1_plain),
+        for k, v in (("k1_ms", k1_ms),
+                     ("k1_ms_with_host_launch", k1_launch_ms),
+                     ("k1_plain_ms", k1_plain),
                      ("k1_bound_ms", k1_b), ("k3_ms", k3_ms),
                      ("k3_plain_ms", k3_plain), ("k3_bound_ms", k3_b)):
             tot[k] += v * n_launch
         k1_err = max(k1_err, y_err)
         k3_err = max(k3_err, max(abs_errs.values()))
         del sets, ckpts
-    return rows, tot, k1_err, k3_err
+    tails = scan_tail_checks(g, dev, emit_ckpt=True)
+    return rows, tot, max(k1_err, tails["max_abs_err"]), k3_err, tails
 
 
 # parameters whose gradient is zero in exact arithmetic: a bias right
@@ -628,13 +698,22 @@ def phase_warp(dev):
         # normalised source coordinates, both prepared outside its time
         library = lambda x, gr: F.grid_sample(  # noqa: E731
             x, gr, mode=mode, padding_mode=padding, align_corners=True)
-        grids = []
-        for img, hinv in inputs:
+
+        def norm_grid(hinv):
             ys, xs = _source_coords_from_inverse(hinv, S, S)
-            grid = torch.stack([xs / (S - 1) * 2 - 1, ys / (S - 1) * 2 - 1],
+            return torch.stack([xs / (S - 1) * 2 - 1, ys / (S - 1) * 2 - 1],
                                -1).reshape(n, S, S, 2)
+
+        # what the library costs from the kernel's own inputs: the grid
+        # built from hinv inside the timed call
+        library_with_grid = lambda x, hinv: library(  # noqa: E731
+            x, norm_grid(hinv))
+        grids, with_grid = [], []
+        for img, hinv in inputs:
             x = img.permute(0, 3, 1, 2).contiguous()
-            grids.append((x.expand(n, C, S, S) if multi else x, grid))
+            x = x.expand(n, C, S, S) if multi else x
+            grids.append((x, norm_grid(hinv)))
+            with_grid.append((x, hinv))
         out = kernel(*inputs[0])
         ref = plain(*inputs[0])
         lib = library(*grids[0]).permute(0, 2, 3, 1)
@@ -655,6 +734,8 @@ def phase_warp(dev):
         launch_ms = cuda_ms(kernel, inputs[1:])     # host launch path incl.
         plain_ms = cuda_ms_queued(plain, inputs[1:4], delay)
         library_ms = cuda_ms_queued(library, grids[1:], delay)
+        library_with_grid_ms = cuda_ms_queued(library_with_grid,
+                                              with_grid[1:], delay)
         # the whole entry point (inverse included), for the record
         entry_ms = None if multi else cuda_ms(
             lambda img, hs: warp_batch(img, hs, mode, padding),
@@ -670,6 +751,7 @@ def phase_warp(dev):
                      "ms_with_host_launch": launch_ms, "plain_ms": plain_ms,
                      "bound_ms": b_ms, "bound_by": b_by,
                      "library_ms": library_ms,
+                     "library_with_grid_ms": library_with_grid_ms,
                      "library_mean_abs_diff": lib_mean,
                      "library_max_abs_diff": lib_max,
                      "library_share_differing": lib_share,
@@ -678,7 +760,8 @@ def phase_warp(dev):
               f"-> {list(out.shape)}: max_abs_err={err} differing={n_diff} "
               f"kernel_ms={ms} (with the host's launch path {launch_ms}) "
               f"plain_ms={plain_ms} bound_ms={b_ms} ({b_by}) "
-              f"library_ms={library_ms} (grid_sample against the kernel: "
+              f"library_ms={library_ms} library_with_grid_ms="
+              f"{library_with_grid_ms} (grid_sample against the kernel: "
               f"mean {lib_mean} max {lib_max} share differing {lib_share}) "
               f"entry_point_ms={entry_ms}", flush=True)
         if not finite or (n_diff if mode == "nearest" else err > 1e-5):
@@ -687,7 +770,43 @@ def phase_warp(dev):
         if lib_share > 1e-2 if mode == "nearest" else lib_mean > 1e-3:
             raise SystemExit(f"grid_sample does not compute the {name}: "
                              f"mean {lib_mean}, share {lib_share}")
-    return rows
+    return rows, warp_odd_size_check(g, dev)
+
+
+def warp_odd_size_check(g, dev):
+    """K4's bilinear calls at 301 x 511 (rows that are no multiple of a
+    thread's 4 pixels, so the scalar stores run; neither side a multiple of
+    the 32 x 8 tile) against the plain version, limit 1e-5."""
+    from xpoint_tpu_torch.geometry.homography import sample_homography
+    from xpoint_tpu_torch.ops.warp import warp_image_batch, warp_image_multi
+    from xpoint_tpu_torch.ops.warp_projective import warp_batch, warp_multi
+    from xpoint_tpu_torch.selfsup.homographic_adaptation import (
+        HA_DEFAULT_CONFIG)
+    Ho, Wo, n = 301, 511, HA_WB
+    rng = np.random.default_rng(10)
+    hs = torch.from_numpy(np.stack([
+        sample_homography((Ho, Wo), rng=rng,
+                          **HA_DEFAULT_CONFIG["homographies"])
+        for _ in range(n)]).astype(np.float32)).to(dev)
+    errs = {}
+    for name, kernel, plain, shape, padding in (
+            ("image warp", warp_multi, warp_image_multi, (1, Ho, Wo, 2),
+             "reflection"),
+            ("prob unwarp", warp_batch, warp_image_batch, (n, Ho, Wo, 1),
+             "zeros"),
+            ("prob unwarp, 2 maps", warp_batch, warp_image_batch,
+             (n, Ho, Wo, 2), "zeros")):
+        img = torch.rand(*shape, generator=g, device=dev)
+        out = kernel(img, hs, "bilinear", padding)
+        ref = plain(img, hs, "bilinear", padding)
+        torch.cuda.synchronize()
+        errs[name] = float((out - ref).abs().max())
+        if (out.shape != ref.shape or not bool(torch.isfinite(out).all())
+                or errs[name] > 1e-5):
+            raise SystemExit(f"K4 disagrees with its plain version in the "
+                             f"{name} at {Ho}x{Wo}: {errs[name]}")
+    print(f"K4 bilinear at {Ho}x{Wo} x {n}: max_abs_err {errs}", flush=True)
+    return {"size": [Ho, Wo], "max_abs_err": errs}
 
 
 def _zero_counts():
@@ -1024,7 +1143,7 @@ def main():
     # stage shapes the main path gives K1: L = (H/4 / 2^i)^2, Dim = 96 * 2^i
     depths = (2, 2, 2, 2)
     stages = [((H // 4 >> i) * (W // 4 >> i), 96 << i) for i in range(4)]
-    scan_rows, scan_tot, scan_err = phase_scan(
+    scan_rows, scan_tot, scan_err, scan_tails = phase_scan(
         dev, stages, [2 * d for d in depths])
     main_res, probs, _ = phase_main_path(dev)
     nms_res = phase_nms(probs)
@@ -1032,11 +1151,11 @@ def main():
     # the training stage shapes (256^2, B=16); each stage has 2 passes x 2
     # blocks, as a serving call has
     train_stages = [((TRAIN_S // 4 >> i) ** 2, 96 << i) for i in range(4)]
-    tscan_rows, tscan_tot, k1t_err, k3_err = phase_train_scan(
+    tscan_rows, tscan_tot, k1t_err, k3_err, tscan_tails = phase_train_scan(
         dev, train_stages, [2 * d for d in depths])
     train_res = phase_train(dev)
     tref_res = phase_train_reference(dev)
-    warp_rows = phase_warp(dev)
+    warp_rows, warp_odd = phase_warp(dev)
     ha_res = phase_ha(dev)
     fused_rows, fused_tot, fused_err = phase_fused_scan(
         dev, stages, [2 * d for d in depths])
@@ -1072,6 +1191,7 @@ def main():
         {"name": "selective_scan_bidir", "path": "serve", **k1,
          "launches": main_res["launches"]["selective_scan_bidir"],
          "max_abs_err": scan_err, "ms": scan_tot["ms"],
+         "ms_with_host_launch": scan_tot["ms_with_host_launch"],
          "plain_ms": scan_tot["plain_ms"], "bound_ms": scan_tot["bound_ms"]},
         {"name": "nms_sweep", "path": "serve", "route": "cuda",
          "source": "xpoint_tpu_torch/csrc/nms_sweep.cu",
@@ -1083,6 +1203,7 @@ def main():
         {"name": "selective_scan_bidir", "path": "train (emit_ckpt)", **k1,
          "launches": train_res["launches"]["selective_scan_bidir"],
          "max_abs_err": k1t_err, "ms": tscan_tot["k1_ms"],
+         "ms_with_host_launch": tscan_tot["k1_ms_with_host_launch"],
          "plain_ms": tscan_tot["k1_plain_ms"],
          "bound_ms": tscan_tot["k1_bound_ms"]},
         {"name": "selective_scan_bidir_bwd", "path": "train",
@@ -1102,7 +1223,8 @@ def main():
          "launches": k4_launches[r["call"]],
          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-         "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+         "library_with_grid_ms": r["library_with_grid_ms"]}
         for r in warp_rows
     ] + [
         {"name": "selective_scan_fused", "path": "serve (v052d_noz)",
@@ -1134,9 +1256,11 @@ def main():
     ]
     print("details: " + json.dumps(
         {"card": card, "build_s": build_s, "k1_stages": scan_rows,
+         "k1_tails": scan_tails, "k1_ckpt_tails": tscan_tails,
          "main_path": main_res, "k2": nms_res, "reference": ref_res,
          "train_scan_stages": tscan_rows, "train_path": train_res,
-         "train_reference": tref_res, "k4_calls": warp_rows, "ha": ha_res,
+         "train_reference": tref_res, "k4_calls": warp_rows,
+         "k4_odd_size": warp_odd, "ha": ha_res,
          "k5_stages": fused_rows, "v052d_path": bidi_res,
          "ha_reference": haref_res, "k6_cases": k6_rows,
          "k5_train_stages": tfused_rows, "v052d_train_path": bidi_train_res,

@@ -85,6 +85,71 @@ def _rel_err(a, b):
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
 
 
+@pytest.mark.parametrize("emit_ckpt", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Dim", [3, 8, 96, 192])
+@pytest.mark.parametrize("L", [1, 7, 255, 256, 257, 300, 513])
+def test_scan_kernel_chunk_grid(cuda, L, Dim, dtype, emit_ckpt):
+    """The chunk-parallel K1 over scans below, at and across the 256-token
+    chunk, lane counts that are and are not multiples of a block's 32 lanes
+    (B=3: M = 18, 48, 576, 1152), with and without the checkpoints
+    returned. Tolerances as test_scan_kernel_matches_plain /
+    test_scan_kernel_checkpoints_match_plain; a second run on the same
+    inputs gives the same bits (every sum is taken in a fixed order)."""
+    args = _scan_operands(L + Dim, L, 3, Dim, dtype, cuda)
+    before = selective_scan_bidir.launches
+    out = selective_scan_bidir(*args, emit_ckpt=emit_ckpt)
+    again = selective_scan_bidir(*args, emit_ckpt=emit_ckpt)
+    torch.cuda.synchronize()
+    assert selective_scan_bidir.launches == before + 2
+    assert len(out) == (4 if emit_ckpt else 2)
+    ref = selective_scan_bidir_plain(*args, emit_ckpt=emit_ckpt)
+    atol, rtol = (1e-4, 0) if dtype == torch.float32 else (1e-2, 2 ** -7)
+    for a, b in zip(out[:2], ref[:2]):
+        assert a.dtype == dtype and a.shape == (L, 3, 2, Dim)
+        torch.testing.assert_close(a.float(), b.float(), atol=atol, rtol=rtol)
+    for a, b in zip(out[2:], ref[2:]):
+        assert a.dtype == torch.float32
+        assert a.shape == (-(-L // 256), 3 * 2 * Dim)
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+    for a, b in zip(out, again):
+        assert torch.equal(a, b)
+
+
+def test_scan_kernel_long_decay(cuda):
+    """Large delta and |A| (and an exact a = 0): chunk products underflow
+    to 0; finite and equal to the plain version (atol 1e-4)."""
+    args = _scan_operands(5, 1031, 2, 40, torch.float32, cuda)
+    args[4] = args[4] * 40.0
+    args[4][0] = -1e30
+    args[6] = args[6] + 3.0
+    out = selective_scan_bidir(*args, emit_ckpt=True)
+    ref = selective_scan_bidir_plain(*args, emit_ckpt=True)
+    for a, b in zip(out, ref):
+        assert bool(torch.isfinite(a).all())
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("L,B,Dim", [(64, 2, 24), (513, 2, 64),
+                                     (1024, 4, 96)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scan_bwd_from_kernel_checkpoints(cuda, L, B, Dim, dtype):
+    """K3 fed with K1's own checkpoints against K3 fed with the plain
+    version's: the same cotangents within 1e-4 (fp32) / 2e-2 and 1e-3
+    (bf16, as test_scan_bwd_kernel_matches_plain) of each output's max."""
+    args = _scan_operands(7, L, B, Dim, dtype, cuda)
+    g = torch.Generator(device="cpu").manual_seed(8)
+    g_f, g_r = (torch.randn(L, B, 2, Dim, generator=g).to(cuda, dtype)
+                for _ in range(2))
+    mine = selective_scan_bidir(*args, emit_ckpt=True)[2:]
+    ref = selective_scan_bidir_plain(*args, emit_ckpt=True)[2:]
+    out = selective_scan_bidir_bwd(*args, *mine, g_f, g_r)
+    want = selective_scan_bidir_bwd(*args, *ref, g_f, g_r)
+    for i, (a, b) in enumerate(zip(out, want)):
+        tol = 1e-4 if dtype == torch.float32 else (2e-2 if i < 4 else 1e-3)
+        assert _rel_err(a, b) <= tol, (i, _rel_err(a, b))
+
+
 @pytest.mark.parametrize("L,B,Dim", [(300, 2, 24), (37, 3, 40), (513, 2, 64),
                                      (1024, 8, 96)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -228,6 +293,49 @@ def test_warp_kernel_matches_plain(cuda, H, W, C, kind, mode, padding):
     else:
         torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
     assert float(out.std()) > 0.01
+
+
+@pytest.mark.parametrize("padding", ["zeros", "reflection"])
+@pytest.mark.parametrize("mode", ["bilinear", "nearest"])
+@pytest.mark.parametrize("C", [1, 2, 3])
+@pytest.mark.parametrize("W", [37, 64, 510, 512])
+def test_warp_kernel_row_widths(cuda, W, C, mode, padding):
+    """K4's 4-pixel threads over rows that are and are not multiples of 4
+    (the vector-store path and the scalar one), H = 45 no multiple of the
+    8-row tile, 1, 2 and 3 channels, batch and multi form: bilinear within
+    1e-5, nearest exactly equal."""
+    H, n = 45, 5
+    g = torch.Generator().manual_seed(W + C)
+    hs = _warp_homographies(W, n, H, W).to(cuda)
+    for kind in ("batch", "multi"):
+        img = torch.rand(2 if kind == "multi" else n, H, W, C,
+                         generator=g).to(cuda)
+        out = getattr(warp_projective, f"warp_{kind}")(img, hs, mode, padding)
+        ref = getattr(warp, f"warp_image_{kind}")(img, hs, mode, padding)
+        assert out.shape == ref.shape
+        if mode == "nearest":
+            assert torch.equal(out, ref)
+        else:
+            torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("C", [1, 2])
+def test_warp_kernel_unaligned_source(cuda, C):
+    """A source whose first element is not 16-byte aligned takes the scalar
+    path of the same kernel: the same values as from an aligned copy."""
+    n, H, W = 4, 64, 64
+    g = torch.Generator().manual_seed(C)
+    hs = _warp_homographies(1, n, H, W).to(cuda)
+    flat = torch.rand(n * H * W * C + 1, generator=g).to(cuda)
+    img = flat[1:].view(n, H, W, C)
+    assert img.data_ptr() % 16 != 0 and img.is_contiguous()
+    for mode in ("bilinear", "nearest"):
+        out = warp_projective.warp_batch(img, hs, mode, "zeros")
+        ref = warp_projective.warp_batch(img.clone(), hs, mode, "zeros")
+        assert torch.equal(out, ref)
+        torch.testing.assert_close(
+            out, warp.warp_image_batch(img, hs, mode, "zeros"),
+            atol=1e-5, rtol=0)
 
 
 def test_warp_kernel_rejects_other_dtypes(cuda):

@@ -34,8 +34,9 @@
 // flagship stage) a shuffle reduction and one atomicAdd per warp and step,
 // else one atomicAdd per thread. du gets one atomicAdd from each lane set
 // into a zeroed fp32 plane; with exactly two addends onto zero the sum does
-// not depend on their order. Only 2 M threads exist, as in the forward: the
-// kernel is latency-bound, and a chunk-parallel design is the redesign.
+// not depend on their order. Only 2 M threads exist, so the kernel is
+// latency-bound; the forward's span-parallel design (selective_scan_bidir.cu)
+// is the redesign that fixes it.
 #include "scan_common.cuh"
 
 namespace {

@@ -92,6 +92,87 @@ def selective_scan_bidir_plain(u_t, dt_t, bc_t, cc_t, A, D, delta_bias,
     return outs[0], outs[1]
 
 
+def _segment_steps(L, segments):
+    """Steps per segment as the kernel chooses them: 16, fewer for a scan
+    of one short span."""
+    return 4 if L <= 4 * segments else 8 if L <= 8 * segments else 16
+
+
+def selective_scan_bidir_chunked(u_t, dt_t, bc_t, cc_t, A, D, delta_bias,
+                                 steps=None, segments=8):
+    """The function of :func:`selective_scan_bidir_plain` with checkpoints,
+    computed in the order of ``csrc/selective_scan_bidir.cu``: L is cut into
+    spans of ``segments`` segments of ``steps`` steps (128 tokens, two to a
+    checkpoint chunk, as the kernel has them); every segment is composed
+    from a zero entry to its (product of a, h) summary, the segment
+    summaries fold to span summaries, a carry over the spans in scan order
+    gives every span's entry state (those through which a chunk is entered
+    are the checkpoints), and every segment is replayed from (span entry
+    folded with the segments before it). Padded steps are the inert (1, 0).
+    For the tests: it shows on the CPU that this order computes the
+    sequential recurrence."""
+    L, B, K2, Dim = u_t.shape
+    M = B * K2 * Dim
+    steps = _segment_steps(L, segments) if steps is None else steps
+    span = steps * segments
+    if CKPT_CHUNK % span and L > span:
+        raise ValueError(f"spans of {segments} segments of {steps} steps do "
+                         f"not tile a {CKPT_CHUNK}-token chunk and L={L} "
+                         f"needs several")
+    ns = -(-L // span)
+    n_chunks = -(-L // CKPT_CHUNK)
+    per_chunk = max(CKPT_CHUNK // span, 1)
+    cd = _compute_dtype(u_t.dtype)
+    dev = u_t.device
+    u = u_t.reshape(L, M).to(cd)
+    outs, ckpts = [], []
+    for r in (0, 1):
+        _, delta, a, bcx, ccx, _, D_l = _lane_set(r, u_t, dt_t, bc_t, cc_t,
+                                                  A, D, delta_bias)
+        # pad in token order (the spans lie at token positions), then turn
+        # the reversed lanes into scan order
+        a = F.pad(a, (0, 0, 0, ns * span - L), value=1.0)
+        b = F.pad(delta * u * bcx, (0, 0, 0, ns * span - L))
+        if r == 1:
+            a, b = a.flip(0), b.flip(0)
+        a = a.reshape(ns, segments, steps, M)
+        b = b.reshape(ns, segments, steps, M)
+        seg_a = torch.ones(ns, segments, M, dtype=cd, device=dev)
+        seg_h = torch.zeros(ns, segments, M, dtype=cd, device=dev)
+        for i in range(steps):
+            seg_h = a[:, :, i] * seg_h + b[:, :, i]
+            seg_a = seg_a * a[:, :, i]
+        span_a = torch.ones(ns, M, dtype=cd, device=dev)
+        span_h = torch.zeros(ns, M, dtype=cd, device=dev)
+        for j in range(segments):
+            span_h = seg_a[:, j] * span_h + seg_h[:, j]
+            span_a = span_a * seg_a[:, j]
+        entry = torch.zeros(ns, M, dtype=cd, device=dev)
+        for s in range(1, ns):
+            entry[s] = span_a[s - 1] * entry[s - 1] + span_h[s - 1]
+        seg_in = torch.empty(ns, segments, M, dtype=cd, device=dev)
+        x = entry
+        for j in range(segments):
+            seg_in[:, j] = x
+            x = seg_a[:, j] * x + seg_h[:, j]
+        h = torch.empty(ns, segments, steps, M, dtype=cd, device=dev)
+        x = seg_in
+        for i in range(steps):
+            x = a[:, :, i] * x + b[:, :, i]
+            h[:, :, i] = x
+        h = h.reshape(ns * span, M)
+        if r == 1:                       # back to token order
+            h, entry = h.flip(0), entry.flip(0)
+        # the span a chunk is entered through: its first from the left, its
+        # last (or the scan's last) from the right
+        through = [min(c * per_chunk + (per_chunk - 1) * r, ns - 1)
+                   for c in range(n_chunks)]
+        outs.append((ccx * h[:L] + D_l * u).to(dt_t.dtype)
+                    .reshape(L, B, K2, Dim))
+        ckpts.append(entry[through])
+    return outs[0], outs[1], ckpts[0], ckpts[1]
+
+
 def selective_scan_bidir_bwd_plain(u_t, dt_t, bc_t, cc_t, A, D, delta_bias,
                                    hck_f, hck_r, g_f, g_r):
     """Plain PyTorch version of the backward: rebuilds h chunk by chunk from
@@ -192,25 +273,42 @@ def _device_kind(x, what):
     return x.device.type
 
 
-def _launch(u_t, dt_t, bc_t, cc_t, A, D, delta_bias, emit_ckpt):
+def _bidir_library():
+    """The forward kernel's library with its two entry points typed (once:
+    the pipeline is bound by the host, so the launch path stays short)."""
     lib = build.load("selective_scan_bidir")
     fn = lib.xp_selective_scan_bidir
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 14
-                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 15
+                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        lib.xp_selective_scan_bidir_scratch.restype = ctypes.c_longlong
+        lib.xp_selective_scan_bidir_scratch.argtypes = [ctypes.c_int] * 2
+    return lib
+
+
+def _launch(u_t, dt_t, bc_t, cc_t, A, D, delta_bias, emit_ckpt):
+    lib = _bidir_library()
     L, B, K2, Dim = u_t.shape
     M = B * K2 * Dim
+    dev = u_t.device
     y_f = torch.empty_like(u_t)
     y_r = torch.empty_like(u_t)
-    hck = (torch.empty(2, -(-L // CKPT_CHUNK), M, device=u_t.device)
-           if emit_ckpt else None)
-    err = fn(_DTYPE_CODE[u_t.dtype], u_t.data_ptr(), dt_t[0].data_ptr(),
-             dt_t[1].data_ptr(), bc_t[0].data_ptr(), cc_t[0].data_ptr(),
-             bc_t[1].data_ptr(), cc_t[1].data_ptr(), A.data_ptr(),
-             D.data_ptr(), delta_bias.data_ptr(), y_f.data_ptr(),
-             y_r.data_ptr(), hck[0].data_ptr() if emit_ckpt else None,
-             hck[1].data_ptr() if emit_ckpt else None, L, M, Dim,
-             torch.cuda.current_stream(u_t.device).cuda_stream)
+    # the chunk entry states are part of the scan's own carry between its
+    # spans, so they exist whether or not they are returned; the span
+    # summaries and entry states are scratch between the passes
+    hck = torch.empty(2, -(-L // CKPT_CHUNK), M, device=dev)
+    n_scratch = lib.xp_selective_scan_bidir_scratch(L, M)
+    scratch = torch.empty(n_scratch, device=dev) if n_scratch else None
+    # the reversed lanes' halves of dt_t, bc_t, cc_t and hck by address
+    dt, bc, cc, ck = (x.data_ptr() for x in (dt_t, bc_t, cc_t, hck))
+    half = lambda x: x.stride(0) * x.element_size()  # noqa: E731
+    err = lib.xp_selective_scan_bidir(
+        _DTYPE_CODE[u_t.dtype], u_t.data_ptr(), dt, dt + half(dt_t), bc, cc,
+        bc + half(bc_t), cc + half(cc_t), A.data_ptr(), D.data_ptr(),
+        delta_bias.data_ptr(), y_f.data_ptr(), y_r.data_ptr(), ck,
+        ck + half(hck), None if scratch is None else scratch.data_ptr(),
+        L, M, Dim, torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, err, "selective_scan_bidir launch")
     selective_scan_bidir.launches += 1
     if emit_ckpt:
