@@ -23,8 +23,14 @@ Phases (any failure exits non-zero and prints no result):
      recomputation (limit 1e-4 of max |plain|), K3's outputs against
      selective_scan_bidir_bwd_plain (bf16 planes 2e-2 of max |plain|: a
      bf16 ulp; fp32 dA/dD/dbias 1e-3 of max |plain|: sums over L in
-     another order), K3's time, bound and the plain version's time; K1's
-     bit-equal repeat and tail shapes as in phase 2, with checkpoints;
+     another order) and a second K3 run on the same inputs bit for bit,
+     K3's device time (events behind queued work) and its time with the
+     host's launch path, bound and the plain version's time; K1's bit-equal
+     repeat and tail shapes as in phase 2, with checkpoints; K3 at two
+     shapes with tails (L = 300 and 64, B = 3, Dim = 40: 240 lanes) against
+     its plain version and repeated bit for bit; how far K3's ddt and dA
+     move between K1's checkpoints and the plain ones (printed; also alone
+     with ``python3 chip_smoke.py --k3-checkpoint-gap``);
   7. train path: the flagship training config (VMAMBA_TRAIN_CFG: 256^2,
      B=16, bf16, DropPath 0.2, RegNet + HM loss, hard negatives) from seed
      0 on a seeded synthetic resident corpus through make_resident_batch_fn
@@ -56,7 +62,9 @@ Phases (any failure exits non-zero and prints no result):
      num], keypoints for every sample, K4 / K1 / K2 launches per sample
      (counts zeroed just before, read just after) as the code predicts;
  11. K5 (single-direction fused scan): kernel against its plain version at
-     the serving stage shapes (B=8, bf16; limit 2e-2 as K1's), then the
+     the serving stage shapes (B=8, bf16; limit 2e-2 as K1's), a second run
+     bit for bit, device time and time with the host's launch path, tails
+     at L = 300 and 64 (B = 3, Dim = 40) as K3's, then the
      v052d_noz flagship-width model through make_pair_pipeline at 512^2,
      B=8 (16 K5 launches per call);
  12. the tiny fp32 model's HA (prod, num 5, 64^2) on the card against the
@@ -69,7 +77,8 @@ Phases (any failure exits non-zero and prints no result):
      the first stage); limit 1e-5 of max |plain| (the segments are combined
      in scan order, only the rounding of the segment products differs);
      device times (events behind queued work, as K4's), the bytes bound 12 L M / 3.35e12 s and the plain version's time;
-     K5 against its plain version at the same training stage shapes;
+     K5 against its plain version at the same training stage shapes
+     (checks and times as in phase 11);
  14. the v052d_noz train path at full width: VMAMBA_TRAIN_CFG with that
      forward type, otherwise as phase 7, for 5 steps; per step 16 K5
      launches (forward) and 32 K6 launches (in each of the 16 block
@@ -382,6 +391,26 @@ def _rel_err(a, b):
     return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
 
 
+K3_NAMES = ("du", "ddt", "dbc", "dcc", "dA", "dD", "dbias")
+
+
+def _k3_errors(out, ref):
+    """Relative (max |k - p| / max |p|) and absolute errors of K3's seven
+    outputs, and the names over their limits: bf16 planes 2e-2 (a bf16
+    ulp), fp32 dA/dD/dbias 1e-3 (sums over L in another order)."""
+    rel = {n: _rel_err(a, b) for n, a, b in zip(K3_NAMES, out, ref)}
+    ab = {n: float((a.float() - b.float()).abs().max())
+          for n, a, b in zip(K3_NAMES, out, ref)}
+    bad = [n for i, n in enumerate(K3_NAMES)
+           if rel[n] > (2e-2 if i < 4 else 1e-3)]
+    return rel, ab, bad
+
+
+def _train_grads(g, L, Dim, dev, batch):
+    return tuple((torch.randn(L, batch, 2, Dim, generator=g, device=dev)
+                  * 0.1).to(torch.bfloat16) for _ in range(2))
+
+
 def phase_train_scan(dev, stages, launches_per_stage):
     """K1 with checkpoints and K3 at the training stage shapes, against
     their plain versions; times of one launch per stage shape."""
@@ -389,21 +418,15 @@ def phase_train_scan(dev, stages, launches_per_stage):
         selective_scan_bidir, selective_scan_bidir_bwd,
         selective_scan_bidir_bwd_plain, selective_scan_bidir_plain)
     g = torch.Generator(device=dev).manual_seed(2)
-    names = ("du", "ddt", "dbc", "dcc", "dA", "dD", "dbias")
     rows = []
     tot = {k: 0.0 for k in ("k1_ms", "k1_ms_with_host_launch", "k1_plain_ms",
-                            "k1_bound_ms", "k3_ms", "k3_plain_ms",
-                            "k3_bound_ms")}
+                            "k1_bound_ms", "k3_ms", "k3_ms_with_host_launch",
+                            "k3_plain_ms", "k3_bound_ms")}
     k1_err = k3_err = 0.0
     delay = queued_delay(dev)
     for (L, Dim), n_launch in zip(stages, launches_per_stage):
-        sets = []
-        for _ in range(6):
-            args = scan_operands(g, L, Dim, dev, batch=TRAIN_B)
-            gy = tuple((torch.randn(L, TRAIN_B, 2, Dim, generator=g,
-                                    device=dev) * 0.1).to(torch.bfloat16)
-                       for _ in range(2))
-            sets.append((args, gy))
+        sets = [(scan_operands(g, L, Dim, dev, batch=TRAIN_B),
+                 _train_grads(g, L, Dim, dev, TRAIN_B)) for _ in range(6)]
         args, (g_f, g_r) = sets[0]
         out = selective_scan_bidir(*args, emit_ckpt=True)
         again = selective_scan_bidir(*args, emit_ckpt=True)
@@ -413,36 +436,36 @@ def phase_train_scan(dev, stages, launches_per_stage):
                              f"same inputs at L={L} Dim={Dim}")
         del again
         bwd = selective_scan_bidir_bwd(*args, *out[2:], g_f, g_r)
+        bwd_again = selective_scan_bidir_bwd(*args, *out[2:], g_f, g_r)
         bwd_ref = selective_scan_bidir_bwd_plain(*args, *ref[2:], g_f, g_r)
         torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(bwd, bwd_again))
+        del bwd_again
         ck_err = max(_rel_err(a, b) for a, b in zip(out[2:], ref[2:]))
         y_err = max(float((a.float() - b.float()).abs().max())
                     for a, b in zip(out[:2], ref[:2]))
-        errs = {n: _rel_err(a, b) for n, a, b in zip(names, bwd, bwd_ref)}
-        abs_errs = {n: float((a.float() - b.float()).abs().max())
-                    for n, a, b in zip(names, bwd, bwd_ref)}
+        errs, abs_errs, bad = _k3_errors(bwd, bwd_ref)
         finite = all(bool(torch.isfinite(x).all()) for x in (*out, *bwd))
-        bad = [n for i, n in enumerate(names)
-               if errs[n] > (2e-2 if i < 4 else 1e-3)]
         print(f"K3 L={L} Dim={Dim} B={TRAIN_B}: rel err (max|k-p|/max|p|) "
-              + " ".join(f"{n}={errs[n]:.3g}" for n in names)
+              + " ".join(f"{n}={errs[n]:.3g}" for n in K3_NAMES)
               + " abs err " + " ".join(f"{n}={abs_errs[n]:.3g}"
-                                       for n in names)
-              + f"; K1 checkpoint rel err {ck_err:.3g}, y abs err {y_err}",
-              flush=True)
-        if not finite or bad or ck_err > 1e-4 or y_err > 2e-2:
+                                       for n in K3_NAMES)
+              + f"; bit-equal repeat={same}; K1 checkpoint rel err "
+              f"{ck_err:.3g}, y abs err {y_err}", flush=True)
+        if not finite or bad or not same or ck_err > 1e-4 or y_err > 2e-2:
             raise SystemExit(f"K1/K3 disagree with their plain versions at "
                              f"L={L} Dim={Dim}: {bad} ckpt {ck_err} "
-                             f"y {y_err}")
+                             f"y {y_err} repeat {same}")
         k1_call = lambda a: selective_scan_bidir(  # noqa: E731
             *a, emit_ckpt=True)
         k1_ms = cuda_ms_queued(k1_call, [(a,) for a, _ in sets[1:]], delay)
         k1_launch_ms = cuda_ms(k1_call, [(a,) for a, _ in sets[1:]])
         ckpts = [selective_scan_bidir(*a, emit_ckpt=True)[2:]
                  for a, _ in sets]
-        k3_ms = cuda_ms(selective_scan_bidir_bwd,
-                        [(*a, *c, *gy) for (a, gy), c in
-                         zip(sets[1:], ckpts[1:])])
+        k3_sets = [(*a, *c, *gy) for (a, gy), c in zip(sets[1:], ckpts[1:])]
+        # device time behind queued work, and with the host's launch path
+        k3_ms = cuda_ms_queued(selective_scan_bidir_bwd, k3_sets, delay)
+        k3_launch_ms = cuda_ms(selective_scan_bidir_bwd, k3_sets)
         k1_plain = cuda_ms(lambda a: selective_scan_bidir_plain(
             *a, emit_ckpt=True), [(sets[1][0],)])
         k3_plain = cuda_ms(selective_scan_bidir_bwd_plain,
@@ -457,28 +480,110 @@ def phase_train_scan(dev, stages, launches_per_stage):
         k3_b, k3_by = bound(2 * (8 * L * M + 8 * L * G) + 4 * 2 * nc * M,
                             2 * 40 * L * M)
         rows.append({"L": L, "Dim": Dim, "M": M, "k3_rel_err": errs,
-                     "k3_abs_err": abs_errs, "k1_ckpt_rel_err": ck_err,
+                     "k3_abs_err": abs_errs, "k3_bit_equal_repeat": same,
+                     "k1_ckpt_rel_err": ck_err,
                      "k1_ms": k1_ms, "k1_ms_with_host_launch": k1_launch_ms,
                      "k1_plain_ms": k1_plain,
                      "k1_bound_ms": k1_b, "k3_ms": k3_ms,
+                     "k3_ms_with_host_launch": k3_launch_ms,
                      "k3_plain_ms": k3_plain, "k3_bound_ms": k3_b,
                      "k3_bound_by": k3_by,
                      "launches_per_train_step": n_launch})
         print(f"  K1+ckpt ms={k1_ms} (with the host's launch path "
               f"{k1_launch_ms}) plain_ms={k1_plain} bound_ms={k1_b} "
-              f"({k1_by}); K3 ms={k3_ms} plain_ms={k3_plain} "
-              f"bound_ms={k3_b} ({k3_by})", flush=True)
+              f"({k1_by}); K3 ms={k3_ms} (with the host's launch path "
+              f"{k3_launch_ms}) plain_ms={k3_plain} bound_ms={k3_b} "
+              f"({k3_by})", flush=True)
         for k, v in (("k1_ms", k1_ms),
                      ("k1_ms_with_host_launch", k1_launch_ms),
                      ("k1_plain_ms", k1_plain),
                      ("k1_bound_ms", k1_b), ("k3_ms", k3_ms),
+                     ("k3_ms_with_host_launch", k3_launch_ms),
                      ("k3_plain_ms", k3_plain), ("k3_bound_ms", k3_b)):
             tot[k] += v * n_launch
         k1_err = max(k1_err, y_err)
         k3_err = max(k3_err, max(abs_errs.values()))
-        del sets, ckpts
+        del sets, ckpts, k3_sets
     tails = scan_tail_checks(g, dev, emit_ckpt=True)
-    return rows, tot, max(k1_err, tails["max_abs_err"]), k3_err, tails
+    k3_tails = bwd_tail_checks(g, dev)
+    return (rows, tot, max(k1_err, tails["max_abs_err"]),
+            max(k3_err, k3_tails["max_abs_err"]), tails, k3_tails)
+
+
+def bwd_tail_checks(g, dev):
+    """K3 where its blocks have tails: L = 300 (ten spans of 32 tokens, the
+    last of 12, in a short second checkpoint chunk) and L = 64 (two spans)
+    with B = 3, Dim = 40 (240 lanes: no multiple of a
+    block's 32, groups that straddle its slices), bf16, from K1's own
+    checkpoints: against the plain version (the limits of _k3_errors) and a
+    second run on the same inputs bit for bit."""
+    from xpoint_tpu_torch.ops.selective_scan_cuda import (
+        selective_scan_bidir, selective_scan_bidir_bwd,
+        selective_scan_bidir_bwd_plain)
+    res = {"shapes": [], "max_abs_err": 0.0, "rel_err": {}}
+    for L in (300, 64):
+        args = scan_operands(g, L, 40, dev, batch=3)
+        gy = _train_grads(g, L, 40, dev, 3)
+        ck = selective_scan_bidir(*args, emit_ckpt=True)[2:]
+        out = selective_scan_bidir_bwd(*args, *ck, *gy)
+        again = selective_scan_bidir_bwd(*args, *ck, *gy)
+        ref = selective_scan_bidir_bwd_plain(*args, *ck, *gy)
+        torch.cuda.synchronize()
+        rel, ab, bad = _k3_errors(out, ref)
+        same = all(torch.equal(a, b) for a, b in zip(out, again))
+        print(f"K3 tails L={L} B=3 Dim=40: rel err "
+              + " ".join(f"{n}={rel[n]:.3g}" for n in K3_NAMES)
+              + f" bit-equal repeat={same}", flush=True)
+        if (bad or not same
+                or not all(bool(torch.isfinite(x).all()) for x in out)):
+            raise SystemExit(f"K3 fails at the tail shape L={L}: {bad} "
+                             f"repeat {same}")
+        res["shapes"].append([L, 3, 40])
+        res["max_abs_err"] = max(res["max_abs_err"], max(ab.values()))
+        res["rel_err"][str(L)] = rel
+    return res
+
+
+def k3_checkpoint_gap(dev, stages):
+    """Whether K3 differentiates the function K1 computed, per training
+    stage shape:
+      ddt, dA: how far K3's ddt and dA move (max |d| / max |result|) when it
+        is fed K1's checkpoints instead of the plain version's (bf16);
+      dC: fp32 operands with D = 0 and |C| >= 0.5, so that K1's own h is
+        y / C to fp32 rounding: K3's dC (rebuilt from K1's checkpoints)
+        against sum over each group of g * y / C. A K3 that rebuilds h with
+        other softplus / exp forms than K1 shows the difference here.
+    ``python3 chip_smoke.py --k3-checkpoint-gap`` prints it for the package
+    that sits beside the script."""
+    from xpoint_tpu_torch.ops.selective_scan_cuda import (
+        selective_scan_bidir, selective_scan_bidir_bwd,
+        selective_scan_bidir_plain)
+    g = torch.Generator(device=dev).manual_seed(9)
+    rows = []
+    for L, Dim in stages:
+        args = scan_operands(g, L, Dim, dev, batch=TRAIN_B)
+        gy = _train_grads(g, L, Dim, dev, TRAIN_B)
+        ck_k1 = selective_scan_bidir(*args, emit_ckpt=True)[2:]
+        ck_plain = selective_scan_bidir_plain(*args, emit_ckpt=True)[2:]
+        a = selective_scan_bidir_bwd(*args, *ck_k1, *gy)
+        b = selective_scan_bidir_bwd(*args, *ck_plain, *gy)
+        row = {"L": L, "Dim": Dim, "ddt": _rel_err(a[1], b[1]),
+               "dA": _rel_err(a[4], b[4])}
+        del a, b, ck_plain
+        u, dt, bc, cc, A, D, bias = (x.float() for x in args)
+        cc = torch.where(cc < 0, -0.5, 0.5) + cc.clamp(-1, 1)
+        D = torch.zeros_like(D)
+        gf = tuple(x.float() for x in gy)
+        y_f, y_r, hck_f, hck_r = selective_scan_bidir(
+            u, dt, bc, cc, A, D, bias, emit_ckpt=True)
+        dcc = selective_scan_bidir_bwd(u, dt, bc, cc, A, D, bias, hck_f,
+                                       hck_r, *gf)[3]
+        want = torch.stack([(gr * y / c[..., None]).sum(-1) for gr, y, c in
+                            zip(gf, (y_f, y_r), cc)])
+        row["dC"] = _rel_err(dcc, want)
+        rows.append(row)
+        print(f"K3 checkpoint gap L={L} Dim={Dim}: {row}", flush=True)
+    return rows
 
 
 # parameters whose gradient is zero in exact arithmetic: a bias right
@@ -930,41 +1035,76 @@ def fused_operands(g, L, Dim, dev, batch=B):
 
 
 def phase_fused_scan(dev, stages, blocks_per_stage, batch=B):
-    """K5 against its plain version at the stage shapes of one path."""
+    """K5 against its plain version at the stage shapes of one path: limit
+    2e-2 (one bf16 ulp), a second run on the same inputs bit for bit; device
+    time behind queued work (``ms``) and with the host's launch path."""
     from xpoint_tpu_torch.ops.selective_scan_cuda import (
         selective_scan_fused_bkld, selective_scan_fused_bkld_plain)
     g = torch.Generator(device=dev).manual_seed(5)
-    rows, tot = [], {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    rows, tot = [], {"ms": 0.0, "ms_with_host_launch": 0.0, "plain_ms": 0.0,
+                     "bound_ms": 0.0}
     max_err = 0.0
+    delay = queued_delay(dev)
     with torch.no_grad():
         for (L, Dim), n_launch in zip(stages, blocks_per_stage):
             inputs = [fused_operands(g, L, Dim, dev, batch)
                       for _ in range(6)]
             y = selective_scan_fused_bkld(*inputs[0])
+            same = torch.equal(y, selective_scan_fused_bkld(*inputs[0]))
             p = selective_scan_fused_bkld_plain(*inputs[0])
             torch.cuda.synchronize()
             err = float((y.float() - p.float()).abs().max())
             finite = bool(torch.isfinite(y).all())
-            ms = cuda_ms(selective_scan_fused_bkld, inputs[1:])
+            ms = cuda_ms_queued(selective_scan_fused_bkld, inputs[1:], delay)
+            launch_ms = cuda_ms(selective_scan_fused_bkld, inputs[1:])
             plain_ms = cuda_ms(selective_scan_fused_bkld_plain, inputs[1:3])
             M, G = batch * 4 * Dim, batch * 4
             b_ms, b_by = bound(2 * (3 * L * M + 2 * L * G) + 3 * 4 * 4 * Dim,
                                14 * L * M)
             rows.append({"L": L, "Dim": Dim, "M": M, "max_abs_err": err,
-                         "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+                         "bit_equal_repeat": same, "ms": ms,
+                         "ms_with_host_launch": launch_ms,
+                         "plain_ms": plain_ms, "bound_ms": b_ms,
                          "bound_by": b_by, "launches_per_call": n_launch})
             print(f"K5 B={batch} L={L} Dim={Dim} M={M}: max_abs_err={err} "
-                  f"kernel_ms={ms} plain_ms={plain_ms} bound_ms={b_ms} "
-                  f"({b_by})", flush=True)
-            if not finite or err > 2e-2:
+                  f"bit-equal repeat={same} kernel_ms={ms} (with the "
+                  f"host's launch path {launch_ms}) plain_ms={plain_ms} "
+                  f"bound_ms={b_ms} ({b_by})", flush=True)
+            if not finite or err > 2e-2 or not same:
                 raise SystemExit(f"K5 disagrees with its plain version at "
-                                 f"L={L} Dim={Dim}: {err}")
+                                 f"L={L} Dim={Dim}: {err} repeat {same}")
             max_err = max(max_err, err)
             tot["ms"] += ms * n_launch
+            tot["ms_with_host_launch"] += launch_ms * n_launch
             tot["plain_ms"] += plain_ms * n_launch
             tot["bound_ms"] += b_ms * n_launch
             del inputs
-    return rows, tot, max_err
+        tails = fused_tail_checks(g, dev)
+    return rows, tot, max(max_err, tails["max_abs_err"]), tails
+
+
+def fused_tail_checks(g, dev):
+    """K5 where its blocks have tails: L = 300 (five spans of 64 tokens, the
+    last of 44) and L = 64 (one span: pass 3 alone) with B = 3, Dim = 40
+    (a (b, k) group of 40 d: one full 32-lane block and one of 8), bf16:
+    against the plain version (2e-2) and a second run bit for bit."""
+    from xpoint_tpu_torch.ops.selective_scan_cuda import (
+        selective_scan_fused_bkld, selective_scan_fused_bkld_plain)
+    res = {"shapes": [], "max_abs_err": 0.0}
+    for L in (300, 64):
+        args = fused_operands(g, L, 40, dev, batch=3)
+        y = selective_scan_fused_bkld(*args)
+        same = torch.equal(y, selective_scan_fused_bkld(*args))
+        err = float((y.float() - selective_scan_fused_bkld_plain(*args)
+                     .float()).abs().max())
+        print(f"K5 tails L={L} B=3 Dim=40: max_abs_err={err} bit-equal "
+              f"repeat={same}", flush=True)
+        if not same or err > 2e-2 or not bool(torch.isfinite(y).all()):
+            raise SystemExit(f"K5 fails at the tail shape L={L}: {err} "
+                             f"repeat {same}")
+        res["shapes"].append([L, 3, 40])
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+    return res
 
 
 def recurrence_operands(g, shape, dev):
@@ -1139,6 +1279,11 @@ def main():
     for name, log in build_log.items():
         print(f"nvcc {name}:\n{log.strip()}", flush=True)
     print(f"kernel build: {build_s:.1f} s", flush=True)
+    train_stages = [((TRAIN_S // 4 >> i) ** 2, 96 << i) for i in range(4)]
+    if sys.argv[1:] == ["--k3-checkpoint-gap"]:
+        print(json.dumps({"k3_checkpoint_gap": k3_checkpoint_gap(
+            dev, train_stages)}), flush=True)
+        return 0
 
     # stage shapes the main path gives K1: L = (H/4 / 2^i)^2, Dim = 96 * 2^i
     depths = (2, 2, 2, 2)
@@ -1150,20 +1295,20 @@ def main():
     ref_res = phase_reference(dev)
     # the training stage shapes (256^2, B=16); each stage has 2 passes x 2
     # blocks, as a serving call has
-    train_stages = [((TRAIN_S // 4 >> i) ** 2, 96 << i) for i in range(4)]
-    tscan_rows, tscan_tot, k1t_err, k3_err, tscan_tails = phase_train_scan(
-        dev, train_stages, [2 * d for d in depths])
+    (tscan_rows, tscan_tot, k1t_err, k3_err, tscan_tails,
+     k3_tails) = phase_train_scan(dev, train_stages, [2 * d for d in depths])
+    k3_gap = k3_checkpoint_gap(dev, train_stages)
     train_res = phase_train(dev)
     tref_res = phase_train_reference(dev)
     warp_rows, warp_odd = phase_warp(dev)
     ha_res = phase_ha(dev)
-    fused_rows, fused_tot, fused_err = phase_fused_scan(
+    fused_rows, fused_tot, fused_err, fused_tails = phase_fused_scan(
         dev, stages, [2 * d for d in depths])
     bidi_res = phase_bidi_path(dev)
     haref_res = phase_ha_reference(dev)
     k6_rows, k6_tot, k6_err = phase_linear_scan(
         dev, train_stages, [2 * d for d in depths])
-    tfused_rows, tfused_tot, tfused_err = phase_fused_scan(
+    tfused_rows, tfused_tot, tfused_err, _ = phase_fused_scan(
         dev, train_stages, [2 * d for d in depths], batch=TRAIN_B)
     bidi_train_res = phase_train(dev, "v052d_noz", n_steps=5)
     trefs = [phase_train_reference(dev, *args) for args in (
@@ -1212,6 +1357,7 @@ def main():
          "replaces": "xpoint_tpu/ops/selective_scan_pallas.py:530",
          "launches": train_res["launches"]["selective_scan_bidir_bwd"],
          "max_abs_err": k3_err, "ms": tscan_tot["k3_ms"],
+         "ms_with_host_launch": tscan_tot["k3_ms_with_host_launch"],
          "plain_ms": tscan_tot["k3_plain_ms"],
          "bound_ms": tscan_tot["k3_bound_ms"], "bound_by": "bytes",
          "library_ms": None},
@@ -1233,6 +1379,7 @@ def main():
          "replaces": "xpoint_tpu/ops/selective_scan_pallas.py:121",
          "launches": bidi_res["launches"]["selective_scan_fused"],
          "max_abs_err": fused_err, "ms": fused_tot["ms"],
+         "ms_with_host_launch": fused_tot["ms_with_host_launch"],
          "plain_ms": fused_tot["plain_ms"],
          "bound_ms": fused_tot["bound_ms"], "bound_by": "bytes",
          "library_ms": None},
@@ -1242,6 +1389,7 @@ def main():
          "replaces": "xpoint_tpu/ops/selective_scan_pallas.py:121",
          "launches": bidi_train_res["launches"]["selective_scan_fused"],
          "max_abs_err": tfused_err, "ms": tfused_tot["ms"],
+         "ms_with_host_launch": tfused_tot["ms_with_host_launch"],
          "plain_ms": tfused_tot["plain_ms"],
          "bound_ms": tfused_tot["bound_ms"], "bound_by": "bytes",
          "library_ms": None},
@@ -1257,6 +1405,8 @@ def main():
     print("details: " + json.dumps(
         {"card": card, "build_s": build_s, "k1_stages": scan_rows,
          "k1_tails": scan_tails, "k1_ckpt_tails": tscan_tails,
+         "k3_tails": k3_tails, "k3_checkpoint_gap": k3_gap,
+         "k5_tails": fused_tails,
          "main_path": main_res, "k2": nms_res, "reference": ref_res,
          "train_scan_stages": tscan_rows, "train_path": train_res,
          "train_reference": tref_res, "k4_calls": warp_rows,
@@ -1274,7 +1424,10 @@ def main():
           "the window export), and launches are the HA phase's; K5 per v052d_noz "
           "pipeline call (16 launches) and per v052d_noz train step (16); K6 "
           "per v052d_noz train step (sum over stage shapes x 4 forward and 4 "
-          "reversed launches); launches count the whole run of each path",
+          "reversed launches); launches count the whole run of each path; "
+          "K1, K3, K4, K5 and K6 ms are device times (events behind queued "
+          "work), ms_with_host_launch the same calls with the host's launch "
+          "path",
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

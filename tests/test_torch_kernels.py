@@ -155,9 +155,9 @@ def test_scan_bwd_from_kernel_checkpoints(cuda, L, B, Dim, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_scan_bwd_kernel_matches_plain(cuda, L, B, Dim, dtype):
     """K3 against its plain version on the same checkpoints and cotangents.
-    Max abs error relative to max |plain|: fp32 1e-4 (exp/log1p rounding,
-    atomics in run-dependent order); bf16 outputs 2e-2 (a bf16 ulp is 2^-8
-    relative), the fp32 dA/dD/dbias 1e-3."""
+    Max abs error relative to max |plain|: fp32 1e-4 (the kernel's
+    approximate softplus / exp / sigmoid and its order of sums); bf16
+    outputs 2e-2 (a bf16 ulp is 2^-8 relative), the fp32 dA/dD/dbias 1e-3."""
     args = _scan_operands(2, L, B, Dim, dtype, cuda)
     _, _, hck_f, hck_r = selective_scan_bidir_plain(*args, emit_ckpt=True)
     g = torch.Generator(device="cpu").manual_seed(3)
@@ -172,6 +172,51 @@ def test_scan_bwd_kernel_matches_plain(cuda, L, B, Dim, dtype):
         assert a.dtype == b.dtype and a.shape == b.shape, i
         tol = 1e-4 if dtype == torch.float32 else (2e-2 if i < 4 else 1e-3)
         assert _rel_err(a, b) <= tol, (i, _rel_err(a, b))
+
+
+@pytest.mark.parametrize("L", [1, 64, 129, 300, 513])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scan_bwd_kernel_tails_and_repeat(cuda, L, dtype):
+    """K3 where its blocks have tails: one span of 1 or 64 tokens, 129 (a
+    last span of one token), 300 and 513 (chunks entered mid-way), B = 3,
+    Dim = 40 (240 lanes: no multiple of a block's 32, groups that straddle
+    its 32-lane slices). Against the plain version from K1's own
+    checkpoints (tolerances of test_scan_bwd_kernel_matches_plain), and a
+    second run on the same inputs bit for bit: no sum depends on the
+    order in which blocks run."""
+    args = _scan_operands(20 + L, L, 3, 40, dtype, cuda)
+    ck = selective_scan_bidir(*args, emit_ckpt=True)[2:]
+    g = torch.Generator(device="cpu").manual_seed(21 + L)
+    g_f, g_r = (torch.randn(L, 3, 2, 40, generator=g).to(cuda, dtype)
+                for _ in range(2))
+    before = selective_scan_bidir_bwd.launches
+    out = selective_scan_bidir_bwd(*args, *ck, g_f, g_r)
+    again = selective_scan_bidir_bwd(*args, *ck, g_f, g_r)
+    torch.cuda.synchronize()
+    assert selective_scan_bidir_bwd.launches == before + 2
+    ref = selective_scan_bidir_bwd_plain(*args, *ck, g_f, g_r)
+    for i, (a, b, c) in enumerate(zip(out, again, ref)):
+        assert torch.equal(a, b), i
+        assert a.dtype == c.dtype and a.shape == c.shape, i
+        assert bool(torch.isfinite(a).all()), i
+        tol = 1e-4 if dtype == torch.float32 else (2e-2 if i < 4 else 1e-3)
+        assert _rel_err(a, c) <= tol, (i, _rel_err(a, c))
+
+
+@pytest.mark.parametrize("L,B,Dim", [(4096, 16, 96), (1024, 16, 192),
+                                     (256, 16, 384), (64, 16, 768)])
+def test_scan_bwd_kernel_repeat_at_train_shapes(cuda, L, B, Dim):
+    """Two K3 runs at each flagship training stage shape (bf16) give the
+    same bits."""
+    args = _scan_operands(30, L, B, Dim, torch.bfloat16, cuda)
+    ck = selective_scan_bidir(*args, emit_ckpt=True)[2:]
+    g = torch.Generator(device=cuda).manual_seed(31)
+    g_f, g_r = ((torch.randn(L, B, 2, Dim, generator=g, device=cuda) * 0.1)
+                .bfloat16() for _ in range(2))
+    out = selective_scan_bidir_bwd(*args, *ck, g_f, g_r)
+    again = selective_scan_bidir_bwd(*args, *ck, g_f, g_r)
+    for a, b in zip(out, again):
+        assert torch.equal(a, b)
 
 
 def test_scan_autograd_on_card_matches_cpu(cuda):
@@ -374,6 +419,36 @@ def test_fused_scan_kernel_matches_plain(cuda, L, B, Dim, dtype):
     assert y.dtype == dtype and y.shape == (B, 4, L, Dim)
     atol, rtol = (1e-4, 0) if dtype == torch.float32 else (1e-2, 2 ** -7)
     torch.testing.assert_close(y.float(), p.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("L", [1, 64, 129, 300, 513])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_scan_kernel_tails_and_repeat(cuda, L, dtype):
+    """K5 where its blocks have tails (one span of 1 or 64 tokens, a last
+    span of 1, 44 or 1 tokens of 64), B = 3, Dim = 40 (a (b, k) group of
+    40 d: one full 32-lane block and one of 8): against the plain version
+    (tolerances of test_fused_scan_kernel_matches_plain) and a second run
+    bit for bit."""
+    args = _fused_operands(40 + L, 3, L, 40, dtype, cuda)
+    y = selective_scan_fused_bkld(*args)
+    again = selective_scan_fused_bkld(*args)
+    p = selective_scan_fused_bkld_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(y, again)
+    atol, rtol = (1e-4, 0) if dtype == torch.float32 else (1e-2, 2 ** -7)
+    torch.testing.assert_close(y.float(), p.float(), atol=atol, rtol=rtol)
+
+
+@pytest.mark.parametrize("L,B,Dim", [(16384, 8, 96), (4096, 16, 96),
+                                     (1024, 8, 384), (64, 16, 768)])
+def test_fused_scan_kernel_repeat_at_path_shapes(cuda, L, B, Dim):
+    """Two K5 runs at serving and training stage shapes (bf16) give the
+    same bits, and agree with the plain version (2e-2: one bf16 ulp)."""
+    args = _fused_operands(41, B, L, Dim, torch.bfloat16, cuda)
+    y = selective_scan_fused_bkld(*args)
+    assert torch.equal(y, selective_scan_fused_bkld(*args))
+    p = selective_scan_fused_bkld_plain(*args)
+    assert float((y.float() - p.float()).abs().max()) <= 2e-2
 
 
 def test_fused_scan_gradients_on_card_match_cpu(cuda):

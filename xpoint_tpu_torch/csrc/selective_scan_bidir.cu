@@ -57,7 +57,7 @@
 // is that passes 1 and 3 both read the operands and both evaluate softplus
 // and exp: 16 bytes per (t, m) against the 10 of the bound, and twice the
 // transcendental work, which is why those are the hardware's approximations
-// here (see softplus_approx).
+// here (see softplus_approx in scan_common.cuh).
 #include <math.h>
 
 #include <type_traits>
@@ -66,7 +66,10 @@
 
 namespace {
 
+using xp::ex2_approx;
 using xp::from_f32;
+using xp::kLog2e;
+using xp::softplus_approx;
 using xp::to_f32;
 
 constexpr int kLanes = 32;          // lanes per block, a warp's width
@@ -77,36 +80,6 @@ constexpr int kCkptChunk = 256;     // checkpoint chunk (the JAX DEFAULT_CHUNK)
 constexpr int kSpansPerChunk = kCkptChunk / kSpan;
 constexpr int kCarryRuns = 32;      // most runs of spans per lane in pass 2
 constexpr int kBlocksPerSM = 512 / (kLanes * kWarps);
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-
-// 2^x and log2(x) as the hardware's approximations, one operation each
-// (__expf / __logf wrap them in denormal handling that nothing here needs).
-__device__ __forceinline__ float ex2_approx(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-__device__ __forceinline__ float lg2_approx(float x) {
-  float y;
-  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-// softplus(x) = max(x, 0) + log1p(e), e = exp(-|x|) in (0, 1]. Passes 1 and
-// 3 both evaluate it for both directions of every element, and with expf /
-// log1pf in their accurate forms that arithmetic, not the bytes, sets the
-// kernel's time. log1p(e) is its series below e = 1/32 (truncation e^4 / 5
-// relative, < 2e-7) and ln(1 + e) above (lg2.approx is good to 2^-22
-// absolute on [1, 2] and the result is >= 0.03: < 1e-5 relative, 2e-7
-// absolute on delta). x = -inf gives exactly 0.
-__device__ __forceinline__ float softplus_approx(float x) {
-  const float e = ex2_approx(-fabsf(x) * kLog2e);
-  const float series =
-      e * (1.f - e * (0.5f - e * (1.f / 3.f - 0.25f * e)));
-  const float log1p_e = e < 0.03125f ? series : lg2_approx(1.f + e) * kLn2;
-  return fmaxf(x, 0.f) + log1p_e;
-}
 
 template <typename T>
 struct Operands {

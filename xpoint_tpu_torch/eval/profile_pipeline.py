@@ -1,11 +1,13 @@
 """Where the time of one pair-pipeline call goes, on the card.
 
-    python -m xpoint_tpu_torch.eval.profile_pipeline
+    python -m xpoint_tpu_torch.eval.profile_pipeline [forward_type]
 
-Builds the flagship VMamba XPoint (bf16, seed 0), warms the pipeline up,
-then profiles one call with torch.profiler (CPU + CUDA activities) and
+Builds the flagship VMamba XPoint (bf16, seed 0; ``forward_type``, e.g.
+``v052d_noz``, replaces its SSM_FORWARDTYPE v05_noz), warms the pipeline
+up, then profiles one call with torch.profiler (CPU + CUDA activities) and
 prints what :func:`report` prints. Needs a CUDA card.
 """
+import copy
 import json
 import sys
 import time
@@ -16,19 +18,31 @@ import torch
 B, S, TOP = 8, 512, 25
 
 
-def main():
+def flagship_pipeline(dev, forward_type=None):
+    """make_pair_pipeline over the flagship VMamba XPoint (bf16, seed 0;
+    ``forward_type`` in place of its SSM_FORWARDTYPE v05_noz) at S x S."""
+    from . import make_pair_pipeline
+    from ..models import VMAMBA_MODEL_CFG, build_xpoint
+
+    cfg = copy.deepcopy(VMAMBA_MODEL_CFG)
+    if forward_type is not None:
+        cfg["use_attention"]["model_parameters"]["MODEL"]["VSSM"][
+            "SSM_FORWARDTYPE"] = forward_type
+    module, _ = build_xpoint(cfg, device=dev, seed=0)
+    return make_pair_pipeline(module, (S, S), k=1024, nms_size=8,
+                              detection_threshold=0.015)
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
+    forward_type = argv[0] if argv else None
     if not torch.cuda.is_available():
         print("profile_pipeline: no CUDA device", file=sys.stderr)
         return 1
     from torch.profiler import ProfilerActivity, profile
 
-    from . import make_pair_pipeline
-    from ..models import VMAMBA_MODEL_CFG, build_xpoint
-
     dev = torch.device("cuda")
-    module, _ = build_xpoint(VMAMBA_MODEL_CFG, device=dev, seed=0)
-    run = make_pair_pipeline(module, (S, S), k=1024, nms_size=8,
-                             detection_threshold=0.015)
+    run = flagship_pipeline(dev, forward_type)
     g = torch.Generator(device=dev).manual_seed(0)
     imgs = [torch.rand(B, S, S, 1, generator=g, device=dev) for _ in range(4)]
     run(imgs[0], imgs[1])
@@ -39,7 +53,8 @@ def main():
         run(imgs[2], imgs[3])
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    report(prof, wall_ms, "pipeline call", batch=B, size=S)
+    report(prof, wall_ms, "pipeline call", batch=B, size=S,
+           forward_type=forward_type or "v05_noz")
     return 0
 
 

@@ -93,8 +93,8 @@ def selective_scan_bidir_plain(u_t, dt_t, bc_t, cc_t, A, D, delta_bias,
 
 
 def _segment_steps(L, segments):
-    """Steps per segment as the kernel chooses them: 16, fewer for a scan
-    of one short span."""
+    """Steps per segment as K1 and K5 choose them: 16, fewer for a scan of
+    one short span."""
     return 4 if L <= 4 * segments else 8 if L <= 8 * segments else 16
 
 
@@ -217,21 +217,157 @@ def selective_scan_bidir_bwd_plain(u_t, dt_t, bc_t, cc_t, A, D, delta_bias,
         dcc.append((g * h).reshape(L, G, Dim).sum(-1))
         dconst.append(torch.stack([(da * a * delta).sum(0), (g * u).sum(0),
                                    ddt_raw.sum(0)]))
-    return _cotangents(u_t, dt_t, bc_t, A, du, ddt, dbc, dcc,
-                       torch.stack(dconst))
+    return _cotangents(u_t, dt_t, bc_t, A, du, torch.stack(ddt),
+                       torch.stack(dbc), torch.stack(dcc), torch.stack(dconst))
+
+
+def _group_sums_by_slice(v, Dim, lanes=32):
+    """(L, M) -> (L, M / Dim): each group's lanes summed per 32-lane slice
+    of the plane, then the slices summed in slice order, as the backward
+    kernel sums dB and dC."""
+    L, M = v.shape
+    out = []
+    for g in range(M // Dim):
+        lo, hi = g * Dim, (g + 1) * Dim
+        total = torch.zeros(L, dtype=v.dtype, device=v.device)
+        for start in range(lo - lo % lanes, hi, lanes):
+            part = torch.zeros(L, dtype=v.dtype, device=v.device)
+            for m in range(max(lo, start), min(hi, start + lanes)):
+                part = part + v[:, m]
+            total = total + part
+        out.append(total)
+    return torch.stack(out, 1)
+
+
+def selective_scan_bidir_bwd_chunked(u_t, dt_t, bc_t, cc_t, A, D, delta_bias,
+                                     hck_f, hck_r, g_f, g_r, steps=4,
+                                     segments=8):
+    """The function of :func:`selective_scan_bidir_bwd_plain`, computed in
+    the order of ``csrc/selective_scan_bidir_bwd.cu``: L is cut into spans of
+    ``segments`` segments of ``steps`` steps (32 tokens, eight to a
+    checkpoint chunk, as the kernel has them). Per direction every segment
+    is composed from a zero entry to (product of a, h in scan order, e =
+    a dh in adjoint order); the segment summaries fold to span summaries; a
+    carry over the spans in adjoint order gives every span's adjoint entry,
+    and each chunk's checkpoint carried over its spans in scan order every
+    span's h entry; every segment is replayed from its span's entries folded
+    with the segments before it. du is summed forward first; dB/dC per
+    32-lane slice, then over slices; dA/dD/dbias per segment in adjoint
+    order, over segments, then over spans. Padded steps are inert. For the
+    tests: it shows on the CPU that this order computes the backward."""
+    L, B, K2, Dim = u_t.shape
+    M = B * K2 * Dim
+    span = steps * segments
+    if CKPT_CHUNK % span and L > span:
+        raise ValueError(f"spans of {segments} segments of {steps} steps do "
+                         f"not tile a {CKPT_CHUNK}-token chunk and L={L} "
+                         f"needs several")
+    ns = -(-L // span)
+    Lp = ns * span
+    per_chunk = max(CKPT_CHUNK // span, 1)
+    cd = _compute_dtype(u_t.dtype)
+    dev = u_t.device
+    pad = lambda x, v=0.0: F.pad(x, (0, 0, 0, Lp - L), value=v)  # noqa: E731
+    u = pad(u_t.reshape(L, M).to(cd))
+    du = torch.zeros(Lp, M, dtype=cd, device=dev)
+    ddt, dbc, dcc, dconst = [], [], [], []
+    for r, hck, gy in ((0, hck_f, g_f), (1, hck_r, g_r)):
+        x, delta, a, bcx, ccx, A_l, D_l = _lane_set(r, u_t, dt_t, bc_t, cc_t,
+                                                    A, D, delta_bias)
+        g = gy.reshape(L, M).to(cd)
+        gc = pad(g * ccx)
+        sig, delta = pad(torch.sigmoid(x)), pad(delta)
+        bcx, g = pad(bcx), pad(g)
+        a = pad(a, 1.0)
+        b = delta * u * bcx
+        # (spans, segments, steps, M) in token order; scan order runs left to
+        # right on forward lanes, the adjoint order the other way
+        a4, b4, gc4 = (v.reshape(ns, segments, steps, M) for v in (a, b, gc))
+        fwd = lambda n: range(n) if r == 0 else range(n - 1, -1, -1)  # noqa
+        bwd = lambda n: reversed(fwd(n))  # noqa: E731
+        P = torch.ones(ns, segments, M, dtype=cd, device=dev)
+        H = torch.zeros_like(P)
+        E = torch.zeros_like(P)
+        for i in fwd(steps):
+            H = a4[:, :, i] * H + b4[:, :, i]
+            P = P * a4[:, :, i]
+        for i in bwd(steps):
+            E = a4[:, :, i] * (gc4[:, :, i] + E)
+        Ps = torch.ones(ns, M, dtype=cd, device=dev)
+        Hs = torch.zeros_like(Ps)
+        Es = torch.zeros_like(Ps)
+        for j in fwd(segments):
+            Hs = P[:, j] * Hs + H[:, j]
+            Ps = Ps * P[:, j]
+        for j in bwd(segments):
+            Es = P[:, j] * Es + E[:, j]
+        eent = torch.empty_like(Ps)
+        xe = torch.zeros(M, dtype=cd, device=dev)
+        for s in bwd(ns):
+            eent[s] = xe
+            xe = Ps[s] * xe + Es[s]
+        hent = torch.empty_like(Ps)
+        for c in range(hck.shape[0]):
+            s0, n = c * per_chunk, min(per_chunk, ns - c * per_chunk)
+            xh = hck[c].to(cd)
+            for i in fwd(n):
+                hent[s0 + i] = xh
+                xh = Ps[s0 + i] * xh + Hs[s0 + i]
+        h_in, e_in = torch.empty_like(P), torch.empty_like(P)
+        xh, xe = hent, eent
+        for j in fwd(segments):
+            h_in[:, j] = xh
+            xh = P[:, j] * xh + H[:, j]
+        for j in bwd(segments):
+            e_in[:, j] = xe
+            xe = P[:, j] * xe + E[:, j]
+        h4, hp4, dh4 = (torch.empty_like(a4) for _ in range(3))
+        xh, xe = h_in, e_in
+        for i in fwd(steps):
+            hp4[:, :, i] = xh
+            xh = a4[:, :, i] * xh + b4[:, :, i]
+            h4[:, :, i] = xh
+        for i in bwd(steps):
+            dh4[:, :, i] = gc4[:, :, i] + xe
+            xe = a4[:, :, i] * dh4[:, :, i]
+        h, hp, dh = (v.reshape(Lp, M) for v in (h4, hp4, dh4))
+        da = dh * hp
+        ddt_raw = (dh * u * bcx + da * A_l * a) * sig
+        du = du + (g * D_l + dh * delta * bcx)
+        ddt.append(ddt_raw[:L])
+        dbc.append(_group_sums_by_slice((dh * delta * u)[:L], Dim))
+        dcc.append(_group_sums_by_slice((g * h)[:L], Dim))
+        sums = []
+        for v in (da * a * delta, g * u, ddt_raw):
+            v4 = v.reshape(ns, segments, steps, M)
+            seg = torch.zeros(ns, segments, M, dtype=cd, device=dev)
+            for i in bwd(steps):
+                seg = seg + v4[:, :, i]
+            per_span = torch.zeros(ns, M, dtype=cd, device=dev)
+            for j in range(segments):
+                per_span = per_span + seg[:, j]
+            total = torch.zeros(M, dtype=cd, device=dev)
+            for s in range(ns):
+                total = total + per_span[s]
+            sums.append(total)
+        dconst.append(torch.stack(sums))
+    return _cotangents(u_t, dt_t, bc_t, A, du[:L], torch.stack(ddt),
+                       torch.stack(dbc), torch.stack(dcc), torch.stack(dconst))
 
 
 def _cotangents(u_t, dt_t, bc_t, A, du, ddt, dbc, dcc, dconst):
-    """(L, M) / (L, G) / (2, 3, M) results -> the input layouts and dtypes
-    (the JAX ``_fused_bidir_tok_bwd`` glue). dconst: [direction][dA, dD,
+    """(L, M) du, (2, L, M) ddt, (2, L, G) dbc / dcc and (2, 3, M) dconst
+    -> the input layouts and dtypes (the JAX ``_fused_bidir_tok_bwd``
+    glue; the kernel writes the planes in their dtypes already, so only the
+    plain versions' fp32 planes are cast). dconst: [direction][dA, dD,
     dbias][lane], summed here over the batch copies of each constant."""
     L, B, K2, Dim = u_t.shape
     red = dconst.reshape(2, 3, B, K2 * Dim).sum(2)          # (2, 3, HD)
     dA, dD, dbias = (red[:, i].reshape(-1).to(A.dtype) for i in range(3))
     return (du.to(u_t.dtype).reshape(L, B, K2, Dim),
-            torch.stack(ddt).to(dt_t.dtype).reshape(2, L, B, K2, Dim),
-            torch.stack(dbc).to(bc_t.dtype).reshape(2, L, B, K2),
-            torch.stack(dcc).to(bc_t.dtype).reshape(2, L, B, K2),
+            ddt.to(dt_t.dtype).reshape(2, L, B, K2, Dim),
+            dbc.to(bc_t.dtype).reshape(2, L, B, K2),
+            dcc.to(bc_t.dtype).reshape(2, L, B, K2),
             dA, dD, dbias)
 
 
@@ -331,33 +467,45 @@ def selective_scan_bidir(u_t, dt_t, bc_t, cc_t, A, D, delta_bias,
 selective_scan_bidir.launches = 0
 
 
-def _launch_bwd(u_t, dt_t, bc_t, cc_t, A, D, delta_bias, hck_f, hck_r, g_f,
-                g_r):
+def _bwd_library():
+    """The backward kernel's library with its entry points typed once."""
     lib = build.load("selective_scan_bidir_bwd")
     fn = lib.xp_selective_scan_bidir_bwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 22
-                   + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 20
+                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+        lib.xp_selective_scan_bidir_bwd_scratch.restype = ctypes.c_longlong
+        lib.xp_selective_scan_bidir_bwd_scratch.argtypes = [ctypes.c_int] * 3
+    return lib
+
+
+def _launch_bwd(u_t, dt_t, bc_t, cc_t, A, D, delta_bias, hck_f, hck_r, g_f,
+                g_r):
+    lib = _bwd_library()
     L, B, K2, Dim = u_t.shape
     M, G = B * K2 * Dim, B * K2
     dev = u_t.device
-    du = torch.zeros(L, M, device=dev)
+    # every output is written whole, in the operands' dtype: du summed over
+    # both directions, dB/dC over each group, by the kernel in a fixed order
+    du = torch.empty(L, M, dtype=u_t.dtype, device=dev)
     ddt = torch.empty(2, L, M, dtype=dt_t.dtype, device=dev)
-    dbcc = torch.zeros(4, L, G, device=dev)        # dbc_f, dcc_f, dbc_r, dcc_r
+    dbcc = torch.empty(2, 2, L, G, dtype=bc_t.dtype, device=dev)  # dB, dC
     dconst = torch.empty(2, 3, M, device=dev)
-    err = fn(_DTYPE_CODE[u_t.dtype], u_t.data_ptr(), dt_t[0].data_ptr(),
-             dt_t[1].data_ptr(), bc_t[0].data_ptr(), cc_t[0].data_ptr(),
-             bc_t[1].data_ptr(), cc_t[1].data_ptr(), g_f.data_ptr(),
-             g_r.data_ptr(), hck_f.data_ptr(), hck_r.data_ptr(), A.data_ptr(),
-             D.data_ptr(), delta_bias.data_ptr(), du.data_ptr(),
-             ddt[0].data_ptr(), ddt[1].data_ptr(), dbcc[0].data_ptr(),
-             dbcc[1].data_ptr(), dbcc[2].data_ptr(), dbcc[3].data_ptr(),
-             dconst.data_ptr(), L, M, Dim,
-             torch.cuda.current_stream(dev).cuda_stream)
+    scratch = torch.empty(lib.xp_selective_scan_bidir_bwd_scratch(L, M, Dim),
+                          device=dev)
+    err = lib.xp_selective_scan_bidir_bwd(
+        _DTYPE_CODE[u_t.dtype], u_t.data_ptr(), dt_t[0].data_ptr(),
+        dt_t[1].data_ptr(), bc_t[0].data_ptr(), cc_t[0].data_ptr(),
+        bc_t[1].data_ptr(), cc_t[1].data_ptr(), g_f.data_ptr(),
+        g_r.data_ptr(), hck_f.data_ptr(), hck_r.data_ptr(), A.data_ptr(),
+        D.data_ptr(), delta_bias.data_ptr(), du.data_ptr(),
+        ddt[0].data_ptr(), ddt[1].data_ptr(), dbcc.data_ptr(),
+        dconst.data_ptr(), scratch.data_ptr(), L, M, Dim,
+        torch.cuda.current_stream(dev).cuda_stream)
     build.check(lib, err, "selective_scan_bidir_bwd launch")
     selective_scan_bidir_bwd.launches += 1
-    return _cotangents(u_t, dt_t, bc_t, A, du, list(ddt), list(dbcc[0::2]),
-                       list(dbcc[1::2]), dconst)
+    return _cotangents(u_t, dt_t, bc_t, A, du, ddt, dbcc[0], dbcc[1], dconst)
 
 
 def selective_scan_bidir_bwd(u_t, dt_t, bc_t, cc_t, A, D, delta_bias,
@@ -434,18 +582,85 @@ def selective_scan_fused_bkld_plain(u, dt, A, Bs, Cs, D, delta_bias):
     return (Cs.to(cd) * h + const(D) * uf).to(dt.dtype)
 
 
-def _launch_fused(u, dt, A, Bs, Cs, D, delta_bias):
+def selective_scan_fused_chunked(u, dt, A, Bs, Cs, D, delta_bias,
+                                 steps=None, segments=4):
+    """The function of :func:`selective_scan_fused_bkld_plain`, computed in
+    the order of ``csrc/selective_scan_fused.cu``: L is cut into spans of
+    ``segments`` segments of ``steps`` steps (64 tokens); every segment is
+    composed from a zero entry to its (product of a, h) summary, the segment
+    summaries fold to span summaries, a carry over the spans gives every
+    span's entry state, and every segment is replayed from (span entry
+    folded with the segments before it). Padded steps are the inert (1, 0).
+    For the tests: it shows on the CPU that this order computes the
+    sequential recurrence."""
+    B, K, L, Dim = u.shape
+    steps = _segment_steps(L, segments) if steps is None else steps
+    span = steps * segments
+    ns = -(-L // span)
+    cd = _compute_dtype(u.dtype)
+    dev = u.device
+    const = lambda v: v.to(cd).reshape(1, K, 1, Dim)  # noqa: E731
+    uf = u.to(cd)
+    delta = _softplus(dt.to(cd) + const(delta_bias))
+    pad = lambda x, v: F.pad(x, (0, 0, 0, ns * span - L), value=v)  # noqa
+    a = pad(torch.exp(delta * const(A)), 1.0)
+    b = pad(delta * uf * Bs.to(cd), 0.0)
+    a = a.reshape(B, K, ns, segments, steps, Dim)
+    b = b.reshape(B, K, ns, segments, steps, Dim)
+    seg_a = torch.ones(B, K, ns, segments, Dim, dtype=cd, device=dev)
+    seg_h = torch.zeros_like(seg_a)
+    for i in range(steps):
+        seg_h = a[..., i, :] * seg_h + b[..., i, :]
+        seg_a = seg_a * a[..., i, :]
+    span_a = torch.ones(B, K, ns, Dim, dtype=cd, device=dev)
+    span_h = torch.zeros_like(span_a)
+    for j in range(segments):
+        span_h = seg_a[:, :, :, j] * span_h + seg_h[:, :, :, j]
+        span_a = span_a * seg_a[:, :, :, j]
+    entry = torch.zeros_like(span_a)
+    for s in range(1, ns):
+        entry[:, :, s] = (span_a[:, :, s - 1] * entry[:, :, s - 1]
+                          + span_h[:, :, s - 1])
+    seg_in = torch.empty_like(seg_a)
+    x = entry
+    for j in range(segments):
+        seg_in[:, :, :, j] = x
+        x = seg_a[:, :, :, j] * x + seg_h[:, :, :, j]
+    h = torch.empty_like(a)
+    x = seg_in
+    for i in range(steps):
+        x = a[..., i, :] * x + b[..., i, :]
+        h[..., i, :] = x
+    h = h.reshape(B, K, ns * span, Dim)[:, :, :L]
+    return (Cs.to(cd) * h + const(D) * uf).to(dt.dtype)
+
+
+def _fused_library():
+    """The fused scan's library with its entry points typed once."""
     lib = build.load("selective_scan_fused")
     fn = lib.xp_selective_scan_fused
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
-                   + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9
+                       + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+        lib.xp_selective_scan_fused_scratch.restype = ctypes.c_longlong
+        lib.xp_selective_scan_fused_scratch.argtypes = [ctypes.c_int] * 2
+    return lib
+
+
+def _launch_fused(u, dt, A, Bs, Cs, D, delta_bias):
+    lib = _fused_library()
     B, K, L, Dim = u.shape
+    M = B * K * Dim
     y = torch.empty_like(u)
-    err = fn(_DTYPE_CODE[u.dtype], u.data_ptr(), dt.data_ptr(),
-             Bs.data_ptr(), Cs.data_ptr(), A.data_ptr(), D.data_ptr(),
-             delta_bias.data_ptr(), y.data_ptr(), L, B * K * Dim, Dim,
-             K * Dim, torch.cuda.current_stream(u.device).cuda_stream)
+    # span summaries and entry states, scratch between the kernel's passes
+    n_scratch = lib.xp_selective_scan_fused_scratch(L, M)
+    scratch = torch.empty(n_scratch, device=u.device) if n_scratch else None
+    err = lib.xp_selective_scan_fused(
+        _DTYPE_CODE[u.dtype], u.data_ptr(), dt.data_ptr(), Bs.data_ptr(),
+        Cs.data_ptr(), A.data_ptr(), D.data_ptr(), delta_bias.data_ptr(),
+        y.data_ptr(), None if scratch is None else scratch.data_ptr(), L, M,
+        Dim, K * Dim, torch.cuda.current_stream(u.device).cuda_stream)
     build.check(lib, err, "selective_scan_fused launch")
     selective_scan_fused_bkld.launches += 1
     return y
