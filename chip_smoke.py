@@ -13,9 +13,18 @@ Phases (any failure exits non-zero and prints no result):
      same checks at two shapes with tails (L = 300 and 64, 240 lanes);
   3. serving path: the flagship VMamba XPoint (bf16, port initialisation,
      seed 0) through make_pair_pipeline at 512^2, B=8, on fresh random
-     images; launch counts are zeroed just before and read just after;
-  4. K2 (grid box-NMS sweep): kernel keep mask against the plain one on the
-     real heatmaps of phase 3 (exact equality), and times;
+     images; launch counts are zeroed just before and read just after (one
+     K2 launch per call);
+  4. K2 (grid box-NMS, one cooperative launch running every sweep): keep
+     mask and sweep count against the plain version on the real heatmaps of
+     phase 3 (16 planes, exact equality) and on a 1 x 512^2 plane with a
+     strictly decreasing ramp along each row at size 8 (well over 100
+     sweeps in the one launch), a second run bit for bit, one launch per
+     call; box_nms_extract on the heatmaps under
+     torch.cuda.set_sync_debug_mode("error") (no synchronising call);
+     device time behind queued work (ms), the time with the host's launch
+     path, both bounds (the function's and the bytes of every sweep through
+     device memory) and the plain version's time;
   5. a small-input reference check: the tiny fp32 model on the card against
      the same model on the CPU (plain versions);
   6. K1 with checkpoints and K3 (the scan's backward) at the flagship
@@ -60,13 +69,14 @@ Phases (any failure exits non-zero and prints no result):
      (EXPORT_HA_CONFIG: window, num 10) through export_keypoints into the
      numpy sink; finite non-zero maps in [0, 1], count within [min_count,
      num], keypoints for every sample, K4 / K1 / K2 launches per sample
-     (counts zeroed just before, read just after) as the code predicts;
+     (counts zeroed just before, read just after) as the code predicts
+     (one K2 launch an NMS call: 1 a sample, 2 an exported pair);
  11. K5 (single-direction fused scan): kernel against its plain version at
      the serving stage shapes (B=8, bf16; limit 2e-2 as K1's), a second run
      bit for bit, device time and time with the host's launch path, tails
      at L = 300 and 64 (B = 3, Dim = 40) as K3's, then the
      v052d_noz flagship-width model through make_pair_pipeline at 512^2,
-     B=8 (16 K5 launches per call);
+     B=8 (16 K5 launches and 1 K2 launch per call);
  12. the tiny fp32 model's HA (prod, num 5, 64^2) on the card against the
      CPU: prob within 1e-4 where both hold the same count, keypoint sets;
  13. K6 (linear recurrence) against its plain version at the shapes the
@@ -299,6 +309,9 @@ def phase_main_path(dev):
                 raise SystemExit(f"main path: non-finite {key}")
     launches = {"selective_scan_bidir": selective_scan_bidir.launches,
                 "nms_sweep": grid_nms_keep.launches}
+    if launches["nms_sweep"] != N_CALLS:
+        raise SystemExit(f"main path: {launches['nms_sweep']} K2 launches in "
+                         f"{N_CALLS} calls, expected one a call")
     expect = {"prob_optical": (B, H, W), "keypoints_optical": (B, 1024, 2),
               "desc_optical": (B, 1024, 256), "matched": (B, 1024)}
     for key, shape in expect.items():
@@ -312,41 +325,81 @@ def phase_main_path(dev):
     res = {"init_s": init_s, "latency_ms": lat_ms, "latency_all_ms": lat,
            "pairs_per_s": B / lat_ms * 1e3, "matches": matches,
            "keypoints_optical": int(out["mask_optical"].sum()),
-           "nms_sweeps_per_call": launches["nms_sweep"] / N_CALLS,
            "k1_launches_per_call": launches["selective_scan_bidir"] / N_CALLS,
            "launches": launches,
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
     print(f"main path 512^2 B={B}: latency_ms={lat_ms} "
           f"pairs_per_s={res['pairs_per_s']} matches={matches} "
-          f"nms_sweeps/call={res['nms_sweeps_per_call']} "
           f"launches={launches}", flush=True)
     probs = torch.cat([out["prob_optical"], out["prob_thermal"]])
     return res, probs, module
 
 
 def phase_nms(probs):
-    from xpoint_tpu_torch.ops.nms import grid_nms_keep, grid_nms_keep_plain
+    from xpoint_tpu_torch.ops.nms import (_grid_nms_keep_cuda, box_nms_extract,
+                                          grid_nms_keep, grid_nms_keep_plain,
+                                          overlap_widths)
     valid = probs > 0.015
+    before = grid_nms_keep.launches
     keep, sweeps = grid_nms_keep(probs, valid, 8, 0.1)
+    again, again_sweeps = grid_nms_keep(probs, valid, 8, 0.1)
     ref, ref_sweeps = grid_nms_keep_plain(probs, valid, 8, 0.1)
+    # a ramp along each row: every box suppresses the next, ~2 sweeps a box
+    ramp = torch.linspace(1.0, 0.5, W, device=probs.device).expand(
+        1, H, W).contiguous()
+    ramp_keep, ramp_sweeps = grid_nms_keep(ramp, ramp > 0, 8, 0.1)
+    ramp_ref, ramp_ref_sweeps = grid_nms_keep_plain(ramp, ramp > 0, 8, 0.1)
     torch.cuda.synchronize()
+    launches = grid_nms_keep.launches - before
     n_diff = int((keep != ref).sum())
-    if n_diff or sweeps != ref_sweeps:
-        raise SystemExit(f"K2 disagrees with its plain version: {n_diff} "
-                         f"pixels, sweeps {sweeps} vs {ref_sweeps}")
+    ramp_diff = int((ramp_keep != ramp_ref).sum())
+    print(f"K2 {probs.shape[0]} planes {H}x{W}: sweeps={sweeps} "
+          f"(plain {ref_sweeps}) pixels differing={n_diff} bit-equal repeat="
+          f"{torch.equal(keep, again) and sweeps == again_sweeps}; ramp "
+          f"1x{H}x{W}: sweeps={ramp_sweeps} (plain {ramp_ref_sweeps}) pixels "
+          f"differing={ramp_diff}; launches={launches}", flush=True)
+    if (n_diff or sweeps != ref_sweeps or not torch.equal(keep, again)
+            or again_sweeps != sweeps or ramp_diff
+            or ramp_sweeps != ramp_ref_sweeps or ramp_sweeps < 100
+            or launches != 3):
+        raise SystemExit("K2 disagrees with its plain version, with itself "
+                         "or with one launch a call")
+
+    # the serving path's NMS reads nothing back from the card
+    box_nms_extract(probs, 8, 0.015, 0.1, 1024)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        box_nms_extract(probs, 8, 0.015, 0.1, 1024)
+    except RuntimeError as e:
+        raise SystemExit(f"box_nms_extract synchronised with the host: {e}")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+
+    delay = queued_delay(probs.device)
     args = [(probs, valid, 8, 0.1)] * 5
-    ms = cuda_ms(grid_nms_keep, args)
+    ms = cuda_ms_queued(_grid_nms_keep_cuda, args, delay)
+    launch_ms = cuda_ms(_grid_nms_keep_cuda, args)
     plain_ms = cuda_ms(grid_nms_keep_plain, args[:3])
-    n_planes = probs.shape[0]
-    per_sweep_bytes = n_planes * H * W * (4 + 1 + 1)
-    b_ms, b_by = bound(sweeps * per_sweep_bytes,
-                       sweeps * n_planes * H * W * 40)
-    res = {"planes": n_planes, "sweeps": sweeps, "valid_px": int(valid.sum()),
-           "kept_px": int(keep.sum()), "ms": ms, "ms_per_sweep": ms / sweeps,
-           "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
-    print(f"K2 {n_planes} planes {H}x{W}: sweeps={sweeps} equal=True "
-          f"kernel_ms={ms} per_sweep_ms={ms / sweeps} plain_ms={plain_ms} "
-          f"bound_ms={b_ms} ({b_by})", flush=True)
+    n_px = probs.shape[0] * H * W
+    widths = overlap_widths(8, 0.1)
+    # comparisons a pixel a sweep: the running maxima over |dx| <= max_w, the
+    # combine over the rows with a strip, the test against p
+    compares = 2 * max(widths) + 2 * sum(w >= 0 for w in widths) - 1
+    b_ms, b_by = bound(n_px * (4 + 1 + 1), sweeps * n_px * compares)
+    sweep_bytes_ms = sweeps * n_px * (4 + 1 + 1) / HBM_BYTES_PER_S * 1e3
+    res = {"planes": probs.shape[0], "sweeps": sweeps,
+           "ramp_sweeps": ramp_sweeps, "valid_px": int(valid.sum()),
+           "kept_px": int(keep.sum()), "ms": ms,
+           "ms_with_host_launch": launch_ms, "plain_ms": plain_ms,
+           "bound_ms": b_ms, "bound_by": b_by,
+           "bound_sweep_bytes_ms": sweep_bytes_ms,
+           "compares_per_px_sweep": compares, "no_host_read": True}
+    print(f"K2 times: kernel_ms={ms} (with the host's launch path "
+          f"{launch_ms}) plain_ms={plain_ms} bound_ms={b_ms} ({b_by}; "
+          f"every sweep's bytes through device memory {sweep_bytes_ms})",
+          flush=True)
     return res
 
 
@@ -964,14 +1017,14 @@ def phase_ha(dev):
                "prob_max": float(prob.max()), "prob_mean": float(prob.mean()),
                "count_max": float(count.max()),
                "count_min": float(count.min()), "keypoints": len(kps),
-               "nms_sweeps": counts["nms_sweep"], "launches": counts}
+               "nms_launches": counts["nms_sweep"], "launches": counts}
         samples.append(row)
         print(f"HA sample {i} ({HA_S}^2, num {cfg['num']}, "
               f"{cfg['aggregation']}): {row}", flush=True)
         ok = (bool(torch.isfinite(prob).all()) and float(prob.min()) >= 0
               and float(prob.max()) <= 1 and float(prob.max()) > 0
               and cfg["min_count"] <= row["count_max"] <= cfg["num"]
-              and len(kps) > 0 and row["nms_sweeps"] > 0)
+              and len(kps) > 0 and row["nms_launches"] == 1)
         if not ok or any(counts[k] != v for k, v in expect.items()):
             raise SystemExit(f"HA sample {i} failed its checks (expected "
                              f"launches {expect})")
@@ -1002,7 +1055,7 @@ def phase_ha(dev):
             or sorted(next(iter(n_kps.values()))) != ["keypoints_optical",
                                                       "keypoints_thermal"]
             or any(counts[k] != v for k, v in exp_expect.items())
-            or counts["nms_sweep"] < 2 * n_done):
+            or counts["nms_sweep"] != 2 * n_done):
         raise SystemExit(f"HA export failed its checks (expected launches "
                          f"{exp_expect})")
     sec_med = sorted(r["seconds"] for r in samples)[len(samples) // 2]
@@ -1203,9 +1256,10 @@ def phase_bidi_path(dev):
     n_calls = len(images) - 1
     if (counts["selective_scan_fused"] != 16 * n_calls
             or counts["selective_scan_bidir"] != 0
+            or counts["nms_sweep"] != n_calls
             or tuple(out["prob_optical"].shape) != (B, H, W)):
         raise SystemExit(f"v052d_noz path: launches {counts}, expected 16 "
-                         f"selective_scan_fused per call")
+                         f"selective_scan_fused and 1 nms_sweep per call")
     lat_ms = sorted(lat)[len(lat) // 2]
     res = {"latency_ms": lat_ms, "latency_all_ms": lat,
            "pairs_per_s": B / lat_ms * 1e3, "launches": counts,
@@ -1292,6 +1346,7 @@ def main():
         dev, stages, [2 * d for d in depths])
     main_res, probs, _ = phase_main_path(dev)
     nms_res = phase_nms(probs)
+    main_res["nms_sweeps_per_call"] = nms_res["sweeps"]
     ref_res = phase_reference(dev)
     # the training stage shapes (256^2, B=16); each stage has 2 passes x 2
     # blocks, as a serving call has
@@ -1343,8 +1398,11 @@ def main():
          "replaces": "xpoint_tpu/ops/nms.py:36",
          "launches": main_res["launches"]["nms_sweep"],
          "max_abs_err": 0.0, "ms": nms_res["ms"],
+         "ms_with_host_launch": nms_res["ms_with_host_launch"],
          "plain_ms": nms_res["plain_ms"], "bound_ms": nms_res["bound_ms"],
-         "bound_by": nms_res["bound_by"], "library_ms": None},
+         "bound_by": nms_res["bound_by"],
+         "bound_sweep_bytes_ms": nms_res["bound_sweep_bytes_ms"],
+         "library_ms": None},
         {"name": "selective_scan_bidir", "path": "train (emit_ckpt)", **k1,
          "launches": train_res["launches"]["selective_scan_bidir"],
          "max_abs_err": k1t_err, "ms": tscan_tot["k1_ms"],
@@ -1416,7 +1474,9 @@ def main():
          "k5_train_stages": tfused_rows, "v052d_train_path": bidi_train_res,
          "forward_type_train_references": trefs}), flush=True)
     print("serve: K1 ms/plain_ms/bound_ms are per pipeline call (sum over "
-          "stage shapes x launches), K2's over all sweeps of one call; "
+          "stage shapes x launches), K2's per call (one launch runs every "
+          "sweep; bound_sweep_bytes_ms: 6 B a pixel a sweep at the memory "
+          "rate); "
           "train: K1 and K3 per train step (sum over stage shapes x 4 "
           "launches); K4: one row per call of an HA step (8 warps at 512^2), "
           "one launch each; each step makes the image warp, the mask unwarp "
@@ -1425,9 +1485,9 @@ def main():
           "pipeline call (16 launches) and per v052d_noz train step (16); K6 "
           "per v052d_noz train step (sum over stage shapes x 4 forward and 4 "
           "reversed launches); launches count the whole run of each path; "
-          "K1, K3, K4, K5 and K6 ms are device times (events behind queued "
-          "work), ms_with_host_launch the same calls with the host's launch "
-          "path",
+          "K1, K2, K3, K4, K5 and K6 ms are device times (events behind "
+          "queued work), ms_with_host_launch the same calls with the host's "
+          "launch path",
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -15,7 +15,8 @@ from xpoint_tpu_torch.ops import warp, warp_projective
 from xpoint_tpu_torch.ops.linear_scan import (linear_scan,
                                               linear_scan_launch,
                                               linear_scan_plain)
-from xpoint_tpu_torch.ops.nms import grid_nms_keep, grid_nms_keep_plain
+from xpoint_tpu_torch.ops.nms import (box_nms, box_nms_extract, grid_nms_keep,
+                                      grid_nms_keep_plain)
 from xpoint_tpu_torch.ops.selective_scan_cuda import (
     SelectiveScanBidir, selective_scan_bidir, selective_scan_bidir_bwd,
     selective_scan_bidir_bwd_plain, selective_scan_bidir_plain,
@@ -258,9 +259,94 @@ def test_nms_kernel_equals_plain(cuda, size, iou, shape):
         ref, ref_sweeps = grid_nms_keep_plain(p, valid, size, iou)
         before = grid_nms_keep.launches
         keep, sweeps = grid_nms_keep(p.to(cuda), valid.to(cuda), size, iou)
-        assert grid_nms_keep.launches == before + sweeps
+        assert grid_nms_keep.launches == before + 1
         assert sweeps == ref_sweeps
         assert torch.equal(keep.cpu(), ref)
+
+
+def _ramp_plane(H, W, axis):
+    """(1, H, W): strictly decreasing along each row (axis -1) or column
+    (axis -2), so every box suppresses the next and the fixed point needs
+    about two sweeps a box."""
+    r = np.linspace(1.0, 0.5, W if axis == -1 else H, dtype=np.float32)
+    r = r[None, None, :] if axis == -1 else r[None, :, None]
+    return torch.from_numpy(np.broadcast_to(r, (1, H, W)).copy())
+
+
+def _kernel_against_plain(prob, valid, size, iou):
+    ref, ref_sweeps = grid_nms_keep_plain(prob, valid, size, iou)
+    before = grid_nms_keep.launches
+    keep, sweeps = grid_nms_keep(prob, valid, size, iou)
+    assert grid_nms_keep.launches == before + 1
+    assert sweeps == ref_sweeps
+    assert torch.equal(keep, ref)
+    return sweeps
+
+
+def test_nms_kernel_long_chain(cuda):
+    """A ramp along every row of a 512^2 plane at size 8: well over 100
+    sweeps, all in one launch, with no cap below H * W."""
+    p = _ramp_plane(512, 512, -1).to(cuda)
+    assert _kernel_against_plain(p, p > 0, 8, 0.1) >= 100
+
+
+@pytest.mark.parametrize("W", [64, 65])
+def test_nms_kernel_at_the_sweep_cap(cuda, W):
+    """A 1 x W row ramp at size 2 runs into the H * W cap with the last
+    sweep still changing pixels: after an odd last sweep (W = 64) the
+    kernel copies its mask to the output plane, after an even one not."""
+    p = _ramp_plane(1, W, -1).to(cuda)
+    assert _kernel_against_plain(p, p > 0, 2, 0.1) == W
+
+
+def test_nms_kernel_more_tiles_than_blocks(cuda):
+    """The serving shape, 16 planes of 512^2 (4,096 tiles, more than the
+    blocks that can be resident at once)."""
+    p = _nms_planes(5, 16, 512, 512).to(cuda)
+    assert _kernel_against_plain(p, p > 0.015, 8, 0.1) >= 2
+
+
+@pytest.mark.parametrize("shape", [(16, 512, 512), (1, 512, 512),
+                                   (3, 33, 65)])
+def test_nms_kernel_repeat_bit_equal(cuda, shape):
+    p = _nms_planes(7, *shape).to(cuda)
+    first = grid_nms_keep(p, p > 0.015, 8, 0.1)
+    again = grid_nms_keep(p, p > 0.015, 8, 0.1)
+    assert torch.equal(first[0], again[0]) and first[1] == again[1]
+
+
+def test_nms_reads_nothing_back(cuda):
+    """box_nms_extract and box_nms on CUDA tensors make no synchronising
+    call, and give what they give on the CPU (no ramp: the order of tied
+    scores in a top-k may differ between the devices)."""
+    rng = np.random.default_rng(9)
+    prob = torch.from_numpy(rng.uniform(size=(4, 128, 96)).astype(
+        np.float32) ** 4)
+    p = prob.to(cuda)
+    box_nms_extract(p, 8, 0.015, 0.1, 256)                  # build, warm up
+    box_nms(p, 8, 0.015, keep_top_k=100)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        kps, scores, mask = box_nms_extract(p, 8, 0.015, 0.1, 256)
+        heat = box_nms(p[0], 8, 0.015, keep_top_k=100)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    ref = box_nms_extract(prob, 8, 0.015, 0.1, 256)
+    for b in range(prob.shape[0]):
+        got = {tuple(x) for x, m in zip(kps[b].tolist(), mask[b].tolist())
+               if m}
+        want = {tuple(x) for x, m in zip(ref[0][b].tolist(),
+                                          ref[2][b].tolist()) if m}
+        assert got == want
+    assert torch.equal(heat.cpu(), box_nms(prob[0], 8, 0.015,
+                                           keep_top_k=100))
+
+
+def test_nms_kernel_rejects_large_boxes(cuda):
+    p = _nms_planes(1, 1, 64, 64).to(cuda)
+    with pytest.raises(ValueError):
+        grid_nms_keep(p, p > 0.015, 17, 0.1)
 
 
 def test_tiny_pipeline_on_card_matches_cpu(cuda):

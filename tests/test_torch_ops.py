@@ -187,7 +187,12 @@ def test_grid_nms_plain_equals_jax(size, thr):
     assert torch.equal(keep_w, keep)
 
 
-@pytest.mark.parametrize("size,iou", [(8, 0.1), (4, 0.1), (3, 0.5), (8, 1.0)])
+_TABLE_CASES = [(8, 0.1), (4, 0.1), (3, 0.5), (8, 1.0)]
+
+
+@pytest.mark.parametrize("size,iou", _TABLE_CASES + [
+    (s, iou) for iou in (0.1, 0.3, 0.7) for s in range(1, 17)
+    if (s, iou) not in _TABLE_CASES])
 def test_nms_tables_match_jax(size, iou):
     assert overlap_widths(size, iou) == _overlap_widths(size, iou)
     for H, W in [(512, 512), (64, 96), (30, 30)]:

@@ -67,21 +67,29 @@ def _check_operands(a, b, dim):
         raise ValueError(f"linear_scan: unsupported device {a.device}")
 
 
-def _launch(a, b, reverse, shift, dim):
+def _library():
+    """The kernel's library with its entry point typed once."""
     lib = build.load("linear_scan")
     fn = lib.xp_linear_scan
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3
-                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 3
+                       + [ctypes.c_int] * 5 + [ctypes.c_void_p])
+    return lib
+
+
+def _launch(a, b, reverse, shift, dim):
+    lib = _library()
     dim %= a.ndim
     L, D = a.shape[dim], math.prod(a.shape[dim + 1:])
     M = math.prod(a.shape[:dim]) * D
     if M >= 2 ** 31:
         raise ValueError(f"linear_scan: {M} lanes exceed the kernel's int")
     h = torch.empty(a.shape, dtype=torch.float32, device=a.device)
-    err = fn(_DTYPE_CODE[a.dtype], a.data_ptr(), b.data_ptr(), h.data_ptr(),
-             L, D, M, int(bool(reverse)), int(shift),
-             torch.cuda.current_stream(a.device).cuda_stream)
+    err = lib.xp_linear_scan(
+        _DTYPE_CODE[a.dtype], a.data_ptr(), b.data_ptr(), h.data_ptr(), L, D,
+        M, int(bool(reverse)), int(shift),
+        torch.cuda.current_stream(a.device).cuda_stream)
     build.check(lib, err, "linear_scan launch")
     linear_scan.launches += 1
     return h

@@ -1,12 +1,15 @@
 """Grid box-NMS and keypoint extraction (port of ``xpoint_tpu/ops/nms.py``).
 
 Greedy equal-box NMS runs as a fixed point on the heatmap (see
-``grid_nms_keep_plain``). On a CUDA tensor each sweep is one launch of the
-Hopper kernel ``csrc/nms_sweep.cu`` (replacing the TPU kernel
-``xpoint_tpu/ops/nms.py::_nms_sweep_kernel``); on a CPU tensor the plain
-PyTorch version below runs the same sweeps.
+``grid_nms_keep_plain``). On a CUDA tensor one call is one cooperative
+launch of the Hopper kernel ``csrc/nms_sweep.cu`` (replacing the TPU kernel
+``xpoint_tpu/ops/nms.py::_nms_sweep_kernel``), which runs every sweep on the
+device with a grid barrier between sweeps; ``box_nms`` and
+``box_nms_extract`` read nothing back from the device. On a CPU tensor the
+plain PyTorch version below runs the same sweeps.
 """
 import ctypes
+import functools
 
 import torch
 
@@ -79,54 +82,74 @@ def grid_nms_keep_plain(prob, valid, size, iou):
     return keep, sweeps
 
 
-def _grid_nms_keep_cuda(prob, valid, size, iou):
-    if size > 16:
-        raise ValueError(f"nms_sweep kernel takes size <= 16, got {size}")
+@functools.lru_cache(maxsize=None)
+def _widths_arg(size, iou):
+    return (ctypes.c_int * size)(*overlap_widths(size, iou))
+
+
+def _nms_library():
+    """The kernel's library with its entry points typed once."""
     lib = build.load("nms_sweep")
-    fn = lib.xp_nms_sweep
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
-        ctypes.c_void_p, ctypes.c_void_p]
+    fn = lib.xp_nms
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p] * 2)
+        lib.xp_nms_scratch.restype = ctypes.c_longlong
+        lib.xp_nms_scratch.argtypes = [ctypes.c_int] * 3
+    return lib
+
+
+def _grid_nms_keep_cuda(prob, valid, size, iou):
+    """One launch of the kernel (counted in ``grid_nms_keep.launches``):
+    returns the keep mask and the sweep count as a 0-d int32 tensor on the
+    device. Reads nothing back; a refused launch raises."""
+    if not 1 <= size <= 16:
+        raise ValueError(f"nms_sweep kernel takes 1 <= size <= 16, got {size}")
+    lib = _nms_library()
     B, H, W = prob.shape
-    # invalid pixels carry -inf, so validity is p != -inf in the kernel and
-    # scores <= 0 on valid pixels stay eligible
-    p = torch.where(valid, prob.float(),
-                    torch.full((), float("-inf"), device=prob.device))
-    p = p.contiguous()
-    keep = valid.contiguous().clone()
-    other = torch.empty_like(keep)
-    changed = torch.zeros((), dtype=torch.int32, device=prob.device)
-    widths = (ctypes.c_int * size)(*overlap_widths(size, iou))
-    stream = torch.cuda.current_stream(prob.device).cuda_stream
-    sweeps = 0
-    while sweeps < H * W:
-        err = fn(p.data_ptr(), keep.data_ptr(), other.data_ptr(),
-                 changed.data_ptr(), B, H, W, size, widths, stream)
-        build.check(lib, err, "nms_sweep launch")
-        grid_nms_keep.launches += 1
-        sweeps += 1
-        keep, other = other, keep
-        if int(changed.item()) == 0:
-            break
-    return keep, sweeps
+    dev = prob.device
+    p = prob.float().contiguous()
+    valid = valid.contiguous()
+    keep = torch.empty((B, H, W), dtype=torch.bool, device=dev)
+    scratch = torch.empty(lib.xp_nms_scratch(B, H, W), dtype=torch.uint8,
+                          device=dev)
+    state = torch.empty(4, dtype=torch.int32, device=dev)
+    err = lib.xp_nms(p.data_ptr(), valid.data_ptr(), keep.data_ptr(),
+                     scratch.data_ptr(), state.data_ptr(), B, H, W, size,
+                     _widths_arg(size, iou),
+                     torch.cuda.current_stream(dev).cuda_stream)
+    build.check(lib, err, "nms_sweep launch")
+    grid_nms_keep.launches += 1
+    return keep, state[3]
+
+
+def _grid_nms_keep_async(prob, valid, size, iou):
+    """(keep, sweeps) with no read from the device: on a CUDA tensor sweeps
+    is a 0-d int32 tensor there; on a CPU tensor the plain version runs."""
+    if prob.shape != valid.shape or prob.dim() != 3:
+        raise ValueError(f"prob/valid must be (B, H, W), got "
+                         f"{tuple(prob.shape)} / {tuple(valid.shape)}")
+    if valid.dtype != torch.bool or prob.device != valid.device:
+        raise ValueError(f"valid must be bool on prob's device, got "
+                         f"{valid.dtype} on {valid.device}")
+    if prob.device.type == "cpu":
+        keep, sweeps = grid_nms_keep_plain(prob, valid, size, iou)
+        return keep, torch.tensor(sweeps, dtype=torch.int32)
+    if prob.device.type != "cuda":
+        raise ValueError(f"grid_nms_keep: unsupported device {prob.device}")
+    return _grid_nms_keep_cuda(prob, valid, size, iou)
 
 
 def grid_nms_keep(prob, valid, size, iou):
     """Greedy box-NMS keep mask and sweep count for (B, H, W) heatmaps.
 
     A CPU tensor runs :func:`grid_nms_keep_plain`; a CUDA tensor runs one
-    launch of the ``nms_sweep`` kernel per sweep (counted in
-    ``grid_nms_keep.launches``) and reads the device's changed flag
-    between sweeps.
+    launch of the ``nms_sweep`` kernel, all sweeps included (counted in
+    ``grid_nms_keep.launches``), and reads the sweep count back once.
     """
-    if prob.shape != valid.shape or prob.dim() != 3:
-        raise ValueError(f"prob/valid must be (B, H, W), got "
-                         f"{tuple(prob.shape)} / {tuple(valid.shape)}")
-    if prob.device.type == "cpu":
-        return grid_nms_keep_plain(prob, valid, size, iou)
-    if prob.device.type != "cuda":
-        raise ValueError(f"grid_nms_keep: unsupported device {prob.device}")
-    return _grid_nms_keep_cuda(prob, valid, size, iou)
+    keep, sweeps = _grid_nms_keep_async(prob, valid, size, iou)
+    return keep, int(sweeps)
 
 
 grid_nms_keep.launches = 0
@@ -141,7 +164,7 @@ def box_nms(prob, size, min_prob, iou=0.1, keep_top_k=0):
     keep_top_k > 0 only the k highest surviving scores of each map stay."""
     squeeze = prob.dim() == 2
     p = prob[None] if squeeze else prob
-    keep, _ = grid_nms_keep(p, p > min_prob, size, iou)
+    keep, _ = _grid_nms_keep_async(p, p > min_prob, size, iou)
     out = torch.where(keep, p, torch.zeros((), dtype=p.dtype,
                                            device=p.device))
     if keep_top_k and keep_top_k > 0:
@@ -176,7 +199,7 @@ def box_nms_extract(prob, size, min_prob, iou=0.1, k=1024):
     from ``jax.lax.top_k``'s.
     """
     B, H, W = prob.shape
-    keep, _ = grid_nms_keep(prob, prob > min_prob, size, iou)
+    keep, _ = _grid_nms_keep_async(prob, prob > min_prob, size, iou)
     kept = torch.where(keep, prob, torch.zeros((), dtype=prob.dtype,
                                                device=prob.device))
     kk = min(k, H * W)

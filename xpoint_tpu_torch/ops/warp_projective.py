@@ -36,6 +36,18 @@ def _check(images, homographies, n_axis_is_batch, mode, padding_mode):
         raise ValueError(f"unsupported device {images.device}")
 
 
+def _warp_library():
+    """The kernel's library with its entry point typed once."""
+    lib = build.load("warp_projective")
+    fn = lib.xp_warp_projective
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
+                       + [ctypes.c_int] * 5
+                       + [ctypes.c_longlong, ctypes.c_void_p])
+    return lib
+
+
 def warp_projective(images, Hinv, mode, padding_mode, multi):
     """One launch of the kernel on CUDA tensors (counted in
     ``warp_projective.launches``): images (B, H, W, C) shared by all of Hinv
@@ -44,11 +56,7 @@ def warp_projective(images, Hinv, mode, padding_mode, multi):
     if images.dtype != torch.float32:
         raise TypeError(f"warp_projective takes float32 images, got "
                         f"{images.dtype}")
-    lib = build.load("warp_projective")
-    fn = lib.xp_warp_projective
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
-                   + [ctypes.c_int] * 5 + [ctypes.c_longlong, ctypes.c_void_p])
+    lib = _warp_library()
     images = images.contiguous()
     Hinv = Hinv.contiguous()
     n = Hinv.shape[0]
@@ -56,10 +64,11 @@ def warp_projective(images, Hinv, mode, padding_mode, multi):
     B = images.shape[0] if multi else 1
     out = torch.empty((n, B, H, W, C) if multi else (n, H, W, C),
                       dtype=torch.float32, device=images.device)
-    err = fn(MODES.index(mode), PADDING_MODES.index(padding_mode),
-             images.data_ptr(), Hinv.data_ptr(), out.data_ptr(), n, B, H, W,
-             C, 0 if multi else H * W * C,
-             torch.cuda.current_stream(images.device).cuda_stream)
+    err = lib.xp_warp_projective(
+        MODES.index(mode), PADDING_MODES.index(padding_mode),
+        images.data_ptr(), Hinv.data_ptr(), out.data_ptr(), n, B, H, W, C,
+        0 if multi else H * W * C,
+        torch.cuda.current_stream(images.device).cuda_stream)
     build.check(lib, err, "warp_projective launch")
     warp_projective.launches += 1
     return out
