@@ -97,14 +97,47 @@ Phases (any failure exits non-zero and prints no result):
      v052d_noz (K5, K6), the gated v05 with d_state 4 (the general scan: K6
      forward and backward) and cascade2d v052dc_noz (K5 fed from the
      reference layout, K6 in its backward): loss and every gradient;
+which of yaml, h5py and cv2 import on the machine (printed); then the
+full cycle's CNN models (tools/full_cycle.py), in a scratch directory under
+build/ that is removed at the end:
+ 16. the synthetic pretrain through the port's Trainer: SYNTH_CFG (two CNN
+     encoders, no descriptor head, final BatchNorm, reflect pad,
+     takes_pair false, B=16, lr 1e-3, fp32) on 256 seeded 240 x 320
+     single-image samples in memory (SingleImageCorpus), two epochs of 16
+     steps with e1, e2 and latest checkpoints, then a second Trainer
+     resumed from e1 that must end bit for bit where the first ended
+     (cuDNN deterministic in this phase); each step call runs under
+     torch.cuda.set_sync_debug_mode("error"); finite losses, no skipped
+     step, ms per step (median after the first), samples/s, peak memory;
+     then the tiny fp32 two-encoder CNN with per-spectrum statistics, one
+     single-image and one pair step, on the card against the CPU (loss
+     rtol 1e-4, gradients 1e-3 of each leaf's max, as phase 8);
+ 17. the HA label export of that detector, loaded by
+     model_io.load_model from phase 16's directory: the full cycle's
+     EXPORT_CFG (window, num 50, min_count 2, erosion radius 5, NMS 4,
+     threshold 0.015) on four 512^2 synthetic pairs through
+     export_keypoints after a warm-up pair; maps finite in [0, 1],
+     keypoints in both spectra of every pair, per pair 21 K4 launches
+     (three a chunk of 8 warps) and 2 K2 launches; s per pair; K2 on the
+     export's maps against its plain version with its times;
+ 18. pair training and serving of the two-encoder CNN: PAIR_CFG
+     (multispectral, per-spectrum statistics, bf16, descriptor loss, B=8,
+     256^2 crops, device_data) through the Trainer on 64 SyntheticPairs
+     at 512^2 for one epoch of 8 steps, checked as phase 16's; then the
+     trained model through make_pair_pipeline at 512^2, B=8, k=1024, NMS
+     8, threshold 0.015: latency per call as phase 3, one K2 launch a
+     call, and K2 on its heatmaps against its plain version with times;
 then a details JSON line, the per-kernel JSON line, the card line and the
 final JSON line.
 """
 import copy
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -1312,6 +1345,496 @@ def phase_ha_reference(dev):
     return res
 
 
+# The full cycle's configurations (tools/full_cycle.py SYNTH_CFG,
+# EXPORT_CFG and PAIR_CFG at its defaults, with --multispectral), own
+# copies: the card's machine has no YAML reader. The datasets are seeded
+# in-memory corpora made here (no HDF5, no cv2 there).
+SYNTH_CFG = {
+    "dataset": {"type": "SyntheticShapes"},
+    "model": {"type": "XPoint", "multispectral": True,
+              "descriptor_head": False, "final_batchnorm": True,
+              "reflection_pad": True, "takes_pair": False,
+              "homography_regression_head": {"check": False}},
+    "loss": {"type": "XPointLoss", "detector_loss": True,
+             "detector_loss_function": "cross_entropy",
+             "detector_handle_multiple_keypoints": "soft_assignment",
+             "detector_dustbin_loss_weight": 0.025, "descriptor_loss": False},
+    "training": {"batchsize": 16, "learningrate": 1e-3, "n_epochs": 2,
+                 "save_every_n_epoch": 1, "use_writer": False},
+}
+EXPORT_HA_CFG = {
+    "num": 50, "aggregation": "window", "min_count": 2, "erosion_radius": 5,
+    "mask_border": True,
+    "homographies": {"translation": True, "rotation": True, "scaling": True,
+                     "perspective": True, "scaling_amplitude": 0.15,
+                     "perspective_amplitude_x": 0.15,
+                     "perspective_amplitude_y": 0.15, "patch_ratio": 0.9,
+                     "max_angle": 3.14159, "allow_artifacts": True}}
+EXPORT_PRED_CFG = {"detection_threshold": 0.015, "nms": 4}
+PAIR_CFG = {
+    "dataset": {
+        "type": "ImagePairDataset", "single_image": False,
+        "random_pairs": False, "height": 256, "width": 256,
+        "augmentation": {
+            "photometric": {"enable": False},
+            "homographic": {
+                "enable": True,
+                "params": {"translation": True, "rotation": True,
+                           "scaling": True, "perspective": True,
+                           "scaling_amplitude": 0.2,
+                           "perspective_amplitude_x": 0.2,
+                           "perspective_amplitude_y": 0.2,
+                           "patch_ratio": 0.85, "max_angle": 1.57,
+                           "allow_artifacts": True,
+                           "translation_overflow": 0.05},
+                "valid_border_margin": 0, "border_reflect": True}}},
+    "model": {"type": "XPoint", "multispectral": True,
+              "descriptor_head": True, "descriptor_size": 256,
+              "intepolation_mode": "bilinear",
+              "normalize_descriptors": True, "final_batchnorm": True,
+              "reflection_pad": True, "mixed_precision": True,
+              "takes_pair": True, "spectral_norm_stats": True,
+              "homography_regression_head": {"check": False}},
+    "loss": {"type": "XPointLoss", "detector_loss": True,
+             "detector_loss_function": "cross_entropy",
+             "detector_handle_multiple_keypoints": "soft_assignment",
+             "detector_dustbin_loss_weight": 0.025, "descriptor_loss": True,
+             "descriptor_loss_threshold": 4.0,
+             "descriptor_loss_use_mask": True,
+             "sparse_descriptor_loss": False, "positive_margin": 1.0,
+             "negative_margin": 0.2, "lambda_d": 250, "lambda": 1.0,
+             "hard_negative_weighting": {"check": False, "temperature": 0.1,
+                                         "weight": 0.0,
+                                         "keep_uniform": True}},
+    "training": {"batchsize": 8, "learningrate": 3e-4, "n_epochs": 1,
+                 "device_data": True,
+                 "scheduler": {"use_scheduler": False, "type": "StepLR",
+                               "gamma": 1.0, "step_size": 600},
+                 "save_every_n_epoch": 0, "use_writer": False},
+}
+SYNTH_N, SYNTH_HW = 256, (240, 320)  # 16 steps an epoch; SyntheticShapes'
+PAIR_N, PAIR_SIZE = 64, 512          # the mini corpus's image size
+
+
+class SingleImageCorpus:
+    """Single-image samples in SyntheticShapes' layout at its output size
+    (240 x 320), cut from SyntheticPairs' images at a seeded offset of 0-7
+    pixels: the optical image of even samples and the thermal one of odd
+    ones (is_optical alternating), an all-valid mask, and a keypoint map of
+    the images' corners: the intersections of the 8-pixel block grid where
+    one block differs by more than 0.35 from three that agree within 0.2
+    (an L-shaped corner, in both spectra)."""
+
+    def __init__(self, n, hw=SYNTH_HW, seed=0):
+        from xpoint_tpu_torch.data.synthetic_pairs import SyntheticPairs
+        h, w = hw
+        S = (max(hw) // 8 + 2) * 8
+        pairs = SyntheticPairs(n_pairs=n, size=S, n_kp=1, seed=seed)
+        blocks = pairs.optical.reshape(n, S // 8, 8, S // 8, 8).mean((2, 4))
+        offsets = np.random.default_rng(seed).integers(0, 8, (n, 2))
+        self.images, self.kps = [], []
+        for i in range(n):
+            b = blocks[i]
+            quad = np.stack([b[:-1, :-1], b[:-1, 1:], b[1:, :-1], b[1:, 1:]])
+            corner = np.zeros(quad.shape[1:], bool)
+            for k in range(4):
+                rest = np.delete(quad, k, axis=0)
+                corner |= ((rest.max(0) - rest.min(0) < 0.2)
+                           & (np.abs(quad[k] - rest.mean(0)) > 0.35))
+            oy, ox = offsets[i]
+            rc = (np.argwhere(corner) + 1) * 8 - [oy, ox]
+            rc = rc[(rc[:, 0] >= 0) & (rc[:, 0] < h) & (rc[:, 1] >= 0)
+                    & (rc[:, 1] < w)]
+            kp = np.zeros((h, w), np.float32)
+            kp[rc[:, 0], rc[:, 1]] = 1.0
+            img = (pairs.optical if i % 2 == 0 else pairs.thermal)[i]
+            self.images.append(img[oy:oy + h, ox:ox + w, None].copy())
+            self.kps.append(kp)
+
+    def __len__(self):
+        return len(self.images)
+
+    def __getitem__(self, i):
+        return {"image": self.images[i], "keypoints": self.kps[i],
+                "valid_mask": np.ones(self.kps[i].shape, bool),
+                "is_optical": np.array([i % 2 == 0])}
+
+    def returns_pair(self):
+        return False
+
+
+def _watch_steps(trainer, rows, tag):
+    """Wrap the trainer's step: each call runs under
+    torch.cuda.set_sync_debug_mode("error") (a synchronising call inside
+    the step raises), then the card is synchronised outside it and the
+    step's wall time, loss and skip flag are kept in ``rows``."""
+    inner = trainer.train_step
+    trainer.unwatched_step = inner
+
+    def step(*args):
+        t0 = time.perf_counter()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            comps = inner(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        rows.append({"ms": (time.perf_counter() - t0) * 1e3,
+                     "loss": float(comps["loss"]),
+                     "skipped_nonfinite": float(comps["skipped_nonfinite"])})
+        r = rows[-1]
+        print(f"{tag} step {len(rows)}: ms={r['ms']:.3f} loss={r['loss']} "
+              f"skipped_nonfinite={r['skipped_nonfinite']}", flush=True)
+        if not math.isfinite(r["loss"]) or r["skipped_nonfinite"]:
+            raise SystemExit(f"{tag} step {len(rows)}: non-finite loss or a "
+                             f"skipped step")
+        return comps
+    trainer.train_step = step
+
+
+def profile_once(fn, what, unprofiled_ms, **info):
+    """One more call of ``fn`` under torch.profiler (CPU + CUDA): device
+    time by kernel (eval/profile_pipeline.report) and the device's idle
+    share against ``unprofiled_ms`` (the profiler's CPU tracing inflates
+    the profiled call's wall time)."""
+    from torch.profiler import ProfilerActivity, profile
+    from xpoint_tpu_torch.eval.profile_pipeline import report
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    busy_ms = report(prof, wall_ms, what, **info)
+    res = {"profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
+           "unprofiled_ms": unprofiled_ms,
+           "idle_share": 1.0 - busy_ms / unprofiled_ms}
+    print(f"{what}: device busy {busy_ms:.3f} ms of an unprofiled "
+          f"{unprofiled_ms:.3f} ms: idle {100 * res['idle_share']:.1f}%",
+          flush=True)
+    return res
+
+
+def _step_summary(rows, batch):
+    ms = sorted(r["ms"] for r in rows[1:])
+    step_ms = ms[len(ms) // 2]
+    return {"steps": len(rows), "step_ms": step_ms,
+            "step_ms_all": [r["ms"] for r in rows],
+            "samples_per_s": batch / step_ms * 1e3,
+            "losses": [r["loss"] for r in rows]}
+
+
+def _trainer_state(trainer):
+    st = trainer.state
+    opt = st.opt_state
+    return [t.clone() for t in (*trainer.module.state_dict().values(),
+                                *opt["mu"], *opt["nu"], opt["count"],
+                                st.step)]
+
+
+def k2_on(probs, size, min_prob, tag):
+    """K2 on the heatmaps a path gave it: keep mask and sweep count against
+    the plain version (exact), then its device time behind queued work,
+    the plain version's time and the bound, as phase 4 measures them. These
+    launches are not the path's: its counts are read before."""
+    from xpoint_tpu_torch.ops.nms import (_grid_nms_keep_cuda, grid_nms_keep,
+                                          grid_nms_keep_plain,
+                                          overlap_widths)
+    valid = probs > min_prob
+    keep, sweeps = grid_nms_keep(probs, valid, size, 0.1)
+    ref, ref_sweeps = grid_nms_keep_plain(probs, valid, size, 0.1)
+    n_diff = int((keep != ref).sum())
+    if n_diff or sweeps != ref_sweeps:
+        raise SystemExit(f"K2 on the {tag} heatmaps disagrees with its plain "
+                         f"version: {n_diff} pixels, sweeps {sweeps} vs "
+                         f"{ref_sweeps}")
+    args = [(probs, valid, size, 0.1)] * 5
+    ms = cuda_ms_queued(_grid_nms_keep_cuda, args, queued_delay(probs.device))
+    plain_ms = cuda_ms(grid_nms_keep_plain, args[:3])
+    n_px = probs.numel()
+    widths = overlap_widths(size, 0.1)
+    compares = 2 * max(widths) + 2 * sum(w >= 0 for w in widths) - 1
+    b_ms, b_by = bound(n_px * (4 + 1 + 1), sweeps * n_px * compares)
+    res = {"planes": probs.shape[0], "size": size, "sweeps": sweeps,
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
+           "bound_by": b_by, "max_abs_err": 0.0}
+    print(f"K2 on the {tag} heatmaps ({tuple(probs.shape)}, size {size}): "
+          f"{res}", flush=True)
+    return res
+
+
+def phase_synth_pretrain(dev, workdir):
+    """16: the full cycle's synthetic pretrain through the port's Trainer
+    (see the module docstring)."""
+    from xpoint_tpu_torch.trainer import Trainer
+    corpus = SingleImageCorpus(SYNTH_N, SYNTH_HW)
+    deterministic = torch.backends.cudnn.deterministic
+    # cuDNN may pick algorithms that add with atomics; the resume check
+    # compares bits
+    torch.backends.cudnn.deterministic = True
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        straight = Trainer(SYNTH_CFG, f"{workdir}/synth", seed=0, device=dev,
+                           dataset=corpus)
+        init_s = time.time() - t0
+        rows = []
+        _watch_steps(straight, rows, "synthetic pretrain")
+        straight.train()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        files = sorted(os.listdir(f"{workdir}/synth"))
+        if files != ["e1.pt", "e2.pt", "latest.pt", "params.yaml"]:
+            raise SystemExit(f"synthetic pretrain wrote {files}")
+        steps_per_epoch = SYNTH_N // SYNTH_CFG["training"]["batchsize"]
+        if len(rows) != 2 * steps_per_epoch:
+            raise SystemExit(f"synthetic pretrain ran {len(rows)} steps")
+        os.makedirs(f"{workdir}/synth_resumed")
+        shutil.copy(f"{workdir}/synth/e1.pt", f"{workdir}/synth_resumed")
+        resumed = Trainer(SYNTH_CFG, f"{workdir}/synth_resumed", seed=0,
+                          device=dev, dataset=corpus)
+        resumed_rows = []
+        _watch_steps(resumed, resumed_rows, "synthetic pretrain (resumed)")
+        if resumed.resume("e1") != 1:
+            raise SystemExit("resume from e1 did not start at epoch 1")
+        resumed.train()
+        a, b = _trainer_state(straight), _trainer_state(resumed)
+        n_diff = sum(not torch.equal(x, y) for x, y in zip(a, b))
+        if len(a) != len(b) or n_diff:
+            raise SystemExit(f"the run resumed from e1 differs from the "
+                             f"straight run in {n_diff} of {len(a)} tensors")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    from xpoint_tpu_torch.trainer import batch_to_device_single
+    batch = batch_to_device_single(next(iter(resumed.loader)), dev)
+    summary = _step_summary(rows, SYNTH_CFG["training"]["batchsize"])
+    prof = profile_once(
+        lambda: resumed.unwatched_step(resumed.state, batch, resumed.gen),
+        "synthetic pretrain step (profiled)", summary["step_ms"],
+        size=list(SYNTH_HW), batch=SYNTH_CFG["training"]["batchsize"])
+    res = {**summary, "profile": prof,
+           "init_s": init_s, "peak_mem_gib": peak,
+           "samples": SYNTH_N, "size": list(SYNTH_HW),
+           "resumed_steps": len(resumed_rows),
+           "resume_bit_equal_tensors": len(a),
+           "n_params": sum(p.numel() for p in straight.state.params)}
+    print(f"synthetic pretrain {SYNTH_HW[0]}x{SYNTH_HW[1]} B=16 fp32 "
+          f"(multispectral CNN): step_ms={res['step_ms']} samples_per_s="
+          f"{res['samples_per_s']} peak_mem_gib={peak} resume from e1 "
+          f"bit-equal in all {len(a)} tensors", flush=True)
+    return res
+
+
+def phase_cnn_train_reference(dev):
+    """16 (tiny fp32 check): the two-encoder CNN with per-spectrum
+    statistics (channel version 2), one single-image step and one pair
+    step with per-sample routing, on the card and on the CPU from the same
+    weights and batch: loss within rtol 1e-4, every gradient (Adam's first
+    moment, 0.1 g) within 1e-3 of its leaf's max + 1e-6 of the largest."""
+    from xpoint_tpu_torch.losses import XPointLoss
+    from xpoint_tpu_torch.models import build_xpoint
+    from xpoint_tpu_torch.train import (TrainState, make_optimizer,
+                                        make_train_step)
+    g = torch.Generator().manual_seed(9)
+    nb, S = 4, 64
+    kp = (torch.rand(nb, S, S, generator=g) < 0.01).float()
+    is_o = torch.tensor([[True], [False], [True], [False]])
+    single = {"image": torch.rand(nb, S, S, 1, generator=g),
+              "keypoints": kp, "valid_mask": torch.ones(nb, S, S),
+              "is_optical": is_o}
+    pair = {side: {"image": torch.rand(nb, S, S, 1, generator=g),
+                   "keypoints": kp, "valid_mask": torch.ones(nb, S, S),
+                   "homography": torch.eye(3).expand(nb, 3, 3).clone(),
+                   "is_optical": flag}
+            for side, flag in (("optical", is_o), ("thermal", ~is_o))}
+    pair["thermal"]["homography"][:, 0, 2] = 3.0
+    res = {}
+    for kind, batch in (("single", single), ("pair", pair)):
+        cfg = dict(SYNTH_CFG["model"], channel_version=2,
+                   spectral_norm_stats=True, descriptor_size=16,
+                   descriptor_head=kind == "pair")
+        loss_cfg = dict(SYNTH_CFG["loss"], descriptor_loss=kind == "pair",
+                        descriptor_loss_threshold=4.0, **{"lambda": 1.0})
+        out = []
+        for d in ("cpu", dev):
+            m, _ = build_xpoint(cfg, device=d, seed=5)
+            st = TrainState(m, make_optimizer({"learningrate": 1e-3})[0])
+            b = ({k: {kk: vv.to(d) for kk, vv in v.items()}
+                  for k, v in batch.items()} if kind == "pair"
+                 else {k: v.to(d) for k, v in batch.items()})
+            comps = make_train_step(m, XPointLoss(loss_cfg),
+                                    takes_pair=kind == "pair")(
+                st, b, torch.Generator(device=d).manual_seed(0))
+            out.append((float(comps["loss"]),
+                        {n: t.cpu() for n, t in zip(st.names,
+                                                    st.opt_state["mu"])}))
+        (l_cpu, g_cpu), (l_gpu, g_gpu) = out
+        top = max(float(t.abs().max()) for t in g_cpu.values())
+        worst = max(float((g_gpu[n] - g_cpu[n]).abs().max())
+                    / (float(g_cpu[n].abs().max()) + 1e-3 * top)
+                    for n in g_cpu)
+        loss_rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+        print(f"CNN train reference ({kind} step, tiny fp32, card vs CPU): "
+              f"loss {l_gpu} vs {l_cpu} (rel {loss_rel:.3g}); worst "
+              f"gradient error {worst:.3g} of (leaf max + 1e-3 x largest)",
+              flush=True)
+        if loss_rel > 1e-4 or worst > 1e-3:
+            raise SystemExit(f"the card's CNN {kind} step disagrees with "
+                             f"the CPU's")
+        res[kind] = {"loss_gpu": l_gpu, "loss_cpu": l_cpu,
+                     "loss_rel_err": loss_rel, "grad_err": worst}
+    return res
+
+
+def phase_cnn_export(dev, model_dir):
+    """17: HA label export of the phase-16 detector (see the module
+    docstring)."""
+    from xpoint_tpu_torch.data.synthetic_pairs import SyntheticPairs
+    from xpoint_tpu_torch.model_io import load_model
+    from xpoint_tpu_torch.selfsup.export import (NumpySink, export_keypoints,
+                                                 make_prob_fn)
+    from xpoint_tpu_torch.selfsup.homographic_adaptation import (
+        make_ha_fn, sample_ha_homographies)
+    module, cfg = load_model(model_dir, "latest", device=dev)
+    if not (cfg["multispectral"] and hasattr(module, "encoder_thermal")):
+        raise SystemExit("load_model did not rebuild the two-encoder model")
+    dataset = SyntheticPairs(n_pairs=4, size=HA_S, n_kp=1, seed=7)
+    chunks = -(-(EXPORT_HA_CFG["num"] - 1) // HA_WB)
+    # per pair: the image warp, the mask unwarp and the two-map probability
+    # unwarp each chunk; one NMS launch for each spectrum
+    expect = {"warp_projective": 3 * chunks, "nms_sweep": 2}
+    run_ha, ha_cfg = make_ha_fn(make_prob_fn(module), EXPORT_HA_CFG)
+    s0 = dataset[0]
+    img_o, img_t = (torch.from_numpy(s0[k]["image"][None]).to(dev)
+                    for k in ("optical", "thermal"))
+    hs = torch.from_numpy(sample_ha_homographies(
+        ha_cfg, (HA_S, HA_S), np.random.default_rng(0))).to(dev)
+    maps = run_ha(img_o, img_t, hs)
+    for key in ("prob_optical", "prob_thermal"):
+        p = maps[key]
+        if (not bool(torch.isfinite(p).all()) or float(p.min()) < 0
+                or float(p.max()) > 1 or float(p.max()) == 0):
+            raise SystemExit(f"HA export: {key} not finite in [0, 1]")
+    kw = dict(ha_config=EXPORT_HA_CFG, prediction_config=EXPORT_PRED_CFG,
+              seed=0)
+    sink = NumpySink()
+    export_keypoints(module, dataset, sink, max_samples=1, **kw)  # warm-up
+    torch.cuda.synchronize()
+    read = _zero_counts()
+    t0 = time.perf_counter()
+    n_done = export_keypoints(module, dataset, sink, **kw)
+    torch.cuda.synchronize()
+    sec = (time.perf_counter() - t0) / max(n_done, 1)
+    counts = read()
+    n_kps = {n: {k: len(v) for k, v in g.items()}
+             for n, g in sink.groups.items()}
+    print(f"CNN HA export ({HA_S}^2, num {EXPORT_HA_CFG['num']}, window, "
+          f"NMS {EXPORT_PRED_CFG['nms']}): {n_done} pairs, {sec} s/pair, "
+          f"launches {counts}, keypoints {n_kps}", flush=True)
+    if (n_done != len(dataset) - 1 or len(n_kps) != len(dataset)
+            or any(v == 0 for g in n_kps.values() for v in g.values())
+            or any(counts[k] != v * n_done for k, v in expect.items())):
+        raise SystemExit(f"CNN HA export failed its checks (expected "
+                         f"launches per pair {expect})")
+    k2 = k2_on(torch.cat([maps["prob_optical"], maps["prob_thermal"]]),
+               EXPORT_PRED_CFG["nms"], EXPORT_PRED_CFG["detection_threshold"],
+               "CNN export")
+    return {"num": EXPORT_HA_CFG["num"], "chunks": chunks, "pairs": n_done,
+            "seconds_per_pair": sec, "launches": counts,
+            "launches_per_pair": expect, "keypoints": n_kps,
+            "prob_max": {k: float(maps[k].max())
+                         for k in ("prob_optical", "prob_thermal")},
+            "k2": k2}
+
+
+def phase_cnn_pair(dev, workdir):
+    """18: pair training and serving of the two-encoder CNN (see the
+    module docstring)."""
+    from xpoint_tpu_torch.data.synthetic_pairs import SyntheticPairs
+    from xpoint_tpu_torch.eval import make_pair_pipeline
+    from xpoint_tpu_torch.trainer import Trainer
+    dataset = SyntheticPairs(n_pairs=PAIR_N, size=PAIR_SIZE, n_kp=256,
+                             seed=2, config=PAIR_CFG["dataset"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    trainer = Trainer(PAIR_CFG, f"{workdir}/pair", seed=0, device=dev,
+                      dataset=dataset)
+    init_s = time.time() - t0
+    rows = []
+    _watch_steps(trainer, rows, "CNN pair train")
+    trainer.train()
+    bs = PAIR_CFG["training"]["batchsize"]
+    if len(rows) != PAIR_N // bs:
+        raise SystemExit(f"CNN pair training ran {len(rows)} steps")
+    train_res = {**_step_summary(rows, bs), "init_s": init_s,
+                 "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                 "n_params": sum(p.numel() for p in trainer.state.params)}
+    train_res["profile"] = profile_once(
+        lambda: trainer.unwatched_step(trainer.state,
+                                       next(trainer._epoch_batches()),
+                                       trainer.gen),
+        "CNN pair train step (profiled)", train_res["step_ms"], batch=bs,
+        size=PAIR_CFG["dataset"]["height"])
+    print(f"CNN pair train 256^2 B={bs} bf16 device data: "
+          f"step_ms={train_res['step_ms']} samples_per_s="
+          f"{train_res['samples_per_s']} peak_mem_gib="
+          f"{train_res['peak_mem_gib']}", flush=True)
+
+    run = make_pair_pipeline(trainer.module.eval(), (H, W), k=1024,
+                             nms_size=8, detection_threshold=0.015)
+    g = torch.Generator(device=dev).manual_seed(8)
+    images = [(torch.rand(B, H, W, 1, generator=g, device=dev),
+               torch.rand(B, H, W, 1, generator=g, device=dev))
+              for _ in range(N_CALLS + 1)]
+    run(*images[0])                                          # warm-up
+    torch.cuda.synchronize()
+    read = _zero_counts()
+    lat = []
+    for img_o, img_t in images[1:]:
+        t0 = time.perf_counter()
+        out = run(img_o, img_t)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+        for key, v in out.items():
+            if v.is_floating_point() and not bool(torch.isfinite(v).all()):
+                raise SystemExit(f"CNN pair serving: non-finite {key}")
+    counts = read()
+    if (counts["nms_sweep"] != N_CALLS
+            or tuple(out["desc_optical"].shape)
+            != (B, 1024, PAIR_CFG["model"]["descriptor_size"])):
+        raise SystemExit(f"CNN pair serving: launches {counts}, expected one "
+                         f"nms_sweep per call")
+    lat_ms = sorted(lat)[len(lat) // 2]
+    serve_res = {"latency_ms": lat_ms, "latency_all_ms": lat,
+                 "pairs_per_s": B / lat_ms * 1e3, "launches": counts,
+                 "matches": int(out["matched"].sum()),
+                 "keypoints_optical": int(out["mask_optical"].sum())}
+    print(f"CNN pair serving 512^2 B={B}: latency_ms={lat_ms} pairs_per_s="
+          f"{serve_res['pairs_per_s']} launches={counts}", flush=True)
+    serve_res["profile"] = profile_once(
+        lambda: run(*images[1]), "CNN pair serving call (profiled)", lat_ms,
+        batch=B, size=H)
+    serve_res["k2"] = k2_on(torch.cat([out["prob_optical"],
+                                       out["prob_thermal"]]), 8, 0.015,
+                            "CNN serving")
+    return {"train": train_res, "serve": serve_res}
+
+
+def host_modules():
+    """Which of the host data path's modules import on this machine."""
+    import importlib
+    found = {}
+    for name in ("yaml", "h5py", "cv2"):
+        try:
+            importlib.import_module(name)
+            found[name] = True
+        except ImportError:
+            found[name] = False
+    return found
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1370,6 +1893,18 @@ def main():
         ("v052d_noz", 1, ("selective_scan_fused", "linear_scan")),
         ("v05", 4, ("linear_scan",)),
         ("v052dc_noz", 1, ("selective_scan_fused", "linear_scan")))]
+
+    host = host_modules()
+    print(f"host data path modules that import here: {host}", flush=True)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_", dir=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "build"))
+    try:
+        synth_res = phase_synth_pretrain(dev, workdir)
+        cnn_ref = phase_cnn_train_reference(dev)
+        cnn_export = phase_cnn_export(dev, f"{workdir}/synth")
+        cnn_pair = phase_cnn_pair(dev, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
 
     # each HA step makes the image warp, the mask unwarp and one probability
     # unwarp: of one map per pair in prod aggregation (the three samples),
@@ -1451,6 +1986,27 @@ def main():
          "plain_ms": tfused_tot["plain_ms"],
          "bound_ms": tfused_tot["bound_ms"], "bound_by": "bytes",
          "library_ms": None},
+        *[{"name": "nms_sweep", "path": path, "route": "cuda",
+           "source": "xpoint_tpu_torch/csrc/nms_sweep.cu",
+           "replaces": "xpoint_tpu/ops/nms.py:36", "launches": n,
+           "max_abs_err": 0.0, "ms": k2["ms"], "plain_ms": k2["plain_ms"],
+           "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
+           "library_ms": None}
+          for path, n, k2 in (
+              ("cnn export", cnn_export["launches"]["nms_sweep"],
+               cnn_export["k2"]),
+              ("cnn serve", cnn_pair["serve"]["launches"]["nms_sweep"],
+               cnn_pair["serve"]["k2"]))],
+        *[{"name": "warp_projective", "path": f"cnn export ({r['call']})",
+           "route": "cuda",
+           "source": "xpoint_tpu_torch/csrc/warp_projective.cu",
+           "replaces": "xpoint_tpu/ops/warp_tiled.py:129",
+           "launches": cnn_export["launches"]["warp_projective"] // 3,
+           "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+           "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+           "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+          for r in warp_rows if r["call"] in (
+              "image warp", "mask unwarp", "prob unwarp, 2 maps")],
         {"name": "linear_scan", "path": "train (v052d_noz)",
          "route": "cuda",
          "source": "xpoint_tpu_torch/csrc/linear_scan.cu",
@@ -1472,7 +2028,9 @@ def main():
          "k5_stages": fused_rows, "v052d_path": bidi_res,
          "ha_reference": haref_res, "k6_cases": k6_rows,
          "k5_train_stages": tfused_rows, "v052d_train_path": bidi_train_res,
-         "forward_type_train_references": trefs}), flush=True)
+         "forward_type_train_references": trefs, "host_modules": host,
+         "cnn_synth_pretrain": synth_res, "cnn_train_reference": cnn_ref,
+         "cnn_export": cnn_export, "cnn_pair": cnn_pair}), flush=True)
     print("serve: K1 ms/plain_ms/bound_ms are per pipeline call (sum over "
           "stage shapes x launches), K2's per call (one launch runs every "
           "sweep; bound_sweep_bytes_ms: 6 B a pixel a sweep at the memory "
@@ -1487,7 +2045,10 @@ def main():
           "reversed launches); launches count the whole run of each path; "
           "K1, K2, K3, K4, K5 and K6 ms are device times (events behind "
           "queued work), ms_with_host_launch the same calls with the host's "
-          "launch path",
+          "launch path; cnn export / cnn serve: K2 timed on the heatmaps of "
+          "that path (the export's maps at NMS 4, the CNN pipeline's at 8), "
+          "K4 rows the HA-step calls of phase 9 (the export's shapes), "
+          "launches those of phases 17 and 18",
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

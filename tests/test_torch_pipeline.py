@@ -94,11 +94,12 @@ def _port_files():
 @pytest.mark.parametrize("path", _port_files(),
                          ids=lambda p: os.path.relpath(p, ROOT))
 def test_port_imports_no_jax(path):
-    """No module of xpoint_tpu_torch, nor chip_smoke.py, imports jax, flax
-    or anything of the JAX package."""
+    """No module of xpoint_tpu_torch, nor chip_smoke.py, imports jax, flax,
+    optax, orbax or anything of the JAX package."""
     for name in _imports(path):
         root = name.split(".")[0]
-        assert root not in ("jax", "jaxlib", "flax", "optax", "xpoint_tpu"), \
+        assert root not in ("jax", "jaxlib", "flax", "optax", "orbax",
+                            "xpoint_tpu"), \
             f"{os.path.relpath(path, ROOT)} imports {name}"
 
 

@@ -1,8 +1,11 @@
 """XPoint on PyTorch and CUDA (NVIDIA H100): the port of ``xpoint_tpu``.
 
-This package holds the serving path (detect + describe + match) and the
-training step of the flagship VMamba XPoint, with hand-written Hopper
-kernels for the TPU kernels on those paths:
+This package holds the serving path (detect + describe + match), the
+training step, homographic adaptation and the label export of the flagship
+VMamba XPoint and of the full cycle's CNN models (two spectrum encoders,
+per-spectrum BatchNorm), the Trainer with its checkpoints, ``model_io``
+and config files, with hand-written Hopper kernels for the TPU kernels on
+those paths:
 
   * ``ops.selective_scan_cuda`` / ``csrc/selective_scan_bidir.cu`` replaces
     ``xpoint_tpu/ops/selective_scan_pallas.py::_fused_bidir_kernel``
@@ -10,7 +13,12 @@ kernels for the TPU kernels on those paths:
   * ``ops.selective_scan_cuda`` / ``csrc/selective_scan_bidir_bwd.cu``
     replaces ``_fused_bidir_bwd_kernel``, the scan's backward;
   * ``ops.nms`` / ``csrc/nms_sweep.cu`` replaces
-    ``xpoint_tpu/ops/nms.py::_nms_sweep_kernel``.
+    ``xpoint_tpu/ops/nms.py::_nms_sweep_kernel``;
+  * ``ops.warp_projective`` / ``csrc/warp_projective.cu`` replaces
+    ``xpoint_tpu/ops/warp_tiled.py::_warp_pallas_kernel``;
+  * ``ops.selective_scan_cuda`` / ``csrc/selective_scan_fused.cu`` and
+    ``ops.linear_scan`` / ``csrc/linear_scan.cu`` replace
+    ``_fused_scan_kernel`` and ``_scan_kernel``.
 
 Ground rules:
 
@@ -19,8 +27,8 @@ Ground rules:
     (``tests/test_torch_*.py``).
   * This package imports ``torch`` and never ``jax``, ``flax`` or anything
     under ``xpoint_tpu``, not even its jax-free helpers: it keeps its own
-    copies (``utils.dict_update``, the flagship model and training configs
-    in ``models.xpoint``).
+    copies (``utils.dicttools``, ``data.loader``, the flagship model and
+    training configs in ``models.xpoint``).
   * Entry points take an explicit ``device``, default ``"cuda"``; the tests
     pass ``device="cpu"``. Randomness comes from an explicit
     ``torch.Generator`` passed in. A kernel wrapper runs its plain PyTorch

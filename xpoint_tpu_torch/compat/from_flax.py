@@ -9,6 +9,8 @@ The port's submodules carry the flax module names, so a flax path
   dense ``kernel`` (I, O)         -> ``weight`` (O, I)
   LayerNorm / BatchNorm ``scale`` -> ``weight``
   BatchNorm stats ``mean`` / ``var`` -> ``running_mean`` / ``running_var``
+  SpectralBatchNorm stats ``mean_optical`` / ``var_optical`` /
+    ``mean_thermal`` / ``var_thermal`` keep their names
   everything else (``bias``, ``x_proj_weight``, ``dt_projs_weight``,
   ``dt_projs_bias``, ``A_logs``, ``Ds``) keeps its name and layout.
 
@@ -18,8 +20,10 @@ width (D, 2 D) -> (2 D, D), the conv bias is a ``bias`` leaf beside
 ``x_proj_weight`` (K, R + 2 N, D) on both sides; the shape check below
 holds the module to the leaves it was built for.
 
-The homography head (``hm_regressor/*``: RegNet's convs, BatchNorms and
-dense layers) maps like the rest. Any flax leaf without a torch
+The two encoders of a multispectral model (``encoder_optical/*``,
+``encoder_thermal/*``) map like the one shared ``encoder/*``. The
+homography head (``hm_regressor/*``: RegNet's convs, BatchNorms and dense
+layers) maps like the rest. Any flax leaf without a torch
 counterpart, and any torch entry left unset, raises. :func:`to_flax` and
 :func:`state_dict_to_flax` go the other way, so that tests can compare the
 port's parameters, gradients and optimiser moments with JAX's leaf by leaf.
@@ -27,7 +31,9 @@ port's parameters, gradients and optimiser moments with JAX's leaf by leaf.
 import numpy as np
 import torch
 
-_STAT_NAMES = {"mean": "running_mean", "var": "running_var"}
+_STAT_NAMES = {"mean": "running_mean", "var": "running_var",
+               **{f"{m}_{s}": f"{m}_{s}" for m in ("mean", "var")
+                  for s in ("optical", "thermal")}}
 _STAT_FLAX = {v: k for k, v in _STAT_NAMES.items()}
 
 

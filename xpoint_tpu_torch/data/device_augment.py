@@ -14,6 +14,7 @@ import math
 import torch
 
 from ..geometry.homography import compute_valid_mask_device
+from ..ops.gridops import device_constant
 from ..ops.warp import warp_image_batch
 
 HM_PATCH = 128      # the host's RegNet input patch side
@@ -30,7 +31,7 @@ def _solve_h4(pts_src, pts_dst):
     rows_v = torch.stack([z, z, z, x, y, o, -v * x, -v * y], dim=-1)
     A = torch.cat([rows_u, rows_v], dim=1)                   # (n, 8, 8)
     b = torch.cat([u, v], dim=1)                             # (n, 8)
-    h = torch.linalg.solve(A, b)
+    h = torch.linalg.solve_ex(A, b)[0]    # no error check: no host read
     return torch.cat([h, torch.ones_like(h[:, :1])], dim=1).reshape(-1, 3, 3)
 
 
@@ -75,8 +76,9 @@ def sample_homography_device(gen, n, image_shape, perspective=True,
         t_min = -points.amin(1)
         t_max = 1.0 - points.amax(1)
         ty = torch.minimum(t_min[:, 1].abs(), t_max[:, 1].abs())
-        amp = torch.tensor([perspective_amplitude_x, perspective_amplitude_y],
-                           device=dev).expand(points.shape[0], 2)
+        amp = device_constant([perspective_amplitude_x,
+                               perspective_amplitude_y],
+                              dev).expand(points.shape[0], 2)
         amp_min, amp_max = -amp, amp
         if not allow_artifacts:
             t_min = torch.stack([t_min[:, 0], -ty], 1)
@@ -132,8 +134,8 @@ def sample_homography_device(gen, n, image_shape, perspective=True,
     fns = [f for f, on in ((t_perspective, perspective), (t_scale, scaling),
                            (t_translation, translation),
                            (t_rotation, rotation)) if on]
-    pts1 = torch.tensor([[0.0, 0.0], [0.0, 1.0], [1.0, 1.0], [1.0, 0.0]],
-                        device=dev)
+    pts1 = device_constant([[0.0, 0.0], [0.0, 1.0], [1.0, 1.0], [1.0, 0.0]],
+                           dev)
     margin = (1.0 - patch_ratio) * 0.5
     pts2 = (margin + patch_ratio * pts1).expand(n, 4, 2)
     if fns:
@@ -142,8 +144,7 @@ def sample_homography_device(gen, n, image_shape, perspective=True,
             options = torch.stack([f(pts2) for f in fns], 1)
             pts2 = _pick(options, perm[:, slot])
     # unit square -> pixels; (H, W) -> (x, y) = (W, H)
-    shape = torch.tensor([image_shape[1], image_shape[0]],
-                         dtype=torch.float32, device=dev)
+    shape = device_constant([image_shape[1], image_shape[0]], dev)
     return _solve_h4((pts1 * shape).expand(n, 4, 2), pts2 * shape)
 
 
@@ -187,9 +188,8 @@ def prep_hm_input_device(optical, thermal, h_optical, h_thermal, top_left,
     (hm_input (B, ph, pw, 2), hfour (B, 4, 2))."""
     ph, pw = patch_size
     a, b = top_left
-    corners = torch.tensor([[a, b], [a + pw, b], [a + pw, b + ph],
-                            [a, b + ph]], dtype=torch.float32,
-                           device=optical.device)           # tl, tr, br, bl
+    corners = device_constant([[a, b], [a + pw, b], [a + pw, b + ph],
+                               [a, b + ph]], optical.device)  # tl tr br bl
     M = h_optical.float() @ h_thermal.float()
     ch = torch.cat([corners, torch.ones_like(corners[:, :1])], 1)  # (4, 3)
     p = (M[:, None] * ch[None, :, None, :]).sum(-1)[..., :2]

@@ -6,12 +6,15 @@ class SyntheticPairs:
     """A seeded synthetic corpus with the ImagePairDataset surface: the
     loading pair the resident-corpus loader reads (``_load_images`` /
     ``_load_keypoints``) and the sample access the label export reads
-    (``__getitem__`` / ``get_name``). Smooth random optical images, the
-    thermal side a seeded contrast-inverting transform of them, and seeded
-    keypoint coordinates (row, col): ``n_pairs`` pairs at ``size``^2 with
-    ``n_kp`` keypoints each."""
+    (``__getitem__`` / ``get_name``), and for the Trainer
+    ``returns_pair`` and ``config`` (the ``dataset:`` section that
+    ``make_resident_batch_fn`` reads, None unless given). Smooth random
+    optical images, the thermal side a seeded contrast-inverting transform
+    of them, and seeded keypoint coordinates (row, col): ``n_pairs`` pairs
+    at ``size``^2 with ``n_kp`` keypoints each."""
 
-    def __init__(self, n_pairs=32, size=320, n_kp=256, seed=0):
+    def __init__(self, n_pairs=32, size=320, n_kp=256, seed=0, config=None):
+        self.config = config
         rng = np.random.default_rng(seed)
         base = rng.uniform(size=(n_pairs, size // 8, size // 8)).astype(
             np.float32)
@@ -25,6 +28,9 @@ class SyntheticPairs:
 
     def __len__(self):
         return len(self.optical)
+
+    def returns_pair(self):
+        return True
 
     def _load_images(self, i):
         return self.optical[i], self.thermal[i]

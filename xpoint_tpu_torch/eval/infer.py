@@ -43,10 +43,12 @@ class XPointInference:
 
     @torch.no_grad()
     def forward_single(self, img, is_optical):
-        """image (B, H, W, 1) numpy -> numpy [prob, desc]. The model shares
-        one encoder between the spectra, so ``is_optical`` selects
-        nothing here."""
-        pred = self.module(self._to_device(img))
+        """image (B, H, W, 1) numpy, is_optical (B,) bool -> numpy [prob,
+        desc]: the model run 'mixed', each sample through its spectrum's
+        route."""
+        is_optical = torch.as_tensor(np.asarray(is_optical, bool).reshape(-1))
+        pred = self.module(self._to_device(img), "mixed",
+                           is_optical.to(self.device))
         return [prob_from_logits(pred['logits'], self.ratio).cpu().numpy(),
                 pred['desc'].float().cpu().numpy()]
 

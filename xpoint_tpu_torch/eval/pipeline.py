@@ -1,11 +1,12 @@
 """Detect + describe + match for an image pair (port of
 ``xpoint_tpu/eval/pipeline.py::make_pair_pipeline``, without RANSAC).
 
-forward(optical) + forward(thermal) -> cell softmax + depth-to-space ->
-box-NMS (both spectra in one call) -> top-k keypoints -> bilinear
-descriptor sampling -> mutual-NN matching. The JAX per-sample vmap is a
-batch dimension here. Homography estimation (``estimate_homography``) is
-not ported yet (ROADMAP.md Queue 1 item 9).
+forward(optical) + forward(thermal) (each through its own spectrum's
+route: encoder and statistics of a multispectral model) -> cell softmax +
+depth-to-space -> box-NMS (both spectra in one call) -> top-k keypoints ->
+bilinear descriptor sampling -> mutual-NN matching. The JAX per-sample
+vmap is a batch dimension here. Homography estimation
+(``estimate_homography``) is not ported yet (ROADMAP.md Queue 1 item 9).
 """
 import torch
 
@@ -29,8 +30,8 @@ def make_pair_pipeline(module, image_shape, k=1024, nms_size=8,
     @torch.no_grad()
     def run(img_o, img_t):
         B = img_o.shape[0]
-        pred_o = module(img_o)
-        pred_t = module(img_t)
+        pred_o = module(img_o, "optical")
+        pred_t = module(img_t, "thermal")
         prob_o = prob_from_logits(pred_o["logits"], ratio)
         prob_t = prob_from_logits(pred_t["logits"], ratio)
         kps, sc, m = box_nms_extract(torch.cat([prob_o, prob_t]), nms_size,

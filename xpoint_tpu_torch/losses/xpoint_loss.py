@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from ..geometry.homography import warp_points
-from ..ops.gridops import space_to_depth
+from ..ops.gridops import device_constant, space_to_depth
 from ..utils import dict_update
 
 DEFAULT_CONFIG = {
@@ -101,9 +101,8 @@ def detector_loss(logits, keypoint_map, valid_mask, config, gen=None):
         raise ValueError(f"unknown keypoint handling: {method}")
 
     fn = config['detector_loss_function']
-    weights = torch.tensor([1.0] * (n_classes - 1)
-                           + [config['detector_dustbin_loss_weight']],
-                           dtype=torch.float32, device=dev)
+    weights = device_constant([1.0] * (n_classes - 1)
+                              + [config['detector_dustbin_loss_weight']], dev)
     fl = config['detector_focal_loss']
     if fn == 'cross_entropy':
         loss_values = _weighted_ce(logits, target, weights)
@@ -183,7 +182,7 @@ def descriptor_loss(desc1, desc2, homography1, homography2,
 
     def warped(h):
         return cells if h is None else warp_points(cells,
-                                                   torch.linalg.inv(h))
+                                                   torch.linalg.inv_ex(h)[0])
 
     w1f, w2f = warped(homography1), warped(homography2)
     d1f = desc1.reshape(B, N, D)

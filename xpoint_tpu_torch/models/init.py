@@ -14,14 +14,15 @@ defaults used by ``xpoint_tpu/models/heads.py``):
   * ``dt_projs_bias``: softplus-inverse of log-uniform dt in [1e-3, 0.1];
   * ``A_logs`` (K D, N): log(1..N) in every row; ``Ds``: 1; SS2D's conv
     bias, where configured: 0;
-  * LayerNorm / BatchNorm: scale 1, bias 0, running stats 0 / 1.
+  * LayerNorm / BatchNorm: scale 1, bias 0, running stats 0 / 1 (both
+    spectra's slots of a SpectralBatchNorm).
 """
 import math
 
 import torch
 from torch import nn
 
-from .heads import BatchNorm, Conv
+from .heads import SPECTRA, BatchNorm, Conv, SpectralBatchNorm
 from .regnet import Conv3x3, Dense
 from .vssm import SS2D, StridedConv3x3
 
@@ -87,3 +88,9 @@ def init_xpoint_(module, gen):
             m.bias.zero_()
             m.running_mean.zero_()
             m.running_var.fill_(1.0)
+        elif isinstance(m, SpectralBatchNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+            for s in SPECTRA:
+                getattr(m, f"mean_{s}").zero_()
+                getattr(m, f"var_{s}").fill_(1.0)

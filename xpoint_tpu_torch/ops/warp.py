@@ -45,8 +45,10 @@ def _reflect_101(coord, size):
 
 
 def inverse_homographies(homographies):
-    """(n, 3, 3) -> the fp32 inverses the warps sample through."""
-    return torch.linalg.inv(homographies.float())
+    """(n, 3, 3) -> the fp32 inverses the warps sample through (no error
+    check for a singular matrix, so no host read; JAX's gives inf/nan
+    there too)."""
+    return torch.linalg.inv_ex(homographies.float())[0]
 
 
 def _source_coords_from_inverse(Hinv, H_out, W_out):

@@ -97,9 +97,10 @@ class H5Sink:
 
 def make_prob_fn(module):
     """The detector as HA takes it: (image (B,H,W,1), is_optical) -> prob
-    (B,H,W). The model shares one encoder between the spectra."""
+    (B,H,W), the image run through the optical route when ``is_optical``
+    and the thermal one otherwise (``cli/export_keypoints.py:53-56``)."""
     def prob_fn(img, is_optical):
-        out = module(img)
+        out = module(img, "optical" if is_optical else "thermal")
         return prob_from_logits(out['logits'],
                                 module.encoder_downsample_ratio)
     return prob_fn
