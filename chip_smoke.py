@@ -24,7 +24,11 @@ Phases (any failure exits non-zero and prints no result):
      torch.cuda.set_sync_debug_mode("error") (no synchronising call);
      device time behind queued work (ms), the time with the host's launch
      path, both bounds (the function's and the bytes of every sweep through
-     device memory) and the plain version's time;
+     device memory) and the plain version's time; then boxes of 24 and 32
+     (the kernel's direct instance, which reads each neighbourhood from
+     device memory) on the 16 heatmaps and on one of them: exactly the
+     plain version's mask and sweeps in one launch a call, device time,
+     bound and plain time;
   5. a small-input reference check: the tiny fp32 model on the card against
      the same model on the CPU (plain versions);
   6. K1 with checkpoints and K3 (the scan's backward) at the flagship
@@ -98,22 +102,34 @@ Phases (any failure exits non-zero and prints no result):
      forward and backward) and cascade2d v052dc_noz (K5 fed from the
      reference layout, K6 in its backward): loss and every gradient;
 which of yaml, h5py and cv2 import on the machine (printed); then the
-full cycle's CNN models (tools/full_cycle.py), in a scratch directory under
-build/ that is removed at the end:
+full cycle's CNN models (tools/full_cycle.py) and the flagship on the host
+data path, in a scratch directory under build/ that is removed at the end:
  16. the synthetic pretrain through the port's Trainer: SYNTH_CFG (two CNN
      encoders, no descriptor head, final BatchNorm, reflect pad,
-     takes_pair false, B=16, lr 1e-3, fp32) on 256 seeded 240 x 320
-     single-image samples in memory (SingleImageCorpus), two epochs of 16
-     steps with e1, e2 and latest checkpoints, then a second Trainer
-     resumed from e1 that must end bit for bit where the first ended
+     takes_pair false, B=16, lr 1e-3, fp32) on SyntheticShapes generated on
+     the fly by the host loader (8 workers) with the dataset section of
+     configs/config_synthetic_shapes.yaml (960 x 1280 drawn, blurred,
+     resized to 240 x 320, photometric and homographic augmentation), 256
+     samples an epoch (drawn anew every epoch), the Trainer building it
+     from the config: two epochs of 16 steps with e1, e2 and latest
+     checkpoints, then a second Trainer resumed from e1 that must end bit
+     for bit where the first ended
      (cuDNN deterministic in this phase); each step call runs under
      torch.cuda.set_sync_debug_mode("error"); finite losses, no skipped
-     step, ms per step (median after the first), samples/s, peak memory;
-     then the tiny fp32 two-encoder CNN with per-spectrum statistics, one
-     single-image and one pair step, on the card against the CPU (loss
+     step, ms per step (median after the first), the loop's ms per step,
+     the loader wait a step, the batch's copy to the device, the host's ms
+     a sample in a worker, samples/s,
+     peak memory, the idle share against one profiled step and against the
+     loop; then the tiny fp32 two-encoder CNN with per-spectrum statistics,
+     one single-image and one pair step, on the card against the CPU (loss
      rtol 1e-4, gradients 1e-3 of each leaf's max, as phase 8);
- 17. the HA label export of that detector, loaded by
-     model_io.load_model from phase 16's directory: the full cycle's
+ 17. the HA label export of that detector, fine-tuned first: a Trainer
+     initialised from phase 16's latest checkpoint by load_weights (every
+     tensor taken) trains it two epochs of 16 steps on the block corners of
+     SyntheticPairs images (SingleImageCorpus), since 32 steps of
+     SyntheticShapes leave it predicting no keypoint (its loss flat) and
+     the export pairs are SyntheticPairs; then loaded by
+     model_io.load_model from the fine-tuning's directory: the full cycle's
      EXPORT_CFG (window, num 50, min_count 2, erosion radius 5, NMS 4,
      threshold 0.015) on four 512^2 synthetic pairs through
      export_keypoints after a warm-up pair; maps finite in [0, 1],
@@ -127,6 +143,22 @@ build/ that is removed at the end:
      trained model through make_pair_pipeline at 512^2, B=8, k=1024, NMS
      8, threshold 0.015: latency per call as phase 3, one K2 launch a
      call, and K2 on its heatmaps against its plain version with times;
+ 19. the flagship config's own training path: VMAMBA_TRAIN_CFG at full
+     width and depth (seed 0) with its own dataset section, ImagePairDataset
+     in pair mode with 256^2 crops, host homographic augmentation and the
+     hm-regression input, B=16, 8 loader workers, through the Trainer, on a
+     folder corpus (optical/, thermal/) of 128 SyntheticPairs at 512^2
+     written as PNG files here (labels: SyntheticPairs' keypoints through a
+     subclass, since labels come from HDF5); get_dataset on the same
+     folder config once; the first batch with 1 and 8 workers bit for bit;
+     a warm-up epoch and a measured one of 8 steps, each under the sync
+     check, finite, none skipped, 16 K1 and 16 K3 launches a step (counts
+     zeroed just before, read just after); ms a step beside phase 7's,
+     the loop's ms a step, the loader wait, the batch's copy to the
+     device, the host's ms a sample in a
+     worker, os.cpu_count(), samples/s, peak memory, idle share against
+     one profiled step and against the loop; then a straight run and one
+     resumed from its e1, cuDNN deterministic, bit for bit;
 then a details JSON line, the per-kernel JSON line, the card line and the
 final JSON line.
 """
@@ -1347,10 +1379,43 @@ def phase_ha_reference(dev):
 
 # The full cycle's configurations (tools/full_cycle.py SYNTH_CFG,
 # EXPORT_CFG and PAIR_CFG at its defaults, with --multispectral), own
-# copies: the card's machine has no YAML reader. The datasets are seeded
-# in-memory corpora made here (no HDF5, no cv2 there).
+# copies. The synthetic pretrain generates SyntheticShapes on the fly with
+# the dataset section of configs/config_synthetic_shapes.yaml (the cycle
+# replays them from an HDF5 file, which the card's machine cannot open: no
+# h5py there); the pair corpora are seeded ones made here.
+SYNTH_N, SYNTH_HW = 256, (240, 320)  # 16 steps an epoch; SyntheticShapes'
 SYNTH_CFG = {
-    "dataset": {"type": "SyntheticShapes"},
+    "dataset": {
+        "type": "SyntheticShapes", "primitives": "all", "length": SYNTH_N,
+        "generation_size": [960, 1280], "image_size": list(SYNTH_HW),
+        "processing": {"blur_size": 21, "additional_ir_blur": True,
+                       "additional_ir_blur_size": 51},
+        "augmentation": {
+            "photometric": {
+                "enable": True,
+                "primitives": ["random_brightness", "random_contrast",
+                               "additive_speckle_noise",
+                               "additive_gaussian_noise", "additive_shade",
+                               "motion_blur"],
+                "params": {
+                    "random_brightness": {"max_abs_change": 0.15},
+                    "random_contrast": {"strength_range": [0.3, 1.8]},
+                    "additive_gaussian_noise": {"stddev_range": [0, 0.06]},
+                    "additive_speckle_noise": {"prob_range": [0, 0.0035]},
+                    "additive_shade": {"transparency_range": [-0.5, 0.8],
+                                       "kernel_size_range": [250, 350]},
+                    "motion_blur": {"max_kernel_size": 7}}},
+            "homographic": {
+                "enable": True,
+                "params": {"translation": True, "rotation": True,
+                           "scaling": True, "perspective": True,
+                           "scaling_amplitude": 0.2,
+                           "perspective_amplitude_x": 0.2,
+                           "perspective_amplitude_y": 0.2,
+                           "patch_ratio": 0.85, "max_angle": 1.57,
+                           "allow_artifacts": True,
+                           "translation_overflow": 0.05},
+                "valid_border_margin": 0, "border_reflect": True}}},
     "model": {"type": "XPoint", "multispectral": True,
               "descriptor_head": False, "final_batchnorm": True,
               "reflection_pad": True, "takes_pair": False,
@@ -1360,7 +1425,8 @@ SYNTH_CFG = {
              "detector_handle_multiple_keypoints": "soft_assignment",
              "detector_dustbin_loss_weight": 0.025, "descriptor_loss": False},
     "training": {"batchsize": 16, "learningrate": 1e-3, "n_epochs": 2,
-                 "save_every_n_epoch": 1, "use_writer": False},
+                 "save_every_n_epoch": 1, "use_writer": False,
+                 "num_worker": 8},
 }
 EXPORT_HA_CFG = {
     "num": 50, "aggregation": "window", "min_count": 2, "erosion_radius": 5,
@@ -1412,8 +1478,8 @@ PAIR_CFG = {
                                "gamma": 1.0, "step_size": 600},
                  "save_every_n_epoch": 0, "use_writer": False},
 }
-SYNTH_N, SYNTH_HW = 256, (240, 320)  # 16 steps an epoch; SyntheticShapes'
 PAIR_N, PAIR_SIZE = 64, 512          # the mini corpus's image size
+FLAGSHIP_N, FLAGSHIP_SIZE = 128, 512  # phase 19's folder corpus
 
 
 class SingleImageCorpus:
@@ -1423,7 +1489,8 @@ class SingleImageCorpus:
     ones (is_optical alternating), an all-valid mask, and a keypoint map of
     the images' corners: the intersections of the 8-pixel block grid where
     one block differs by more than 0.35 from three that agree within 0.2
-    (an L-shaped corner, in both spectra)."""
+    (an L-shaped corner, in both spectra). Phase 17 fine-tunes the
+    pretrained detector on it before the export of SyntheticPairs."""
 
     def __init__(self, n, hw=SYNTH_HW, seed=0):
         from xpoint_tpu_torch.data.synthetic_pairs import SyntheticPairs
@@ -1463,6 +1530,95 @@ class SingleImageCorpus:
         return False
 
 
+class TimedLoader:
+    """A trainer's loader, with the time the training loop waits for each
+    batch (ms) kept in ``waits``: one list an epoch."""
+
+    def __init__(self, loader, waits):
+        self.loader = loader
+        self.waits = waits
+
+    def __getattr__(self, name):
+        return getattr(self.loader, name)
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        it = iter(self.loader)
+        self.waits.append([])
+        while True:
+            t0 = time.perf_counter()
+            batch = next(it, None)
+            if batch is None:
+                return
+            self.waits[-1].append((time.perf_counter() - t0) * 1e3)
+            yield batch
+
+
+def _time_samples(dataset, times):
+    """Keep the wall time of every sample the dataset builds (ms, in the
+    loader's worker threads) in ``times``."""
+    inner = dataset.sample
+
+    def sample(*args):
+        t0 = time.perf_counter()
+        out = inner(*args)
+        times.append((time.perf_counter() - t0) * 1e3)
+        return out
+    dataset.sample = sample
+
+
+def _time_to_device(times):
+    """Keep the wall time (ms) of every batch's copy to the device in the
+    Trainer (batch_to_device_pair / _single) in ``times``; returns the
+    function that puts the two back."""
+    from xpoint_tpu_torch import trainer as trainer_mod
+    saved = {}
+    for name in ("batch_to_device_pair", "batch_to_device_single"):
+        inner = saved[name] = getattr(trainer_mod, name)
+
+        def timed(batch, device, inner=inner):
+            t0 = time.perf_counter()
+            out = inner(batch, device)
+            times.append((time.perf_counter() - t0) * 1e3)
+            return out
+        setattr(trainer_mod, name, timed)
+
+    def restore():
+        for name, fn in saved.items():
+            setattr(trainer_mod, name, fn)
+    return restore
+
+
+def _median(values):
+    values = sorted(values)
+    return values[len(values) // 2]
+
+
+def _host_summary(rows, waits, sample_ms, to_device_ms, batch, busy_ms,
+                  epoch_rows):
+    """What the host data path costs the loop, from the last epoch's
+    ``epoch_rows`` steps: the loader wait a step (median; the epoch's first
+    batch, which fills the pipeline, apart), the batch's copy to the
+    device, the loop's time a step (from step start to step start), the
+    host's ms a sample in a worker, and the device's idle share against
+    the loop."""
+    last = rows[-epoch_rows:]
+    loop_ms = ((last[-1]["t0"] - last[0]["t0"]) * 1e3 / (len(last) - 1))
+    steady = [w for epoch in waits for w in epoch[1:]]
+    return {"loader_wait_ms": _median(steady),
+            "to_device_ms": _median(to_device_ms),
+            "loader_wait_first_ms": [epoch[0] for epoch in waits if epoch],
+            "loader_wait_ms_all": waits,
+            "loop_ms_per_step": loop_ms,
+            "samples_per_s_loop": batch / loop_ms * 1e3,
+            "idle_share_loop": 1.0 - busy_ms / loop_ms,
+            "host_ms_per_sample": _median(sample_ms),
+            "host_samples_timed": len(sample_ms),
+            "cpu_count": os.cpu_count()}
+
+
 def _watch_steps(trainer, rows, tag):
     """Wrap the trainer's step: each call runs under
     torch.cuda.set_sync_debug_mode("error") (a synchronising call inside
@@ -1479,7 +1635,7 @@ def _watch_steps(trainer, rows, tag):
         finally:
             torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
-        rows.append({"ms": (time.perf_counter() - t0) * 1e3,
+        rows.append({"t0": t0, "ms": (time.perf_counter() - t0) * 1e3,
                      "loss": float(comps["loss"]),
                      "skipped_nonfinite": float(comps["skipped_nonfinite"])})
         r = rows[-1]
@@ -1542,13 +1698,16 @@ def k2_on(probs, size, min_prob, tag):
                                           grid_nms_keep_plain,
                                           overlap_widths)
     valid = probs > min_prob
+    before = grid_nms_keep.launches
     keep, sweeps = grid_nms_keep(probs, valid, size, 0.1)
+    launches = grid_nms_keep.launches - before
     ref, ref_sweeps = grid_nms_keep_plain(probs, valid, size, 0.1)
     n_diff = int((keep != ref).sum())
-    if n_diff or sweeps != ref_sweeps:
+    if n_diff or sweeps != ref_sweeps or launches != 1:
         raise SystemExit(f"K2 on the {tag} heatmaps disagrees with its plain "
-                         f"version: {n_diff} pixels, sweeps {sweeps} vs "
-                         f"{ref_sweeps}")
+                         f"version or with one launch a call: {n_diff} "
+                         f"pixels, sweeps {sweeps} vs {ref_sweeps}, "
+                         f"{launches} launches")
     args = [(probs, valid, size, 0.1)] * 5
     ms = cuda_ms_queued(_grid_nms_keep_cuda, args, queued_delay(probs.device))
     plain_ms = cuda_ms(grid_nms_keep_plain, args[:3])
@@ -1556,7 +1715,8 @@ def k2_on(probs, size, min_prob, tag):
     widths = overlap_widths(size, 0.1)
     compares = 2 * max(widths) + 2 * sum(w >= 0 for w in widths) - 1
     b_ms, b_by = bound(n_px * (4 + 1 + 1), sweeps * n_px * compares)
-    res = {"planes": probs.shape[0], "size": size, "sweeps": sweeps,
+    res = {"planes": probs.shape[0], "shape": list(probs.shape),
+           "size": size, "sweeps": sweeps, "launches": launches,
            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
            "bound_by": b_by, "max_abs_err": 0.0}
     print(f"K2 on the {tag} heatmaps ({tuple(probs.shape)}, size {size}): "
@@ -1566,9 +1726,9 @@ def k2_on(probs, size, min_prob, tag):
 
 def phase_synth_pretrain(dev, workdir):
     """16: the full cycle's synthetic pretrain through the port's Trainer
-    (see the module docstring)."""
+    on SyntheticShapes generated on the fly (see the module docstring)."""
+    from xpoint_tpu_torch.data import SyntheticShapes
     from xpoint_tpu_torch.trainer import Trainer
-    corpus = SingleImageCorpus(SYNTH_N, SYNTH_HW)
     deterministic = torch.backends.cudnn.deterministic
     # cuDNN may pick algorithms that add with atomics; the resume check
     # compares bits
@@ -1577,12 +1737,19 @@ def phase_synth_pretrain(dev, workdir):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.time()
-        straight = Trainer(SYNTH_CFG, f"{workdir}/synth", seed=0, device=dev,
-                           dataset=corpus)
+        straight = Trainer(SYNTH_CFG, f"{workdir}/synth", seed=0, device=dev)
         init_s = time.time() - t0
-        rows = []
+        if not isinstance(straight.dataset, SyntheticShapes):
+            raise SystemExit(f"the Trainer built {type(straight.dataset)}")
+        rows, waits, sample_ms, to_device_ms = [], [], [], []
         _watch_steps(straight, rows, "synthetic pretrain")
-        straight.train()
+        straight.loader = TimedLoader(straight.loader, waits)
+        _time_samples(straight.dataset, sample_ms)
+        restore = _time_to_device(to_device_ms)
+        try:
+            straight.train()
+        finally:
+            restore()
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
         files = sorted(os.listdir(f"{workdir}/synth"))
         if files != ["e1.pt", "e2.pt", "latest.pt", "params.yaml"]:
@@ -1593,7 +1760,7 @@ def phase_synth_pretrain(dev, workdir):
         os.makedirs(f"{workdir}/synth_resumed")
         shutil.copy(f"{workdir}/synth/e1.pt", f"{workdir}/synth_resumed")
         resumed = Trainer(SYNTH_CFG, f"{workdir}/synth_resumed", seed=0,
-                          device=dev, dataset=corpus)
+                          device=dev)
         resumed_rows = []
         _watch_steps(resumed, resumed_rows, "synthetic pretrain (resumed)")
         if resumed.resume("e1") != 1:
@@ -1608,20 +1775,30 @@ def phase_synth_pretrain(dev, workdir):
         torch.backends.cudnn.deterministic = deterministic
     from xpoint_tpu_torch.trainer import batch_to_device_single
     batch = batch_to_device_single(next(iter(resumed.loader)), dev)
-    summary = _step_summary(rows, SYNTH_CFG["training"]["batchsize"])
+    bs = SYNTH_CFG["training"]["batchsize"]
+    summary = _step_summary(rows, bs)
     prof = profile_once(
         lambda: resumed.unwatched_step(resumed.state, batch, resumed.gen),
         "synthetic pretrain step (profiled)", summary["step_ms"],
-        size=list(SYNTH_HW), batch=SYNTH_CFG["training"]["batchsize"])
-    res = {**summary, "profile": prof,
+        size=list(SYNTH_HW), batch=bs)
+    host = _host_summary(rows, waits, sample_ms, to_device_ms, bs,
+                         prof["device_busy_ms"], steps_per_epoch)
+    res = {**summary, **host, "profile": prof,
            "init_s": init_s, "peak_mem_gib": peak,
            "samples": SYNTH_N, "size": list(SYNTH_HW),
+           "workers": straight.loader.workers,
            "resumed_steps": len(resumed_rows),
            "resume_bit_equal_tensors": len(a),
            "n_params": sum(p.numel() for p in straight.state.params)}
-    print(f"synthetic pretrain {SYNTH_HW[0]}x{SYNTH_HW[1]} B=16 fp32 "
-          f"(multispectral CNN): step_ms={res['step_ms']} samples_per_s="
-          f"{res['samples_per_s']} peak_mem_gib={peak} resume from e1 "
+    print(f"synthetic pretrain {SYNTH_HW[0]}x{SYNTH_HW[1]} B={bs} fp32 "
+          f"(multispectral CNN, on-the-fly SyntheticShapes, "
+          f"{res['workers']} workers): step_ms={res['step_ms']} "
+          f"loop_ms_per_step={host['loop_ms_per_step']} loader_wait_ms="
+          f"{host['loader_wait_ms']} to_device_ms={host['to_device_ms']} "
+          f"host_ms_per_sample={host['host_ms_per_sample']} "
+          f"cpu_count={host['cpu_count']} "
+          f"samples_per_s_loop={host['samples_per_s_loop']} idle_share_loop="
+          f"{host['idle_share_loop']} peak_mem_gib={peak} resume from e1 "
           f"bit-equal in all {len(a)} tensors", flush=True)
     return res
 
@@ -1696,7 +1873,18 @@ def phase_cnn_export(dev, model_dir):
                                                  make_prob_fn)
     from xpoint_tpu_torch.selfsup.homographic_adaptation import (
         make_ha_fn, sample_ha_homographies)
-    module, cfg = load_model(model_dir, "latest", device=dev)
+    from xpoint_tpu_torch.trainer import Trainer
+    tuned_dir = f"{model_dir}_tuned"
+    t0 = time.time()
+    tuner = Trainer(SYNTH_CFG, tuned_dir, seed=0, device=dev,
+                    dataset=SingleImageCorpus(SYNTH_N, SYNTH_HW))
+    loaded = tuner.load_weights(f"{model_dir}/latest.pt")
+    if (loaded["used"] != len(tuner.module.state_dict())
+            or loaded["unexpected"] or loaded["shape"]):
+        raise SystemExit(f"load_weights of phase 16's detector: {loaded}")
+    tuner.train()
+    tune_s = time.time() - t0
+    module, cfg = load_model(tuned_dir, "latest", device=dev)
     if not (cfg["multispectral"] and hasattr(module, "encoder_thermal")):
         raise SystemExit("load_model did not rebuild the two-encoder model")
     dataset = SyntheticPairs(n_pairs=4, size=HA_S, n_kp=1, seed=7)
@@ -1741,6 +1929,7 @@ def phase_cnn_export(dev, model_dir):
                EXPORT_PRED_CFG["nms"], EXPORT_PRED_CFG["detection_threshold"],
                "CNN export")
     return {"num": EXPORT_HA_CFG["num"], "chunks": chunks, "pairs": n_done,
+            "fine_tune_s": tune_s, "load_weights": loaded,
             "seconds_per_pair": sec, "launches": counts,
             "launches_per_pair": expect, "keypoints": n_kps,
             "prob_max": {k: float(maps[k].max())
@@ -1822,6 +2011,172 @@ def phase_cnn_pair(dev, workdir):
     return {"train": train_res, "serve": serve_res}
 
 
+def _equal_batches(a, b, path="batch"):
+    """Where two collated batches differ (None if nowhere)."""
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            return path
+        for k in a:
+            where = _equal_batches(a[k], b[k], f"{path}.{k}")
+            if where:
+                return where
+        return None
+    if isinstance(a, np.ndarray):
+        same = (a.dtype == b.dtype and a.shape == b.shape
+                and np.array_equal(a, b))
+        return None if same else path
+    return None if a == b else path
+
+
+def phase_flagship_host(dev, workdir, phase7_step_ms):
+    """19: the flagship config's own training path, on the host data path
+    (see the module docstring). ImagePairDataset reads keypoint labels from
+    HDF5, which this machine cannot open (no h5py), so the corpus's labels,
+    SyntheticPairs' keypoints, come through a subclass that overrides the
+    label loader; everything else is the config's own dataset section."""
+    import cv2
+    from xpoint_tpu_torch.data import DataLoader, ImagePairDataset, get_dataset
+    from xpoint_tpu_torch.data.synthetic_pairs import SyntheticPairs
+    from xpoint_tpu_torch.models import VMAMBA_TRAIN_CFG
+    from xpoint_tpu_torch.trainer import Trainer, batch_to_device_pair
+
+    class LabelledFolderPairs(ImagePairDataset):
+        def __init__(self, config, keypoints):
+            super().__init__(config)
+            self.keypoints = keypoints
+
+        def _load_keypoints(self, index):
+            return self.keypoints[index]
+
+    root = f"{workdir}/flagship_corpus"
+    pairs = SyntheticPairs(n_pairs=FLAGSHIP_N, size=FLAGSHIP_SIZE, n_kp=256,
+                           seed=3)
+    t0 = time.time()
+    for side, images in (("optical", pairs.optical),
+                         ("thermal", pairs.thermal)):
+        os.makedirs(f"{root}/{side}")
+        for i, img in enumerate(images):
+            cv2.imwrite(f"{root}/{side}/{i:04d}.png",
+                        np.round(img * 255).astype(np.uint8))
+    write_s = time.time() - t0
+    cfg = copy.deepcopy(VMAMBA_TRAIN_CFG)
+    ds_cfg = cfg["dataset"]
+    del ds_cfg["filename"], ds_cfg["keypoints_filename"]
+    ds_cfg["foldername"] = root
+    # a warm-up epoch, then the measured one; no TensorBoard files
+    cfg["training"].update(n_epochs=2, save_every_n_epoch=1,
+                           use_writer=False)
+    workers = cfg["training"]["num_worker"]
+    bs = cfg["training"]["batchsize"]
+
+    # the factory itself, on the folder config without labels
+    unlabelled = get_dataset(ds_cfg)
+    s = unlabelled[0]
+    if (type(unlabelled) is not ImagePairDataset
+            or len(unlabelled) != FLAGSHIP_N
+            or s["optical"]["image"].shape != (TRAIN_S, TRAIN_S, 1)
+            or "keypoints" in s["optical"]
+            or s["hm_input"].shape != (128, 128, 2)
+            or s["hfour_points"].shape != (4, 2)):
+        raise SystemExit("get_dataset on the flagship's folder config built "
+                         "an unexpected dataset or sample")
+
+    dataset = LabelledFolderPairs(ds_cfg, pairs.kps)
+    firsts = []
+    for n in (1, workers):
+        dataset.set_epoch(0, 0)
+        firsts.append(next(iter(DataLoader(dataset, bs, shuffle=True,
+                                           seed=0, workers=n))))
+    where = _equal_batches(firsts[0], firsts[1])
+    if where:
+        raise SystemExit(f"the first batch differs between 1 and {workers} "
+                         f"loader workers at {where}")
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    trainer = Trainer(cfg, f"{workdir}/flagship", seed=0, device=dev,
+                      dataset=dataset)
+    init_s = time.time() - t0
+    rows, waits, sample_ms, to_device_ms = [], [], [], []
+    _watch_steps(trainer, rows, "flagship host-data train")
+    trainer.loader = TimedLoader(trainer.loader, waits)
+    _time_samples(dataset, sample_ms)
+    restore = _time_to_device(to_device_ms)
+    read = _zero_counts()
+    try:
+        trainer.train()
+    finally:
+        restore()
+    launches = read()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del dataset.sample                  # the timing wrapper
+    steps = FLAGSHIP_N // bs
+    if len(rows) != 2 * steps:
+        raise SystemExit(f"flagship host-data training ran {len(rows)} "
+                         f"steps, expected {2 * steps}")
+    expect = TRAIN_LAUNCHES[None]
+    launches = {k: v for k, v in launches.items() if k in expect}
+    for name, n in launches.items():
+        if n != expect[name] * len(rows):
+            raise SystemExit(f"flagship host-data training launched {name} "
+                             f"{n} times, expected {expect[name]} per step")
+
+    # resume from e1 bit for bit (cuDNN deterministic in both runs)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = {}
+        for tag in ("straight", "resumed"):
+            t = Trainer(cfg, f"{workdir}/flagship_{tag}", seed=0, device=dev,
+                        dataset=dataset)
+            if tag == "resumed":
+                shutil.copy(f"{workdir}/flagship_straight/e1.pt",
+                            f"{workdir}/flagship_resumed")
+                if t.resume("e1") != 1:
+                    raise SystemExit("resume from e1 did not start at "
+                                     "epoch 1")
+            t.train()
+            runs[tag] = _trainer_state(t)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    a, b = runs["straight"], runs["resumed"]
+    n_diff = sum(not torch.equal(x, y) for x, y in zip(a, b))
+    if len(a) != len(b) or n_diff:
+        raise SystemExit(f"the flagship run resumed from e1 differs from the "
+                         f"straight run in {n_diff} of {len(a)} tensors")
+
+    summary = _step_summary(rows[steps:], bs)
+    batch = batch_to_device_pair(firsts[1], dev)
+    prof = profile_once(
+        lambda: trainer.unwatched_step(trainer.state, batch, trainer.gen),
+        "flagship host-data train step (profiled)", summary["step_ms"],
+        batch=bs, size=TRAIN_S)
+    host = _host_summary(rows, waits, sample_ms, to_device_ms, bs,
+                         prof["device_busy_ms"], steps)
+    res = {**summary, **host, "profile": prof, "init_s": init_s,
+           "corpus_write_s": write_s, "peak_mem_gib": peak,
+           "workers": workers, "pairs": FLAGSHIP_N,
+           "pair_size": FLAGSHIP_SIZE, "launches": launches,
+           "launches_per_step": {k: v / len(rows)
+                                 for k, v in launches.items()},
+           "resume_bit_equal_tensors": len(a),
+           "phase7_step_ms": phase7_step_ms}
+    print(f"flagship host-data train {TRAIN_S}^2 B={bs} bf16 "
+          f"(ImagePairDataset, {workers} workers, {os.cpu_count()} cpus): "
+          f"step_ms={res['step_ms']} (phase 7, resident data: "
+          f"{phase7_step_ms}) loop_ms_per_step={host['loop_ms_per_step']} "
+          f"loader_wait_ms={host['loader_wait_ms']} to_device_ms="
+          f"{host['to_device_ms']} host_ms_per_sample="
+          f"{host['host_ms_per_sample']} samples_per_s_loop="
+          f"{host['samples_per_s_loop']} idle_share={prof['idle_share']} "
+          f"idle_share_loop={host['idle_share_loop']} peak_mem_gib={peak} "
+          f"launches={launches}; first batch equal with 1 and {workers} "
+          f"workers; resume from e1 bit-equal in all {len(a)} tensors",
+          flush=True)
+    return res
+
+
 def host_modules():
     """Which of the host data path's modules import on this machine."""
     import importlib
@@ -1870,6 +2225,11 @@ def main():
     main_res, probs, _ = phase_main_path(dev)
     nms_res = phase_nms(probs)
     main_res["nms_sweeps_per_call"] = nms_res["sweeps"]
+    # boxes above 16 (the direct instance) on the serving heatmaps and on
+    # one of their planes
+    k2_large = [k2_on(p, size, 0.015, f"serving, {tag}")
+                for size in (24, 32)
+                for p, tag in ((probs, "16 planes"), (probs[:1], "1 plane"))]
     ref_res = phase_reference(dev)
     # the training stage shapes (256^2, B=16); each stage has 2 passes x 2
     # blocks, as a serving call has
@@ -1903,6 +2263,8 @@ def main():
         cnn_ref = phase_cnn_train_reference(dev)
         cnn_export = phase_cnn_export(dev, f"{workdir}/synth")
         cnn_pair = phase_cnn_pair(dev, workdir)
+        flagship_host = phase_flagship_host(dev, workdir,
+                                            train_res["step_ms"])
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -1954,6 +2316,32 @@ def main():
          "plain_ms": tscan_tot["k3_plain_ms"],
          "bound_ms": tscan_tot["k3_bound_ms"], "bound_by": "bytes",
          "library_ms": None},
+        {"name": "selective_scan_bidir",
+         "path": "train on host data (emit_ckpt)", **k1,
+         "launches": flagship_host["launches"]["selective_scan_bidir"],
+         "max_abs_err": k1t_err, "ms": tscan_tot["k1_ms"],
+         "ms_with_host_launch": tscan_tot["k1_ms_with_host_launch"],
+         "plain_ms": tscan_tot["k1_plain_ms"],
+         "bound_ms": tscan_tot["k1_bound_ms"]},
+        {"name": "selective_scan_bidir_bwd", "path": "train on host data",
+         "route": "cuda",
+         "source": "xpoint_tpu_torch/csrc/selective_scan_bidir_bwd.cu",
+         "replaces": "xpoint_tpu/ops/selective_scan_pallas.py:530",
+         "launches": flagship_host["launches"]["selective_scan_bidir_bwd"],
+         "max_abs_err": k3_err, "ms": tscan_tot["k3_ms"],
+         "ms_with_host_launch": tscan_tot["k3_ms_with_host_launch"],
+         "plain_ms": tscan_tot["k3_plain_ms"],
+         "bound_ms": tscan_tot["k3_bound_ms"], "bound_by": "bytes",
+         "library_ms": None},
+    ] + [
+        {"name": "nms_sweep",
+         "path": f"serve heatmaps {tuple(r['shape'])}, size {r['size']}",
+         "route": "cuda", "source": "xpoint_tpu_torch/csrc/nms_sweep.cu",
+         "replaces": "xpoint_tpu/ops/nms.py:36", "launches": r["launches"],
+         "max_abs_err": 0.0, "ms": r["ms"], "plain_ms": r["plain_ms"],
+         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+         "library_ms": None}
+        for r in k2_large
     ] + [
         {"name": "warp_projective", "path": f"ha ({r['call']})",
          "route": "cuda",
@@ -2021,7 +2409,8 @@ def main():
          "k1_tails": scan_tails, "k1_ckpt_tails": tscan_tails,
          "k3_tails": k3_tails, "k3_checkpoint_gap": k3_gap,
          "k5_tails": fused_tails,
-         "main_path": main_res, "k2": nms_res, "reference": ref_res,
+         "main_path": main_res, "k2": nms_res, "k2_large": k2_large,
+         "reference": ref_res,
          "train_scan_stages": tscan_rows, "train_path": train_res,
          "train_reference": tref_res, "k4_calls": warp_rows,
          "k4_odd_size": warp_odd, "ha": ha_res,
@@ -2030,7 +2419,8 @@ def main():
          "k5_train_stages": tfused_rows, "v052d_train_path": bidi_train_res,
          "forward_type_train_references": trefs, "host_modules": host,
          "cnn_synth_pretrain": synth_res, "cnn_train_reference": cnn_ref,
-         "cnn_export": cnn_export, "cnn_pair": cnn_pair}), flush=True)
+         "cnn_export": cnn_export, "cnn_pair": cnn_pair,
+         "flagship_host_data": flagship_host}), flush=True)
     print("serve: K1 ms/plain_ms/bound_ms are per pipeline call (sum over "
           "stage shapes x launches), K2's per call (one launch runs every "
           "sweep; bound_sweep_bytes_ms: 6 B a pixel a sweep at the memory "
@@ -2048,7 +2438,11 @@ def main():
           "launch path; cnn export / cnn serve: K2 timed on the heatmaps of "
           "that path (the export's maps at NMS 4, the CNN pipeline's at 8), "
           "K4 rows the HA-step calls of phase 9 (the export's shapes), "
-          "launches those of phases 17 and 18",
+          "launches those of phases 17 and 18; train on host data: K1 and K3 "
+          "launches of phase 19 (its 16 steps), times those of phase 6 (the "
+          "same shapes); nms_sweep at sizes 24 and 32: the direct instance "
+          "on phase 3's heatmaps, launches per call (no path runs these "
+          "sizes)",
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

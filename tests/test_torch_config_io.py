@@ -278,11 +278,16 @@ def test_dicttools_match_jax(tmp_path):
 
 
 def test_get_dataset_raises_for_the_host_data_path():
-    for t in ("ImagePairDataset", "SyntheticShapes", "SatThermalGeoDataset"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            get_dataset({"type": t})
-    with pytest.raises(ValueError):
-        get_dataset({"type": "Nope"})
+    """The host data path is ported: get_dataset raises where the JAX
+    package's raises (a pair dataset without its files, an unknown type)
+    and builds SyntheticShapes from its defaults."""
+    from xpoint_tpu.data import get_dataset as jx_get_dataset
+    for t in ("ImagePairDataset", "SatThermalGeoDataset", "Nope"):
+        for fn in (get_dataset, jx_get_dataset):
+            with pytest.raises(ValueError):
+                fn({"type": t})
+    ds = get_dataset({"type": "SyntheticShapes"})
+    assert len(ds) == len(jx_get_dataset({"type": "SyntheticShapes"}))
 
 
 def test_new_entry_points_default_to_cuda():

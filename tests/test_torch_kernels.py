@@ -251,9 +251,13 @@ def _nms_planes(seed, n, H, W):
 
 @pytest.mark.parametrize("size,iou,shape", [
     (8, 0.1, (4, 64, 128)), (4, 0.1, (2, 100, 70)), (16, 0.2, (2, 96, 96)),
-    (3, 0.5, (3, 33, 65)), (8, 1.0, (1, 32, 32))])
+    (3, 0.5, (3, 33, 65)), (8, 1.0, (1, 32, 32)), (17, 0.1, (2, 80, 72)),
+    (24, 0.1, (2, 96, 130)), (32, 0.1, (1, 128, 128)),
+    (40, 0.3, (2, 100, 70)), (24, 1.0, (1, 40, 40))])
 def test_nms_kernel_equals_plain(cuda, size, iou, shape):
-    """Keep masks and sweep counts are exactly the plain version's."""
+    """Keep masks and sweep counts are exactly the plain version's, for the
+    staged instance (size <= 16) and the direct one (larger boxes; at 40
+    the halo reaches two tiles each way)."""
     prob = _nms_planes(size, *shape)
     for p, valid in ((prob, prob > 0.015), (prob - 0.5, prob >= 0)):
         ref, ref_sweeps = grid_nms_keep_plain(p, valid, size, iou)
@@ -344,9 +348,14 @@ def test_nms_reads_nothing_back(cuda):
 
 
 def test_nms_kernel_rejects_large_boxes(cuda):
-    p = _nms_planes(1, 1, 64, 64).to(cuda)
-    with pytest.raises(ValueError):
-        grid_nms_keep(p, p > 0.015, 17, 0.1)
+    """No box size is refused any more: boxes above 16 take the direct
+    instance, in one launch, with the plain version's answer; the serving
+    shape at sizes 24 and 32, and a ramp at 24 (a long chain)."""
+    p = _nms_planes(1, 16, 512, 512).to(cuda)
+    for size in (24, 32):
+        assert _kernel_against_plain(p, p > 0.015, size, 0.1) >= 2
+    ramp = _ramp_plane(128, 256, -1).to(cuda)
+    assert _kernel_against_plain(ramp, ramp > 0, 24, 0.1) >= 10
 
 
 def test_tiny_pipeline_on_card_matches_cpu(cuda):

@@ -2,7 +2,8 @@
 grid NMS (``xpoint_tpu.ops.nms._grid_nms_keep``, its XLA path on the CPU) on
 the inputs the device loop of ``csrc/nms_sweep.cu`` must get right: long
 suppression chains that need many sweeps, the sweep cap, an all-invalid
-plane and a plane of one 32 x 32 tile. Masks must be equal exactly.
+plane and a plane of one 32 x 32 tile, at box sizes up to 32 (above 16
+the kernel takes its direct instance). Masks must be equal exactly.
 """
 import numpy as np
 import pytest
@@ -59,7 +60,7 @@ def test_sweep_cap_matches_jax(W):
     assert sweeps == W
 
 
-@pytest.mark.parametrize("size", [1, 8, 16])
+@pytest.mark.parametrize("size", [1, 8, 16, 24, 32])
 def test_all_invalid_plane(size):
     prob = np.random.default_rng(size).uniform(size=(2, 40, 72)).astype(
         np.float32)
@@ -67,7 +68,8 @@ def test_all_invalid_plane(size):
     assert sweeps in (0, 1) and not bool(keep.any())
 
 
-@pytest.mark.parametrize("size,iou", [(8, 0.1), (4, 0.3), (16, 0.2)])
+@pytest.mark.parametrize("size,iou", [(8, 0.1), (4, 0.3), (16, 0.2),
+                                      (24, 0.1), (32, 0.3)])
 def test_one_tile_plane(size, iou):
     rng = np.random.default_rng(size)
     prob = (rng.uniform(size=(1, 32, 32)) ** 4).astype(np.float32)

@@ -191,7 +191,7 @@ _TABLE_CASES = [(8, 0.1), (4, 0.1), (3, 0.5), (8, 1.0)]
 
 
 @pytest.mark.parametrize("size,iou", _TABLE_CASES + [
-    (s, iou) for iou in (0.1, 0.3, 0.7) for s in range(1, 17)
+    (s, iou) for iou in (0.1, 0.3, 0.7) for s in range(1, 33)
     if (s, iou) not in _TABLE_CASES])
 def test_nms_tables_match_jax(size, iou):
     assert overlap_widths(size, iou) == _overlap_widths(size, iou)

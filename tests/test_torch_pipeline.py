@@ -103,6 +103,31 @@ def test_port_imports_no_jax(path):
             f"{os.path.relpath(path, ROOT)} imports {name}"
 
 
+def _import_time_imports(path):
+    """The modules a file imports when it is imported (not in a function
+    body)."""
+    def walk(nodes):
+        for node in nodes:
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                continue
+            if isinstance(node, ast.Import):
+                yield from (a.name for a in node.names)
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                yield node.module
+            yield from walk(ast.iter_child_nodes(node))
+    yield from walk(ast.parse(open(path).read(), path).body)
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: os.path.relpath(p, ROOT))
+def test_port_imports_h5py_only_where_a_file_is_opened(path):
+    """The card's machine has no h5py: no module of xpoint_tpu_torch, nor
+    chip_smoke.py, imports it when it is imported, so the package (the
+    host data path's folder layout included) imports there."""
+    names = {n.split(".")[0] for n in _import_time_imports(path)}
+    assert "h5py" not in names, f"{os.path.relpath(path, ROOT)} imports h5py"
+
+
 def test_entry_points_default_to_cuda():
     import inspect
     assert inspect.signature(build_xpoint).parameters["device"].default \

@@ -302,12 +302,15 @@ def test_committed_checkpoint_through_the_bridge():
 
 
 def test_trainer_raises_for_what_is_not_ported(tmp_path):
-    """A dataset the host data path would build (get_dataset) and a
-    pretrained encoder checkpoint to load raise NotImplementedError naming
-    their ROADMAP item; a pretrained block without a checkpoint trains
-    from scratch, as in JAX."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(synth_config(), str(tmp_path / "a"), device="cpu")
+    """A pretrained encoder checkpoint to load raises NotImplementedError
+    naming its ROADMAP item; a pretrained block without a checkpoint trains
+    from scratch, as in JAX. The datasets the host data path builds are
+    ported: a config alone gives the Trainer its SyntheticShapes (train
+    and validation)."""
+    from xpoint_tpu_torch.data import SyntheticShapes
+    t = Trainer(synth_config(), str(tmp_path / "a"), device="cpu")
+    assert isinstance(t.dataset, SyntheticShapes)
+    assert isinstance(t.val_loader.dataset, SyntheticShapes)
     from test_torch_models import tiny_cfg
     cfg = synth_config()
     cfg["model"] = tiny_cfg()

@@ -43,6 +43,17 @@
 // to staging (the wait for its L2 loads, which four blocks an SM cover only
 // in part), then to the grid barrier and the wait for the slowest block.
 //
+// Boxes larger than 16 (a halo wider than the staged tile allows) take a
+// second instance of the same launch, nms_kernel<kDirect>: the same
+// cooperative loop, grid barrier, change flags and quiet-tile skipping, but
+// each pixel reads its (2 size - 1)-row overlap set straight from device
+// memory (keep_in with __ldcg, p through the read-only path), one column a
+// lane so that a warp's loads are contiguous, with the widths table in device
+// memory. It makes ~(2 size - 1)(2 max_w + 1) loads a pixel a sweep where the
+// staged instance makes one, and is kept simple: no config uses such boxes.
+// A tile's halo may then reach past its eight neighbours (size > 33), so the
+// skipping looks at every tile within ceil(halo / 32) tiles.
+//
 // Where blocks share memory within the launch, and how each case is handled:
 //  - the keep planes are written by one block and read by others after a
 //    barrier, so they are read with __ldcg (L2, never the non-coherent
@@ -77,6 +88,7 @@ constexpr int kTileW = 32;                 // one warp's lanes
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kChecked = kThreads / 9;     // tiles checked a round, 9 each
+constexpr int kDirect = 0;                 // nms_kernel<kDirect>: no staging
 
 struct StripSet {
   int size;                  // box side; vertical halo is size - 1
@@ -92,8 +104,10 @@ struct NmsArgs {
   uint8_t* tile_flip;        // 2 x n_tiles: a tile changed, by sweep parity
   int* state;                // flags[3] by sweep mod 3, sweep count
   int H, W, tiles_x, tiles_per_plane, n_tiles;
+  int reach_y, reach_x;      // tiles a halo reaches, each way (at least 1)
   long long max_sweeps;
-  StripSet ss;
+  StripSet ss;               // the staged instance's strip set
+  const int* widths;         // the direct instance's: size ints, on device
 };
 
 // shared-memory row pitch of the staged S for a halo bound, 16-byte aligned
@@ -251,8 +265,46 @@ __device__ int sweep_tile(const float* __restrict__ pp,
   return __syncthreads_or(flipped);
 }
 
+// One sweep of the 32 x 32 tile at (y0, x0) for any box size, nothing
+// staged: each pixel takes the maximum of p over the kept pixels of its
+// overlap set {|dy| < size, |dx| <= widths[|dy|]} from device memory. Lane
+// x of warp y takes column x of rows y, y + 8, y + 16, y + 24. Returns
+// whether any pixel changed (the same value in every thread of the block).
+__device__ int sweep_tile_direct(const float* __restrict__ pp,
+                                 const uint8_t* __restrict__ vv,
+                                 const uint8_t* kin, uint8_t* kout, int H,
+                                 int W, int y0, int x0, int size,
+                                 const int* __restrict__ widths) {
+  const int gx = x0 + threadIdx.x;
+  const int hy = size - 1;
+  int flipped = 0;
+#pragma unroll 1
+  for (int k = 0; k < kTileH / kWarps; ++k) {
+    const int gy = y0 + threadIdx.y + kWarps * k;
+    if (gy >= H || gx >= W) continue;
+    float nm = -INFINITY;
+    const int dy_hi = min(hy, H - 1 - gy);
+#pragma unroll 1
+    for (int dy = max(-hy, -gy); dy <= dy_hi; ++dy) {
+      const int w = widths[dy < 0 ? -dy : dy];
+      if (w < 0) continue;
+      const int row = (gy + dy) * W;
+      const int x_hi = min(gx + w, W - 1);
+#pragma unroll 4
+      for (int x = max(gx - w, 0); x <= x_hi; ++x)
+        if (__ldcg(kin + row + x)) nm = fmaxf(nm, pp[row + x]);
+    }
+    const int o = gy * W + gx;
+    const int nk = vv[o] != 0 && !(nm > pp[o]);
+    flipped |= nk != (__ldcg(kin + o) != 0);
+    kout[o] = static_cast<uint8_t>(nk);
+  }
+  return __syncthreads_or(flipped);
+}
+
 // Four blocks an SM (64 registers, a few spilled) cover more of the tiles'
-// load latency than two without spills.
+// load latency than two without spills. kMaxHalo: the staged instance's
+// halo bound, or kDirect for the instance that stages nothing.
 template <int kMaxHalo>
 __global__ void __launch_bounds__(kThreads, 4) nms_kernel(const NmsArgs a) {
   extern __shared__ float smem[];
@@ -265,8 +317,11 @@ __global__ void __launch_bounds__(kThreads, 4) nms_kernel(const NmsArgs a) {
   float* R = smem + SH * stage_pitch(kMaxHalo);  // n_slots x SH x kTileW
   const int tid = threadIdx.y * 32 + threadIdx.x;
   const int tiles_y = a.tiles_per_plane / a.tiles_x;
-  if (tid < 2 * a.ss.size - 1) {          // read after the first barrier
-    const int hy = a.ss.size - 1;
+  // tiles whose change can reach a tile, itself included
+  const int reach_w = 2 * a.reach_x + 1;
+  const int n_reach = (2 * a.reach_y + 1) * reach_w;
+  if (kMaxHalo != kDirect && tid < 2 * a.ss.size - 1) {  // read after the
+    const int hy = a.ss.size - 1;                         // first barrier
     const int s = a.ss.dy_slot[tid < hy ? hy - tid : tid - hy];
     row_base[tid] = s < 0 ? -1 : (s * SH + tid) * kTileW;
   }
@@ -286,7 +341,9 @@ __global__ void __launch_bounds__(kThreads, 4) nms_kernel(const NmsArgs a) {
          k0 += kChecked) {
       // which of this block's next kChecked tiles to compute: all in the
       // first two sweeps (plane 1 holds nothing yet), then those where the
-      // tile or a neighbour changed in the sweep before (9 threads a tile)
+      // tile or a tile its halo reaches changed in the sweep before (9
+      // threads a tile; with the staged instance's halo < 32 those are the
+      // eight neighbours, one each)
       __syncthreads();                    // the last round's bits are read
       if (tid == 0) dirty = sweep < 2 ? ~0u : 0u;
       __syncthreads();
@@ -295,12 +352,14 @@ __global__ void __launch_bounds__(kThreads, 4) nms_kernel(const NmsArgs a) {
         if (t < a.n_tiles) {
           const int plane = static_cast<int>(t / a.tiles_per_plane);
           const int in_plane = static_cast<int>(t % a.tiles_per_plane);
-          const int ny = in_plane / a.tiles_x + (tid % 9) / 3 - 1;
-          const int nx = in_plane % a.tiles_x + tid % 3 - 1;
-          if (ny >= 0 && ny < tiles_y && nx >= 0 && nx < a.tiles_x &&
-              __ldcg(flips_before + plane * a.tiles_per_plane +
-                     ny * a.tiles_x + nx))
-            atomicOr(&dirty, 1u << (tid / 9));
+          for (int n = tid % 9; n < n_reach; n += 9) {
+            const int ny = in_plane / a.tiles_x + n / reach_w - a.reach_y;
+            const int nx = in_plane % a.tiles_x + n % reach_w - a.reach_x;
+            if (ny >= 0 && ny < tiles_y && nx >= 0 && nx < a.tiles_x &&
+                __ldcg(flips_before + plane * a.tiles_per_plane +
+                       ny * a.tiles_x + nx))
+              atomicOr(&dirty, 1u << (tid / 9));
+          }
         }
       }
       __syncthreads();
@@ -313,10 +372,16 @@ __global__ void __launch_bounds__(kThreads, 4) nms_kernel(const NmsArgs a) {
           const int plane = static_cast<int>(t / a.tiles_per_plane);
           const int in_plane = static_cast<int>(t % a.tiles_per_plane);
           const size_t off = (size_t)plane * a.H * a.W;
-          flipped = sweep_tile<kMaxHalo>(
-              a.p + off, a.valid + off, kin + off, kout + off, a.H, a.W,
-              in_plane / a.tiles_x * kTileH, in_plane % a.tiles_x * kTileW,
-              a.ss, row_base, S, R);
+          const int y0 = in_plane / a.tiles_x * kTileH;
+          const int x0 = in_plane % a.tiles_x * kTileW;
+          if constexpr (kMaxHalo == kDirect)
+            flipped = sweep_tile_direct(a.p + off, a.valid + off, kin + off,
+                                        kout + off, a.H, a.W, y0, x0,
+                                        a.ss.size, a.widths);
+          else
+            flipped = sweep_tile<kMaxHalo>(
+                a.p + off, a.valid + off, kin + off, kout + off, a.H, a.W,
+                y0, x0, a.ss, row_base, S, R);
         }
         if (tid == 0) flips_now[t] = static_cast<uint8_t>(flipped);
         any |= flipped;
@@ -346,44 +411,13 @@ size_t g_smem = 0;
 const void* g_kernel = nullptr;
 int g_resident = 0;
 
-}  // namespace
-
-// Bytes of scratch xp_nms needs: the second keep plane and two tile flags.
-extern "C" long long xp_nms_scratch(int n_planes, int H, int W) {
-  const long long tiles = (long long)((H + kTileH - 1) / kTileH) *
-                          ((W + kTileW - 1) / kTileW) * n_planes;
-  return (long long)n_planes * H * W + 2 * tiles;
-}
-
-// p: (n_planes, H, W) fp32 scores; valid: (n_planes, H, W) uint8 0/1;
-// keep: (n_planes, H, W) uint8, the answer; scratch: xp_nms_scratch bytes;
-// state: 4 device ints, zeroed here (the flags) and the sweep count in
-// state[3] after the launch. widths: size host ints
-// (ops/nms.py::overlap_widths). One cudaMemsetAsync and one cooperative
-// launch on `stream`; returns the first CUDA error, a refused launch
-// included.
-extern "C" int xp_nms(const float* p, const uint8_t* valid, uint8_t* keep,
-                      uint8_t* scratch, int* state, int n_planes, int H, int W,
-                      int size, const int* widths, void* stream) {
-  if (size < 1 || size > kMaxSize || n_planes <= 0 || H <= 0 || W <= 0)
+// The fields of NmsArgs both instances share; cudaErrorInvalidValue for a
+// shape the launch cannot index.
+int init_args(NmsArgs& a, const float* p, const uint8_t* valid, uint8_t* keep,
+              uint8_t* scratch, int* state, int n_planes, int H, int W,
+              int size, int max_w) {
+  if (n_planes <= 0 || H <= 0 || W <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  NmsArgs a;
-  StripSet& ss = a.ss;
-  ss.size = size;
-  ss.max_w = 0;
-  int n_slots = 0;           // distinct non-negative widths, ascending
-  ss.slot_mask = 0;
-  for (int d = 0; d < size; ++d)
-    if (widths[d] > ss.max_w) ss.max_w = widths[d];
-  int slot_of_w[kMaxSize];
-  for (int w = 0; w <= ss.max_w; ++w) {
-    bool used = false;
-    for (int d = 0; d < size; ++d) used = used || widths[d] == w;
-    slot_of_w[w] = used ? n_slots++ : -1;
-    if (used) ss.slot_mask |= 1u << w;
-  }
-  for (int d = 0; d < kMaxSize; ++d)
-    ss.dy_slot[d] = d < size && widths[d] >= 0 ? slot_of_w[widths[d]] : -1;
   const long long n_tiles = (long long)((H + kTileH - 1) / kTileH) *
                             ((W + kTileW - 1) / kTileW) * n_planes;
   if (n_tiles >= (1LL << 31) || (long long)H * W >= (1LL << 31))
@@ -400,15 +434,17 @@ extern "C" int xp_nms(const float* p, const uint8_t* valid, uint8_t* keep,
   a.tiles_per_plane = a.tiles_x * ((H + kTileH - 1) / kTileH);
   a.n_tiles = static_cast<int>(n_tiles);
   a.max_sweeps = (long long)H * W;
+  const int hy = size > 1 ? size - 1 : 0;
+  a.reach_y = hy > kTileH ? (hy + kTileH - 1) / kTileH : 1;
+  a.reach_x = max_w > kTileW ? (max_w + kTileW - 1) / kTileW : 1;
+  a.ss.size = size;
+  a.widths = nullptr;
+  return 0;
+}
 
-  // boxes up to 8 (every config) take the narrower staged rows
-  const int max_halo = size <= 8 ? 7 : 15;
-  const void* kernel = size <= 8
-                           ? reinterpret_cast<const void*>(nms_kernel<7>)
-                           : reinterpret_cast<const void*>(nms_kernel<15>);
-  const int SH = kTileH + 2 * (size - 1);
-  const size_t smem = sizeof(float) * (size_t)SH *
-                      (stage_pitch(max_halo) + (size_t)n_slots * kTileW);
+// One cudaMemsetAsync of the flags and one cooperative launch of `kernel`
+// with as many blocks as can be resident (at most one a tile).
+int launch(const NmsArgs& a, const void* kernel, size_t smem, void* stream) {
   int device;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -429,17 +465,87 @@ extern "C" int xp_nms(const float* p, const uint8_t* valid, uint8_t* keep,
     g_resident = per_sm * sms;
   }
   // no resident block (too much shared memory): the launch below is refused
-  const int blocks = static_cast<int>(
-      n_tiles < g_resident ? n_tiles : (g_resident > 0 ? g_resident : 1));
+  const int blocks = a.n_tiles < g_resident
+                         ? a.n_tiles
+                         : (g_resident > 0 ? g_resident : 1);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  err = cudaMemsetAsync(state, 0, 4 * sizeof(int), s);
+  err = cudaMemsetAsync(a.state, 0, 4 * sizeof(int), s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  void* args[] = {&a};
-  err = cudaLaunchCooperativeKernel(kernel,
-                                    dim3(blocks), dim3(32, kWarps),
+  NmsArgs arg = a;
+  void* args[] = {&arg};
+  err = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(32, kWarps),
                                     args, smem, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Bytes of scratch xp_nms and xp_nms_direct need: the second keep plane and
+// two tile flags.
+extern "C" long long xp_nms_scratch(int n_planes, int H, int W) {
+  const long long tiles = (long long)((H + kTileH - 1) / kTileH) *
+                          ((W + kTileW - 1) / kTileW) * n_planes;
+  return (long long)n_planes * H * W + 2 * tiles;
+}
+
+// p: (n_planes, H, W) fp32 scores; valid: (n_planes, H, W) uint8 0/1;
+// keep: (n_planes, H, W) uint8, the answer; scratch: xp_nms_scratch bytes;
+// state: 4 device ints, zeroed here (the flags) and the sweep count in
+// state[3] after the launch. widths: size host ints
+// (ops/nms.py::overlap_widths), 1 <= size <= 16. One cudaMemsetAsync and one
+// cooperative launch on `stream`; returns the first CUDA error, a refused
+// launch included.
+extern "C" int xp_nms(const float* p, const uint8_t* valid, uint8_t* keep,
+                      uint8_t* scratch, int* state, int n_planes, int H, int W,
+                      int size, const int* widths, void* stream) {
+  if (size < 1 || size > kMaxSize)
+    return static_cast<int>(cudaErrorInvalidValue);
+  NmsArgs a;
+  StripSet& ss = a.ss;
+  ss.max_w = 0;
+  int n_slots = 0;           // distinct non-negative widths, ascending
+  ss.slot_mask = 0;
+  for (int d = 0; d < size; ++d)
+    if (widths[d] > ss.max_w) ss.max_w = widths[d];
+  int slot_of_w[kMaxSize];
+  for (int w = 0; w <= ss.max_w; ++w) {
+    bool used = false;
+    for (int d = 0; d < size; ++d) used = used || widths[d] == w;
+    slot_of_w[w] = used ? n_slots++ : -1;
+    if (used) ss.slot_mask |= 1u << w;
+  }
+  for (int d = 0; d < kMaxSize; ++d)
+    ss.dy_slot[d] = d < size && widths[d] >= 0 ? slot_of_w[widths[d]] : -1;
+  const int err = init_args(a, p, valid, keep, scratch, state, n_planes, H, W,
+                            size, ss.max_w);
+  if (err) return err;
+
+  // boxes up to 8 (every config) take the narrower staged rows
+  const int max_halo = size <= 8 ? 7 : 15;
+  const void* kernel = size <= 8
+                           ? reinterpret_cast<const void*>(nms_kernel<7>)
+                           : reinterpret_cast<const void*>(nms_kernel<15>);
+  const int SH = kTileH + 2 * (size - 1);
+  const size_t smem = sizeof(float) * (size_t)SH *
+                      (stage_pitch(max_halo) + (size_t)n_slots * kTileW);
+  return launch(a, kernel, smem, stream);
+}
+
+// As xp_nms for any box size, with nothing staged in shared memory (the
+// kDirect instance): widths are `size` ints in device memory, max_w their
+// largest (0 if none is >= 0). A size below 1 has an empty overlap set.
+extern "C" int xp_nms_direct(const float* p, const uint8_t* valid,
+                             uint8_t* keep, uint8_t* scratch, int* state,
+                             int n_planes, int H, int W, int size, int max_w,
+                             const int* widths, void* stream) {
+  NmsArgs a;
+  const int err = init_args(a, p, valid, keep, scratch, state, n_planes, H, W,
+                            size, max_w);
+  if (err) return err;
+  a.widths = widths;
+  return launch(a, reinterpret_cast<const void*>(nms_kernel<kDirect>), 0,
+                stream);
 }
 
 extern "C" const char* xp_error_string(int err) {

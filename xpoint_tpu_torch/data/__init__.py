@@ -1,20 +1,19 @@
-"""Training data: the host loader, the device-resident data path and
-augmentation, and a seeded synthetic corpus."""
+"""Training data: the host datasets and loader, the device-resident data
+path and augmentation, and a seeded synthetic corpus."""
+from .image_pair import ImagePairDataset  # noqa: F401
 from .loader import DataLoader, collate  # noqa: F401
-
-_HOST_TYPES = ("ImagePairDataset", "SyntheticShapes", "SatThermalGeoDataset")
+from .synthetic_shapes import SyntheticShapes  # noqa: F401
 
 
 def get_dataset(config):
     """The dataset named by ``config['type']`` (the JAX package's
-    ``data.get_dataset``). Its dataset types read HDF5 files and run cv2
-    augmentation on the host, which is not ported yet (ROADMAP.md Queue 1
-    item 4), so every known type raises NotImplementedError; callers that
-    can take a dataset object (``Trainer(dataset=...)``) pass one with the
-    same surface."""
+    ``data.get_dataset``)."""
     dtype = config.get("type", "ImagePairDataset")
-    if dtype in _HOST_TYPES:
-        raise NotImplementedError(
-            f"dataset type {dtype}: the host data path is not ported yet "
-            f"(ROADMAP.md Queue 1 item 4); pass a dataset object")
+    if dtype == "ImagePairDataset":
+        return ImagePairDataset(config)
+    if dtype == "SyntheticShapes":
+        return SyntheticShapes(config)
+    if dtype == "SatThermalGeoDataset":
+        from .sat_thermal import SatThermalGeoDataset
+        return SatThermalGeoDataset(config)
     raise ValueError(f"unknown dataset type: {dtype}")

@@ -7,9 +7,11 @@ data path cv2 warps and h5py reads) releases the GIL, so a thread pool
 parallelizes it without pickling batches across a process boundary.
 ``workers`` takes the ``training: num_worker`` key. Batches are handed out
 in a deterministic order whatever the worker count (ordered reassembly);
-with ``workers > 1``, datasets that draw from a shared RNG interleave
-their draws across threads in no fixed order. Worker failures propagate
-to the consumer at the failing batch.
+the host datasets draw every sample from generators of its own
+(``data/seeding.py``), so their batches do not depend on the worker count
+either (a dataset that drew from a shared RNG would interleave its draws
+across threads in no fixed order). Worker failures propagate to the
+consumer at the failing batch.
 """
 import queue
 import threading

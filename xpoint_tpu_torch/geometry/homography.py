@@ -1,39 +1,23 @@
 """Homography sampling and point warping (port of
 ``xpoint_tpu/geometry/homography.py``).
 
-Host side (numpy): ``sample_homography`` (the same draws from the same
-``np.random.Generator`` in the same order as the JAX package's, so one seed
-gives the same matrix). The 4-point perspective fit is solved here in
-numpy; the JAX package calls ``cv2.getPerspectiveTransform`` for it. Its
-``warp_keypoints`` and ``filter_points`` come with the evaluation code that
-calls them.
+Host side (numpy and cv2, for the data path and homographic adaptation):
+``sample_homography`` and ``sample_homography_corner`` (the same draws from
+the same ``np.random.Generator`` in the same order as the JAX package's,
+and the same ``cv2.getPerspectiveTransform`` fit, so one seed gives the
+same matrix bit for bit), ``warp_keypoints``, ``filter_points`` and
+``compute_valid_mask``.
 
 Device side (tensors): ``compute_valid_mask_device`` and ``warp_points``.
 """
 from math import pi
 
+import cv2
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from ..ops.warp import _source_coords
-
-
-def perspective_transform(src, dst):
-    """The homography that maps the four (x, y) points ``src`` onto ``dst``
-    (both (4, 2), cast to float32 first and solved in float64, as
-    cv2.getPerspectiveTransform does): the 8x8 linear system of
-    u = (a x + b y + c) / (g x + h y + 1), v = (d x + e y + f) / (...)."""
-    src = np.asarray(src, np.float32).astype(np.float64)
-    dst = np.asarray(dst, np.float32).astype(np.float64)
-    x, y = src[:, 0], src[:, 1]
-    u, v = dst[:, 0], dst[:, 1]
-    zero, one = np.zeros(4), np.ones(4)
-    A = np.concatenate([
-        np.stack([x, y, one, zero, zero, zero, -x * u, -y * u], axis=1),
-        np.stack([zero, zero, zero, x, y, one, -x * v, -y * v], axis=1)])
-    h = np.linalg.solve(A, np.concatenate([u, v]))
-    return np.append(h, 1.0).reshape(3, 3)
 
 
 def sample_homography(image_shape, perspective=True, scaling=True,
@@ -140,7 +124,72 @@ def sample_homography(image_shape, perspective=True, scaling=True,
 
     # rescale unit square to pixel units; shape is (H, W) -> (x, y) = (W, H)
     shape = np.asarray(image_shape)[::-1]
-    return perspective_transform(pts1 * shape, pts2 * shape)
+    pts1 = (pts1 * shape).astype(np.float32)
+    pts2 = (pts2 * shape).astype(np.float32)
+    return cv2.getPerspectiveTransform(pts1, pts2).astype(np.float64)
+
+
+def sample_homography_corner(image_shape, config, rng=None):
+    """DeepHomography-style +-rho corner jitter of a random patch of
+    ``config['patch_size']``; returns the INVERSE of the patch's
+    homography, as the JAX package does. ``rng``: ``np.random.Generator``;
+    None seeds one from the global ``np.random`` stream."""
+    if rng is None:
+        rng = np.random.default_rng(np.random.randint(0, 2**31))
+    imsize = (image_shape[1], image_shape[0])
+    rho = config["rho"]
+    patch_size = config["patch_size"]
+    pos = (int(rng.integers(rho, imsize[0] - rho - patch_size + 1)),
+           int(rng.integers(rho, imsize[1] - rho - patch_size + 1)))
+    four_points = [pos,
+                   (pos[0] + patch_size, pos[1]),
+                   (pos[0] + patch_size, pos[1] + patch_size),
+                   (pos[0], pos[1] + patch_size)]
+    perturbed = [(p[0] + int(rng.integers(-rho, rho + 1)),
+                  p[1] + int(rng.integers(-rho, rho + 1)))
+                 for p in four_points]
+    H = cv2.getPerspectiveTransform(np.float32(four_points),
+                                    np.float32(perturbed))
+    return np.linalg.inv(H)
+
+
+def warp_keypoints(keypoints, homography, return_type=int):
+    """(n, 2) (row, col) keypoints warped by a pixel-space homography (cv2
+    x/y convention), cast to ``return_type``."""
+    if len(keypoints) > 0:
+        warped = cv2.perspectiveTransform(
+            np.array([keypoints[:, ::-1]], dtype=np.float64), homography)
+        return warped[0, :, ::-1].astype(return_type)
+    return keypoints
+
+
+def filter_points(points, shape):
+    """The (row, col) points inside [0, shape)."""
+    points = points[points[:, 0] >= 0]
+    points = points[points[:, 1] >= 0]
+    points = points[points[:, 0] < shape[0]]
+    points = points[points[:, 1] < shape[1]]
+    return points
+
+
+def compute_valid_mask(image_shape, homography, erosion_radius=0,
+                       mask_border=False):
+    """Valid-pixel mask of a warp: an all-ones image warped with cv2
+    (nearest), eroded by a (2r+1)^2 square, the image edge counted as
+    invalid with ``mask_border``. (H, W) float64."""
+    mask = cv2.warpPerspective(np.ones(image_shape), homography,
+                               image_shape[::-1], flags=cv2.INTER_NEAREST)
+    if erosion_radius > 0:
+        if mask_border:
+            tmp = np.zeros((image_shape[0] + 2, image_shape[1] + 2))
+            tmp[1:-1, 1:-1] = mask
+            mask = tmp
+        kernel = np.ones((erosion_radius * 2 + 1, erosion_radius * 2 + 1),
+                         np.float32)
+        mask = cv2.erode(mask, kernel, iterations=1)
+        if mask_border:
+            mask = mask[1:-1, 1:-1]
+    return mask
 
 
 def compute_valid_mask_device(homographies, image_shape, erosion_radius=0,

@@ -4,7 +4,9 @@ Greedy equal-box NMS runs as a fixed point on the heatmap (see
 ``grid_nms_keep_plain``). On a CUDA tensor one call is one cooperative
 launch of the Hopper kernel ``csrc/nms_sweep.cu`` (replacing the TPU kernel
 ``xpoint_tpu/ops/nms.py::_nms_sweep_kernel``), which runs every sweep on the
-device with a grid barrier between sweeps; ``box_nms`` and
+device with a grid barrier between sweeps, at any box size (boxes up to 16
+stage their neighbourhood in shared memory, larger ones read it from device
+memory); ``box_nms`` and
 ``box_nms_extract`` read nothing back from the device. On a CPU tensor the
 plain PyTorch version below runs the same sweeps.
 """
@@ -14,6 +16,7 @@ import functools
 import torch
 
 from ..kernels import build
+from .gridops import device_constant
 
 
 def overlap_widths(size, iou):
@@ -87,6 +90,18 @@ def _widths_arg(size, iou):
     return (ctypes.c_int * size)(*overlap_widths(size, iou))
 
 
+@functools.lru_cache(maxsize=None)
+def _widths_device(size, iou, device):
+    """The widths table on ``device`` for the kernel's direct instance
+    (copied once, through pinned memory: the host does not wait)."""
+    return device_constant(overlap_widths(size, iou), device, torch.int32)
+
+
+# boxes up to this size stage their neighbourhood in shared memory
+# (csrc/nms_sweep.cu kMaxSize); larger ones take the direct instance
+STAGED_MAX_SIZE = 16
+
+
 def _nms_library():
     """The kernel's library with its entry points typed once."""
     lib = build.load("nms_sweep")
@@ -95,6 +110,10 @@ def _nms_library():
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
                        + [ctypes.c_void_p] * 2)
+        lib.xp_nms_direct.restype = ctypes.c_int
+        lib.xp_nms_direct.argtypes = ([ctypes.c_void_p] * 5
+                                      + [ctypes.c_int] * 5
+                                      + [ctypes.c_void_p] * 2)
         lib.xp_nms_scratch.restype = ctypes.c_longlong
         lib.xp_nms_scratch.argtypes = [ctypes.c_int] * 3
     return lib
@@ -104,8 +123,6 @@ def _grid_nms_keep_cuda(prob, valid, size, iou):
     """One launch of the kernel (counted in ``grid_nms_keep.launches``):
     returns the keep mask and the sweep count as a 0-d int32 tensor on the
     device. Reads nothing back; a refused launch raises."""
-    if not 1 <= size <= 16:
-        raise ValueError(f"nms_sweep kernel takes 1 <= size <= 16, got {size}")
     lib = _nms_library()
     B, H, W = prob.shape
     dev = prob.device
@@ -115,10 +132,16 @@ def _grid_nms_keep_cuda(prob, valid, size, iou):
     scratch = torch.empty(lib.xp_nms_scratch(B, H, W), dtype=torch.uint8,
                           device=dev)
     state = torch.empty(4, dtype=torch.int32, device=dev)
-    err = lib.xp_nms(p.data_ptr(), valid.data_ptr(), keep.data_ptr(),
-                     scratch.data_ptr(), state.data_ptr(), B, H, W, size,
-                     _widths_arg(size, iou),
-                     torch.cuda.current_stream(dev).cuda_stream)
+    args = (p.data_ptr(), valid.data_ptr(), keep.data_ptr(),
+            scratch.data_ptr(), state.data_ptr(), B, H, W, size)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if 1 <= size <= STAGED_MAX_SIZE:
+        err = lib.xp_nms(*args, _widths_arg(size, iou), stream)
+    else:
+        max_w = max([0, *overlap_widths(size, iou)])
+        err = lib.xp_nms_direct(*args, max_w,
+                                _widths_device(size, iou, dev).data_ptr(),
+                                stream)
     build.check(lib, err, "nms_sweep launch")
     grid_nms_keep.launches += 1
     return keep, state[3]

@@ -9,16 +9,21 @@ strict=False counts; the validation loss; TensorBoard scalars when a writer
 imports. Losses and skip flags stay on the device and are read at log
 points and once an epoch, never inside a step.
 
+The datasets come from ``data.get_dataset`` by the config's ``dataset``
+section unless passed in (``dataset=``, ``val_dataset=``).
+
 Where it differs:
-  * The dataset is passed in (``dataset=``, ``val_dataset=``): the JAX
-    package's dataset types need the host data path, which is not ported
-    (``data.get_dataset`` raises, ROADMAP.md Queue 1 item 4).
   * Randomness: the step's ``torch.Generator`` is seeded from (seed,
     epoch) at the start of every epoch, and a resumed run first draws the
-    shuffles of the epochs before its start. So a run resumed from
-    ``e{N}`` sees the batches and draws a straight run sees, and ends bit
-    for bit where the straight run ends (the JAX ``Trainer`` restarts both
-    streams from the seed on resume).
+    shuffles of the epochs before its start. The host datasets draw each
+    sample from generators of its own, derived from (seed, epoch, index)
+    (``data/seeding.py``; the epoch is set with the step's), where the JAX
+    package's draw from the global ``random`` / ``np.random`` streams that
+    its loader threads share in no fixed order. So a batch is the same
+    whatever ``num_worker`` is, and a run resumed from ``e{N}`` sees the
+    batches and draws a straight run sees and ends bit for bit where the
+    straight run ends (the JAX ``Trainer`` restarts its streams from the
+    seed on resume).
   * One device; the mesh of the JAX trainer is not ported (Queue 1 item 9).
 """
 import os
@@ -97,6 +102,8 @@ class Trainer:
                 if vcfg.get('keypoints'):
                     val_cfg['keypoints_filename'] = vcfg['keypoints']
                 val_dataset = get_dataset(val_cfg)
+            if hasattr(val_dataset, 'set_epoch'):
+                val_dataset.set_epoch(0, seed)
             self.val_loader = DataLoader(val_dataset, self.batch_size,
                                          shuffle=False, seed=seed,
                                          workers=workers)
@@ -213,12 +220,14 @@ class Trainer:
         return self.start_epoch
 
     def _start_epoch(self, epoch):
-        """Seed the step generator for ``epoch`` and draw the shuffles of
-        the epochs before it that this trainer has not drawn (after a
-        resume), so that epoch ``e`` uses the (e+1)-th shuffle of the
-        seed."""
+        """Seed the step generator and the host dataset's samples for
+        ``epoch`` and draw the shuffles of the epochs before it that this
+        trainer has not drawn (after a resume), so that epoch ``e`` uses
+        the (e+1)-th shuffle of the seed."""
         self.gen.manual_seed(int(np.random.SeedSequence(
             [self.seed, epoch]).generate_state(1)[0]))
+        if hasattr(self.dataset, 'set_epoch'):
+            self.dataset.set_epoch(epoch, self.seed)
         while self._shuffles_drawn < epoch:
             if self.device_data:
                 self.data_rng.permutation(len(self.dataset))
