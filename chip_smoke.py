@@ -101,7 +101,7 @@ Phases (any failure exits non-zero and prints no result):
      v052d_noz (K5, K6), the gated v05 with d_state 4 (the general scan: K6
      forward and backward) and cascade2d v052dc_noz (K5 fed from the
      reference layout, K6 in its backward): loss and every gradient;
-which of yaml, h5py and cv2 import on the machine (printed); then the
+which of yaml, h5py, cv2 and tqdm import on the machine (printed); then the
 full cycle's CNN models (tools/full_cycle.py) and the flagship on the host
 data path, in a scratch directory under build/ that is removed at the end:
  16. the synthetic pretrain through the port's Trainer: SYNTH_CFG (two CNN
@@ -159,6 +159,37 @@ data path, in a scratch directory under build/ that is removed at the end:
      worker, os.cpu_count(), samples/s, peak memory, idle share against
      one profiled step and against the loop; then a straight run and one
      resumed from its e1, cuDNN deterministic, bit for bit;
+ 20. evaluation at full width: cv2's version (USAC_MAGSAC must exist);
+     phase 19's flagship, loaded from its directory by model_io.load_model
+     (-v latest, the hm head dropped by configs/cipdp.yaml's
+     disable_hmhead), through the port's benchmark entry point
+     (cli.benchmark.main) with configs/cipdp.yaml (NMS 8, threshold 0.015,
+     bfmatcher with cross-check, 256^2 crops of host homographic pairs)
+     whose dataset is pointed at phase 19's PNG folder corpus (the cut:
+     data/MULTIPOINT/test.hdf5 is not in the repository and this machine
+     has no h5py), -e over 32 pairs, once with the MAGSAC estimator and
+     once with the device one: the JSON read back with the JAX package's
+     keys, every metric finite, the unit ones in [0, 1] and the corner
+     error at most 999; the timing harness's ms a stage, s a pair of the
+     sweep, and K1 / K2 launches against what the code predicts (16 K1 a
+     pair forward, one K2 an NMS call; counts zeroed before, read after);
+     the metrics of a flagship trained 16 steps are printed as a
+     functional check, not a result; K1 against its plain version at the
+     sweep's stage shapes (256^2, B=1) as in phase 2, and K2 exact on one
+     masked 256^2 plane the timing harness handed to NMS, as in phase 4,
+     each with its device time; then phase 3's serving model through
+     make_pair_pipeline with estimate_homography at 512^2, B=8, k=1024,
+     512 hypotheses, the same images on both sides: H_est within 0.3 of the
+     identity and more than 10 inliers a sample, latency beside the same
+     pipeline without the estimator, and one call under
+     torch.cuda.set_sync_debug_mode("error") with torch.linalg.svd (no
+     _ex form) in "warn" mode and its syncs counted, and one profiled
+     call: device time by kernel and by the host op that launched it, and
+     the idle share; then
+     ransac_homography on 1,024 planted matches (70% from a known H with
+     1 px noise): corner error to the known H under 2 px, the card's H
+     within 0.01 px of the CPU's on the same Gumbel array with the same
+     inliers away from the threshold, a second run bit for bit, its time;
 then a details JSON line, the per-kernel JSON line, the card line and the
 final JSON line.
 """
@@ -251,7 +282,7 @@ def scan_operands(g, L, Dim, dev, batch=B):
     return u, dt, bc, cc, A, D, bias
 
 
-def phase_scan(dev, stages, blocks_per_stage):
+def phase_scan(dev, stages, blocks_per_stage, batch=B, tails=True):
     from xpoint_tpu_torch.ops.selective_scan_cuda import (
         selective_scan_bidir, selective_scan_bidir_plain)
     g = torch.Generator(device=dev).manual_seed(1)
@@ -260,7 +291,7 @@ def phase_scan(dev, stages, blocks_per_stage):
     max_err = 0.0
     delay = queued_delay(dev)
     for (L, Dim), n_launch in zip(stages, blocks_per_stage):
-        inputs = [scan_operands(g, L, Dim, dev) for _ in range(6)]
+        inputs = [scan_operands(g, L, Dim, dev, batch) for _ in range(6)]
         y_f, y_r = selective_scan_bidir(*inputs[0])          # warm-up + check
         again = selective_scan_bidir(*inputs[0])
         p_f, p_r = selective_scan_bidir_plain(*inputs[0])
@@ -281,7 +312,7 @@ def phase_scan(dev, stages, blocks_per_stage):
         ms = cuda_ms_queued(selective_scan_bidir, inputs[1:], delay)
         launch_ms = cuda_ms(selective_scan_bidir, inputs[1:])
         plain_ms = cuda_ms(selective_scan_bidir_plain, inputs[1:3])
-        M, G = B * 2 * Dim, B * 2
+        M, G = batch * 2 * Dim, batch * 2
         nbytes = 2 * (5 * L * M + 4 * L * G) + 3 * 4 * 4 * Dim
         b_ms, b_by = bound(nbytes, 2 * 14 * L * M)
         rows.append({"L": L, "Dim": Dim, "M": M, "max_abs_err": err,
@@ -289,7 +320,7 @@ def phase_scan(dev, stages, blocks_per_stage):
                      "ms_with_host_launch": launch_ms, "plain_ms": plain_ms,
                      "bound_ms": b_ms, "bound_by": b_by,
                      "launches_per_pipeline_call": n_launch})
-        print(f"K1 L={L} Dim={Dim} M={M}: max_abs_err={err} "
+        print(f"K1 L={L} Dim={Dim} B={batch} M={M}: max_abs_err={err} "
               f"max_rel_err={rel} kernel_ms={ms} (with the host's launch "
               f"path {launch_ms}) plain_ms={plain_ms} "
               f"bound_ms={b_ms} ({b_by})", flush=True)
@@ -302,9 +333,11 @@ def phase_scan(dev, stages, blocks_per_stage):
         tot["plain_ms"] += plain_ms * n_launch
         tot["bound_ms"] += b_ms * n_launch
         del inputs
-    print(f"K1 per pipeline call: kernel_ms={tot['ms']} (with the host's "
-          f"launch path {tot['ms_with_host_launch']}) "
+    print(f"K1 per pipeline call (B={batch}): kernel_ms={tot['ms']} (with "
+          f"the host's launch path {tot['ms_with_host_launch']}) "
           f"bound_ms={tot['bound_ms']}", flush=True)
+    if not tails:
+        return rows, tot, max_err, None
     tails = scan_tail_checks(g, dev, emit_ckpt=False)
     return rows, tot, max(max_err, tails["max_abs_err"]), tails
 
@@ -1648,11 +1681,33 @@ def _watch_steps(trainer, rows, tag):
     trainer.train_step = step
 
 
-def profile_once(fn, what, unprofiled_ms, **info):
+def device_time_by_op(prof, top=12):
+    """The host ops that launched the most device time themselves (the
+    profiler's self device time of a CPU-side event: the kernels launched
+    inside it and not inside an op it called), with their calls and their
+    host time including what they called (waits for the device too). The
+    profiler's own buffer events, to which it also credits device time,
+    are left out."""
+    rows = [{"op": e.key, "count": e.count,
+             "device_ms": e.self_device_time_total / 1e3,
+             "host_ms": e.cpu_time_total / 1e3}
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CPU
+            and e.self_device_time_total > 0
+            and e.key not in ("Activity Buffer Request", "Buffer Flush")]
+    rows.sort(key=lambda r: -r["device_ms"])
+    for r in rows[:top]:
+        print(f"{r['device_ms']:10.3f} ms  x{r['count']:<5d} host "
+              f"{r['host_ms']:10.3f} ms  {r['op']}", flush=True)
+    return rows[:top]
+
+
+def profile_once(fn, what, unprofiled_ms, by_op=False, **info):
     """One more call of ``fn`` under torch.profiler (CPU + CUDA): device
-    time by kernel (eval/profile_pipeline.report) and the device's idle
-    share against ``unprofiled_ms`` (the profiler's CPU tracing inflates
-    the profiled call's wall time)."""
+    time by kernel (eval/profile_pipeline.report), with ``by_op`` also by
+    the host op that launched it, and the device's idle share against
+    ``unprofiled_ms`` (the profiler's CPU tracing inflates the profiled
+    call's wall time)."""
     from torch.profiler import ProfilerActivity, profile
     from xpoint_tpu_torch.eval.profile_pipeline import report
     torch.cuda.synchronize()
@@ -1666,6 +1721,8 @@ def profile_once(fn, what, unprofiled_ms, **info):
     res = {"profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
            "unprofiled_ms": unprofiled_ms,
            "idle_share": 1.0 - busy_ms / unprofiled_ms}
+    if by_op:
+        res["by_op"] = device_time_by_op(prof)
     print(f"{what}: device busy {busy_ms:.3f} ms of an unprofiled "
           f"{unprofiled_ms:.3f} ms: idle {100 * res['idle_share']:.1f}%",
           flush=True)
@@ -2177,11 +2234,304 @@ def phase_flagship_host(dev, workdir, phase7_step_ms):
     return res
 
 
+EVAL_SAMPLES = 32      # phase 20's sweep: pairs of phase 19's corpus
+EVAL_KEYS = {          # the JSON of the JAX package's cli/benchmark.py -e
+    "repeatability": [str(t) for t in range(1, 11)],
+    "descriptor": {str(t): ["nn_map_optical", "m_score_optical",
+                            "nn_map_thermal", "m_score_thermal", "nn_map",
+                            "m_score"] for t in range(1, 11)},
+    "homography": {"2": ["average_h_error", "h_correctness"]},
+    "timing_seconds": ["two_forward", "nms", "interpolate"],
+    "n_kp_optical": None, "n_kp_thermal": None,
+}
+
+
+def _check_keys(tree, keys, path="json"):
+    if keys is None:
+        return
+    names = keys if isinstance(keys, list) else list(keys)
+    if sorted(tree) != sorted(names):
+        raise SystemExit(f"benchmark JSON {path} has keys {sorted(tree)}, "
+                         f"the JAX package's are {sorted(names)}")
+    if isinstance(keys, dict):
+        for k, sub in keys.items():
+            _check_keys(tree[k], sub, f"{path}[{k!r}]")
+
+
+def _timed_attr(obj, name, times):
+    """Wrap obj.name to append each call's wall seconds to ``times``;
+    returns the function that restores it."""
+    fn = getattr(obj, name)
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            times.append(time.perf_counter() - t0)
+    setattr(obj, name, timed)
+    return lambda: setattr(obj, name, fn)
+
+
+def eval_sweep(dev, workdir):
+    """20a: the metric sweep of phase 19's flagship through the port's
+    benchmark entry point (see the module docstring), once with each
+    homography estimator."""
+    from xpoint_tpu_torch.cli import benchmark as bench_cli
+    from xpoint_tpu_torch.config import load_yaml, save_yaml
+    from xpoint_tpu_torch.eval import benchmark as eval_benchmark
+    from xpoint_tpu_torch.eval.infer import XPointInference
+    from xpoint_tpu_torch.models import VMAMBA_TRAIN_CFG
+
+    cfg = load_yaml(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                 "configs", "cipdp.yaml"))
+    # the cut: phase 19's PNG folder corpus in place of test.hdf5
+    cfg["dataset"].update(foldername=f"{workdir}/flagship_corpus",
+                          filename=None, keypoints_filename=None)
+    n_timed = min(5, FLAGSHIP_N)
+    pairs = 1 + n_timed + EVAL_SAMPLES       # warm-up, timed, swept
+    depths = VMAMBA_TRAIN_CFG["model"]["use_attention"]["model_parameters"][
+        "MODEL"]["VSSM"]["DEPTHS"]
+    # one K1 launch a block and spectrum; one K2 launch an nms call: one in
+    # the warm-up, two a pair after it
+    expect = {"selective_scan_bidir": 2 * sum(depths) * pairs,
+              "nms_sweep": 1 + 2 * (n_timed + EVAL_SAMPLES)}
+    # the timing harness hands nms its masked maps on the device (the
+    # metric loops hand it host arrays): the last is kept for K2's check
+    heatmaps, nms = [], XPointInference.nms
+
+    def keep_heatmap(self, prob):
+        if isinstance(prob, torch.Tensor):
+            heatmaps[:] = [prob]
+        return nms(self, prob)
+    runs = {}
+    for est in ("magsac", "device"):
+        cfg["prediction"]["h_estimator"] = est
+        path = f"{workdir}/eval_{est}.yaml"
+        save_yaml(cfg, path)
+        sweep_s = []
+        restore = _timed_attr(eval_benchmark, "compute_metrics", sweep_s)
+        XPointInference.nms = keep_heatmap
+        read = _zero_counts()
+        t0 = time.perf_counter()
+        try:
+            out_path = bench_cli.main([
+                "-y", path, "-m", f"{workdir}/flagship", "-v", "latest",
+                "-e", "--max-samples", str(EVAL_SAMPLES), "-o",
+                f"{workdir}/eval_{est}", "--device", str(dev)])
+        finally:
+            restore()
+            XPointInference.nms = nms
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        launches = {k: v for k, v in read().items() if k in expect}
+        if launches != expect:
+            raise SystemExit(f"the {est} sweep launched {launches}, the "
+                             f"code predicts {expect}")
+        with open(out_path) as f:
+            res = json.load(f)
+        _check_keys(res, EVAL_KEYS)
+        h = res["homography"]["2"]
+        unit = [res["repeatability"][t] for t in res["repeatability"]]
+        for d in res["descriptor"].values():
+            unit += list(d.values())
+        unit += list(h["h_correctness"].values())
+        if (not all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in unit)
+                or not 0.0 <= h["average_h_error"] <= 999.0
+                or sorted(h["h_correctness"]) != sorted(
+                    f"epsilon_warp_th{t}" for t in range(1, 11))
+                or len(res["n_kp_optical"]) != EVAL_SAMPLES):
+            raise SystemExit(f"the {est} sweep wrote metrics out of range: "
+                             f"{res}")
+        stage_ms = {k: 1e3 * sum(v) / len(v)
+                    for k, v in res["timing_seconds"].items()}
+        runs[est] = {
+            "stage_ms": stage_ms, "sweep_s": sweep_s[0],
+            "s_per_pair": sweep_s[0] / EVAL_SAMPLES, "total_s": total_s,
+            "launches": launches,
+            "launches_per_pair": {k: v / pairs for k, v in launches.items()},
+            "repeatability@3": res["repeatability"]["3"],
+            "nn_map@3": res["descriptor"]["3"]["nn_map"],
+            "m_score@3": res["descriptor"]["3"]["m_score"],
+            "h_correctness@3": h["h_correctness"]["epsilon_warp_th3"],
+            "average_h_error": h["average_h_error"],
+            "keypoints_per_image": sum(res["n_kp_optical"]) / EVAL_SAMPLES}
+        metrics = {k: runs[est][k] for k in (
+            "repeatability@3", "nn_map@3", "m_score@3", "h_correctness@3",
+            "average_h_error", "keypoints_per_image")}
+        print(f"eval sweep ({est}; the flagship after 16 steps: a functional "
+              f"check, not an accuracy): stage_ms={stage_ms} "
+              f"s_per_pair={runs[est]['s_per_pair']} over {EVAL_SAMPLES} "
+              f"pairs, launches={launches} (as predicted), {metrics}",
+              flush=True)
+    return runs, heatmaps[0]
+
+
+def _svd_sync_counter(counts):
+    """torch.linalg.svd run in the sync debug mode "warn", its warnings
+    counted into ``counts``; the caller's mode ("error") everywhere else."""
+    import warnings
+    svd = torch.linalg.svd
+
+    def counted(*args, **kwargs):
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                out = svd(*args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        counts.append(sum("synchroniz" in str(w.message) for w in caught))
+        return out
+    return svd, counted
+
+
+def eval_pipeline_ransac(dev, module, phase3_latency_ms):
+    """20b: the serving pipeline with the homography estimator, the same
+    images on both sides, against the same pipeline without it."""
+    from xpoint_tpu_torch.eval import make_pair_pipeline
+
+    kw = dict(k=1024, nms_size=8, detection_threshold=0.015)
+    plain = make_pair_pipeline(module, (H, W), **kw)
+    run = make_pair_pipeline(module, (H, W), estimate_homography=True,
+                             ransac_iters=512, **kw)
+    g = torch.Generator(device=dev).manual_seed(20)
+    images = [torch.rand(B, H, W, 1, generator=g, device=dev)
+              for _ in range(N_CALLS + 1)]
+    gen = torch.Generator(device=dev).manual_seed(0)
+    plain(images[0], images[0])
+    run(images[0], images[0], gen)
+    torch.cuda.synchronize()
+    lat, lat_plain = [], []
+    for img in images[1:]:
+        for fn, times, args in ((plain, lat_plain, ()), (run, lat, (gen,))):
+            t0 = time.perf_counter()
+            out = fn(img, img, *args)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        err = float((out["H_est"] - torch.eye(3, device=dev)).abs().amax())
+        n_inl = out["ransac_n_inliers"].tolist()
+        if not err < 0.3 or min(n_inl) <= 10 or not bool(
+                torch.isfinite(out["H_est"]).all()):
+            raise SystemExit(f"pipeline RANSAC on identical images: H_est "
+                             f"off the identity by {err}, inliers {n_inl}")
+    # one more call with every synchronising operation an error, except
+    # torch.linalg.svd (no _ex form), whose syncs are counted
+    counts = []
+    svd, counted = _svd_sync_counter(counts)
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.linalg.svd = counted
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        run(images[1], images[1], gen)
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+        torch.linalg.svd = svd
+    torch.cuda.synchronize()
+    # where the estimator's time goes: device time by kernel and by the
+    # host op that launched it, and the idle share of one call
+    prof = profile_once(lambda: run(images[1], images[1], gen),
+                        f"pipeline with RANSAC {H}^2 B={B}", _median(lat),
+                        by_op=True, phase=20)
+    res = {"latency_ms": _median(lat), "latency_all_ms": lat,
+           "plain_latency_ms": _median(lat_plain),
+           "phase3_latency_ms": phase3_latency_ms,
+           "max_identity_err": err, "inliers": n_inl,
+           "svd_calls": len(counts), "svd_syncs": sum(counts),
+           "profile": prof}
+    print(f"pipeline with RANSAC {H}^2 B={B} (512 hypotheses, identical "
+          f"images): latency_ms={res['latency_ms']} without it "
+          f"{res['plain_latency_ms']} (phase 3: {phase3_latency_ms}); "
+          f"H_est within {err} of the identity, inliers {n_inl}; under "
+          f"sync debug 'error' only torch.linalg.svd synchronised: "
+          f"{res['svd_syncs']} syncs in {res['svd_calls']} calls", flush=True)
+    return res
+
+
+def eval_ransac_planted(dev):
+    """20c: ransac_homography on 1,024 planted matches, the card against
+    the CPU on the same Gumbel array, and repeated bit for bit."""
+    from xpoint_tpu_torch.geometry.ransac import (gumbel_noise,
+                                                  ransac_homography)
+    rng = np.random.default_rng(20)
+    n, n_in = 1024, 717                                  # 70% inliers
+    H_true = np.array([[1.05, 0.03, 8.0], [-0.02, 0.97, -5.0],
+                       [2e-5, -3e-5, 1.0]])
+    p1 = rng.uniform(0, 512, (n, 2))
+    q = np.c_[p1, np.ones(n)] @ H_true.T
+    p2 = q[:, :2] / q[:, 2:]
+    p2[:n_in] += rng.normal(0, 1.0, (n_in, 2))
+    p2[n_in:] = rng.uniform(0, 512, (n - n_in, 2))
+    args = [torch.from_numpy(a.astype(np.float32)) for a in (p1, p2)]
+    args += [torch.ones(n, dtype=torch.bool),
+             gumbel_noise((512, n), torch.Generator().manual_seed(20), "cpu")]
+    cpu = ransac_homography(*args, threshold=3.0)
+    card_args = [a.to(dev) for a in args]
+    card = ransac_homography(*card_args, threshold=3.0)
+    again = ransac_homography(*card_args, threshold=3.0)
+    torch.cuda.synchronize()
+    for k in card:
+        if not torch.equal(card[k], again[k]):
+            raise SystemExit(f"ransac_homography on the card is not "
+                             f"repeatable: {k} differs")
+
+    def corners(Ha, Hb):
+        c = np.array([[0, 0, 1], [512, 0, 1], [0, 512, 1], [512, 512, 1.0]])
+        a, b = c @ np.asarray(Ha, float).T, c @ np.asarray(Hb, float).T
+        return float(np.linalg.norm(a[:, :2] / a[:, 2:] - b[:, :2]
+                                    / b[:, 2:], axis=1).max())
+    H_card = card["H"].cpu().numpy()
+    err_true = corners(H_card, H_true)
+    err_cpu = corners(H_card, cpu["H"].numpy())
+    e = np.linalg.norm((np.c_[p1, np.ones(n)] @ H_card.T)[:, :2]
+                       / (np.c_[p1, np.ones(n)] @ H_card.T)[:, 2:] - p2,
+                       axis=1)
+    away = np.abs(e - 3.0) > 1e-3
+    n_diff = int((card["inliers"].cpu().numpy() != cpu["inliers"].numpy())
+                 [away].sum())
+    if err_true >= 2.0 or err_cpu >= 0.01 or n_diff:
+        raise SystemExit(f"planted RANSAC: corner error {err_true} px to the "
+                         f"true H, {err_cpu} px to the CPU's, {n_diff} "
+                         f"inlier flags differ away from the threshold")
+    ms = cuda_ms(lambda: ransac_homography(*card_args, threshold=3.0),
+                 [()] * 5)
+    res = {"corner_err_px": err_true, "card_vs_cpu_px": err_cpu,
+           "n_inliers": int(card["n_inliers"]), "planted_inliers": n_in,
+           "ms": ms}
+    print(f"planted RANSAC (1024 matches, 70% inliers, 512 hypotheses): "
+          f"{res}; bit-equal on a second run", flush=True)
+    return res
+
+
+def phase_eval(dev, workdir, module, phase3_latency_ms, stages, depths):
+    """20: evaluation at full width (see the module docstring). K1 and K2
+    are held against their plain versions at the shapes the sweep gives
+    them: K1 at the 256^2 stage shapes with B=1 (one spectrum's image a
+    launch, 2 x depth launches a stage and pair), K2 on one masked
+    256^2 plane of the timing harness."""
+    import cv2
+    print(f"cv2 {cv2.__version__}", flush=True)
+    if not hasattr(cv2, "USAC_MAGSAC"):
+        raise SystemExit("cv2 has no USAC_MAGSAC: the metric sweep's "
+                         "homography estimator")
+    sweep, heatmap = eval_sweep(dev, workdir)
+    k1_rows, k1_tot, k1_err, _ = phase_scan(
+        dev, stages, [2 * d for d in depths], batch=1, tails=False)
+    return {"cv2": cv2.__version__, "sweep": sweep,
+            "k1_stages": k1_rows, "k1_per_pair": k1_tot, "k1_err": k1_err,
+            "k2": k2_on(heatmap, 8, 0.015, "eval 256^2, one plane"),
+            "pipeline_ransac": eval_pipeline_ransac(dev, module,
+                                                    phase3_latency_ms),
+            "ransac_planted": eval_ransac_planted(dev)}
+
+
 def host_modules():
-    """Which of the host data path's modules import on this machine."""
+    """Which of the host data path's modules (and tqdm, which the JAX
+    package's evaluation imports and the port does not) import here."""
     import importlib
     found = {}
-    for name in ("yaml", "h5py", "cv2"):
+    for name in ("yaml", "h5py", "cv2", "tqdm"):
         try:
             importlib.import_module(name)
             found[name] = True
@@ -2222,7 +2572,7 @@ def main():
     stages = [((H // 4 >> i) * (W // 4 >> i), 96 << i) for i in range(4)]
     scan_rows, scan_tot, scan_err, scan_tails = phase_scan(
         dev, stages, [2 * d for d in depths])
-    main_res, probs, _ = phase_main_path(dev)
+    main_res, probs, serve_module = phase_main_path(dev)
     nms_res = phase_nms(probs)
     main_res["nms_sweeps_per_call"] = nms_res["sweeps"]
     # boxes above 16 (the direct instance) on the serving heatmaps and on
@@ -2265,6 +2615,8 @@ def main():
         cnn_pair = phase_cnn_pair(dev, workdir)
         flagship_host = phase_flagship_host(dev, workdir,
                                             train_res["step_ms"])
+        eval_res = phase_eval(dev, workdir, serve_module,
+                              main_res["latency_ms"], train_stages, depths)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -2280,6 +2632,9 @@ def main():
                    "mask unwarp": (k4_prod + k4_export) // 3,
                    "prob unwarp": k4_prod // 3,
                    "prob unwarp, 2 maps": k4_export // 3}
+    # both sweeps are checked to launch what the code predicts: the MAGSAC
+    # sweep's counts stand for the path's
+    eval_launches = eval_res["sweep"]["magsac"]["launches"]
     k1 = {"route": "cuda",
           "source": "xpoint_tpu_torch/csrc/selective_scan_bidir.cu",
           "replaces": "xpoint_tpu/ops/selective_scan_pallas.py:306",
@@ -2403,6 +2758,21 @@ def main():
          "max_abs_err": k6_err, "ms": k6_tot["ms"],
          "plain_ms": k6_tot["plain_ms"], "bound_ms": k6_tot["bound_ms"],
          "bound_by": "bytes", "library_ms": None},
+        {"name": "selective_scan_bidir", "path": "eval (256^2, B=1)", **k1,
+         "launches": eval_launches["selective_scan_bidir"],
+         "max_abs_err": eval_res["k1_err"],
+         "ms": eval_res["k1_per_pair"]["ms"],
+         "ms_with_host_launch": eval_res["k1_per_pair"][
+             "ms_with_host_launch"],
+         "plain_ms": eval_res["k1_per_pair"]["plain_ms"],
+         "bound_ms": eval_res["k1_per_pair"]["bound_ms"]},
+        {"name": "nms_sweep", "path": "eval (256^2, one plane)",
+         "route": "cuda", "source": "xpoint_tpu_torch/csrc/nms_sweep.cu",
+         "replaces": "xpoint_tpu/ops/nms.py:36",
+         "launches": eval_launches["nms_sweep"], "max_abs_err": 0.0,
+         "ms": eval_res["k2"]["ms"], "plain_ms": eval_res["k2"]["plain_ms"],
+         "bound_ms": eval_res["k2"]["bound_ms"],
+         "bound_by": eval_res["k2"]["bound_by"], "library_ms": None},
     ]
     print("details: " + json.dumps(
         {"card": card, "build_s": build_s, "k1_stages": scan_rows,
@@ -2420,7 +2790,8 @@ def main():
          "forward_type_train_references": trefs, "host_modules": host,
          "cnn_synth_pretrain": synth_res, "cnn_train_reference": cnn_ref,
          "cnn_export": cnn_export, "cnn_pair": cnn_pair,
-         "flagship_host_data": flagship_host}), flush=True)
+         "flagship_host_data": flagship_host, "eval": eval_res}),
+        flush=True)
     print("serve: K1 ms/plain_ms/bound_ms are per pipeline call (sum over "
           "stage shapes x launches), K2's per call (one launch runs every "
           "sweep; bound_sweep_bytes_ms: 6 B a pixel a sweep at the memory "
@@ -2442,7 +2813,10 @@ def main():
           "launches of phase 19 (its 16 steps), times those of phase 6 (the "
           "same shapes); nms_sweep at sizes 24 and 32: the direct instance "
           "on phase 3's heatmaps, launches per call (no path runs these "
-          "sizes)",
+          "sizes); eval: launches of phase 20's MAGSAC sweep (38 pair "
+          "forwards, the device sweep's are equal), K1 times per pair (sum "
+          "over the 256^2 stage shapes at B=1 x 4 launches), K2's per call "
+          "on one masked 256^2 plane of the timing harness",
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -277,7 +277,7 @@ def test_dicttools_match_jax(tmp_path):
         (tmp_path / port_utils.get_new_filename(str(tmp_path), name)).touch()
 
 
-def test_get_dataset_raises_for_the_host_data_path():
+def test_get_dataset_builds_the_host_datasets():
     """The host data path is ported: get_dataset raises where the JAX
     package's raises (a pair dataset without its files, an unknown type)
     and builds SyntheticShapes from its defaults."""

@@ -321,5 +321,5 @@ def test_photometric_augmentation_raises():
     cfg = dict(VMAMBA_TRAIN_CFG['dataset'], height=64, width=64)
     cfg['augmentation'] = {'photometric': {'enable': True},
                            'homographic': {'enable': False}}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="use the host data path"):
         make_resident_batch_fn(cfg, {'shape': (64, 64), 'k': 0, 'n': 1})

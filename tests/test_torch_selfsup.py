@@ -281,8 +281,12 @@ def test_inference_forwards():
     prob, desc = infer.forward_single(img_o, True)
     np.testing.assert_allclose(prob, prob_o, atol=1e-6)
     np.testing.assert_allclose(desc, desc_o, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="subpixel"):
-        XPointInference(tm, {"subpixel": True})
+    sub = XPointInference(tm, {"subpixel": True, "nms": 4})
+    p_nms = sub.nms(prob_o)
+    kps = sub.keypoints_from_prob(p_nms[0], prob_raw=prob_o[0])
+    ints = sub.keypoints_from_prob(p_nms[0])
+    assert kps.dtype == np.float32 and kps.shape == ints.shape
+    assert len(kps) > 0 and np.abs(kps - ints).max() <= 0.5
 
 
 EXPORT_CASES = {

@@ -301,7 +301,8 @@ def test_committed_checkpoint_through_the_bridge():
     assert np.abs(probs["optical"] - probs["thermal"]).max() > 1e-3
 
 
-def test_trainer_raises_for_what_is_not_ported(tmp_path):
+def test_trainer_builds_host_datasets_and_raises_for_a_pretrained_checkpoint(
+        tmp_path):
     """A pretrained encoder checkpoint to load raises NotImplementedError
     naming its ROADMAP item; a pretrained block without a checkpoint trains
     from scratch, as in JAX. The datasets the host data path builds are

@@ -1,11 +1,14 @@
 """XPoint on PyTorch and CUDA (NVIDIA H100): the port of ``xpoint_tpu``.
 
-This package holds the serving path (detect + describe + match), the
-training step, homographic adaptation and the label export of the flagship
-VMamba XPoint and of the full cycle's CNN models (two spectrum encoders,
-per-spectrum BatchNorm), the Trainer with its checkpoints, ``model_io``
-and config files, with hand-written Hopper kernels for the TPU kernels on
-those paths:
+This package holds the serving path (detect + describe + match, and the
+homography by RANSAC on the device), the training step, homographic
+adaptation and the label export of the flagship VMamba XPoint and of the
+full cycle's CNN models (two spectrum encoders, per-spectrum BatchNorm),
+the Trainer with its checkpoints, ``model_io`` and config files, the host
+data path, and evaluation (the metrics, the metric sweep and timing
+harness, and the ``benchmark`` entry point, ``python -m
+xpoint_tpu_torch.cli.benchmark``), with hand-written Hopper kernels for the
+TPU kernels on those paths:
 
   * ``ops.selective_scan_cuda`` / ``csrc/selective_scan_bidir.cu`` replaces
     ``xpoint_tpu/ops/selective_scan_pallas.py::_fused_bidir_kernel``

@@ -8,7 +8,7 @@ so the host only launches work. Semantics follow the host path per op,
 including its quirk that random_pairs does not swap the keypoints
 (image_pair.py:224-233). Draws come from the ``torch.Generator`` passed in.
 Sharding over several devices (the JAX ``mesh``) is not ported (ROADMAP.md
-Queue 1 item 12).
+Queue 1 item 9).
 """
 import numpy as np
 import torch
@@ -73,8 +73,9 @@ def make_resident_batch_fn(dataset_cfg, meta, hm_input=False):
     aug = dataset_cfg['augmentation']
     if aug['photometric'].get('enable'):
         raise NotImplementedError(
-            "photometric augmentation runs on the host path, which is not "
-            "ported (ROADMAP.md Queue 1 item 7); disable it")
+            "device_data supports homographic augmentation on the device; "
+            "photometric augmentation runs on the host data path: disable "
+            "it or use the host data path")
     hom = aug['homographic']
     augment = (make_pair_augment(
         (h, w), dict(hom.get('params') or {}),

@@ -1,15 +1,16 @@
-"""Detect + describe + match for an image pair (port of
-``xpoint_tpu/eval/pipeline.py::make_pair_pipeline``, without RANSAC).
+"""Detect + describe + match (+ register) for an image pair (port of
+``xpoint_tpu/eval/pipeline.py::make_pair_pipeline``).
 
 forward(optical) + forward(thermal) (each through its own spectrum's
 route: encoder and statistics of a multispectral model) -> cell softmax +
 depth-to-space -> box-NMS (both spectra in one call) -> top-k keypoints ->
-bilinear descriptor sampling -> mutual-NN matching. The JAX per-sample
-vmap is a batch dimension here. Homography estimation
-(``estimate_homography``) is not ported yet (ROADMAP.md Queue 1 item 9).
+bilinear descriptor sampling -> mutual-NN matching -> optionally the
+homography by RANSAC on the device (``geometry.ransac``). The JAX
+per-sample vmap is a batch dimension here.
 """
 import torch
 
+from ..geometry.ransac import gumbel_noise, ransac_homography
 from ..ops.descriptor import interpolate_descriptors
 from ..ops.detector import prob_from_logits
 from ..ops.matching import mnn_match
@@ -18,17 +19,26 @@ from ..ops.nms import box_nms_extract
 
 def make_pair_pipeline(module, image_shape, k=1024, nms_size=8,
                        detection_threshold=0.015, iou=0.1,
-                       match_threshold=None, cross_check=True, ratio=8):
-    """Returns fn(img_o, img_t) -> dict of tensors on the module's device.
+                       match_threshold=None, cross_check=True, ratio=8,
+                       estimate_homography=False, ransac_iters=512,
+                       ransac_threshold=3.0):
+    """Returns fn(img_o, img_t, generator=None) -> dict of tensors on the
+    module's device.
 
     Images: (B, H, W, 1). Output keys are those of the JAX pipeline:
     prob_*, keypoints_*, scores_*, mask_*, desc_* for both spectra, and
-    match_idx, match_dist, matched.
+    match_idx, match_dist, matched. With ``estimate_homography`` the
+    registration homography is fitted on the device too, from the matched
+    points in (x, y) with the match distances as the PROSAC quality, and
+    the output gains H_est (B, 3, 3), ransac_inliers, ransac_score and
+    ransac_n_inliers. Each sample's RANSAC noise is drawn from
+    ``generator`` (default: a generator on the device seeded with 0), where
+    the JAX pipeline splits one key a sample.
     """
     H, W = image_shape
 
     @torch.no_grad()
-    def run(img_o, img_t):
+    def run(img_o, img_t, generator=None):
         B = img_o.shape[0]
         pred_o = module(img_o, "optical")
         pred_t = module(img_t, "thermal")
@@ -41,7 +51,24 @@ def make_pair_pipeline(module, image_shape, k=1024, nms_size=8,
         d_t = interpolate_descriptors(kps_t.float(), pred_t["desc"], (H, W))
         idx2, dist, matched = mnn_match(d_o, d_t, m[:B], m[B:],
                                         match_threshold, cross_check)
+        extra = {}
+        if estimate_homography:
+            dev = kps_o.device
+            if generator is None:
+                generator = torch.Generator(device=dev).manual_seed(0)
+            p1 = kps_o.float().flip(-1)
+            p2 = torch.gather(kps_t.float(), 1,
+                              idx2.long()[..., None].expand(-1, -1, 2)
+                              ).flip(-1)
+            g = gumbel_noise((B, ransac_iters, kps_o.shape[1]), generator,
+                             dev)
+            r = ransac_homography(p1, p2, matched, g,
+                                  threshold=ransac_threshold, quality=dist)
+            extra = {"H_est": r["H"], "ransac_inliers": r["inliers"],
+                     "ransac_score": r["score"],
+                     "ransac_n_inliers": r["n_inliers"]}
         return {
+            **extra,
             "prob_optical": prob_o, "prob_thermal": prob_t,
             "keypoints_optical": kps_o, "keypoints_thermal": kps_t,
             "scores_optical": sc[:B], "scores_thermal": sc[B:],

@@ -14,7 +14,7 @@
 Config schema identical to the reference ``loss:`` YAML section. Random
 draws (the hard-assignment tiebreak) come from the ``torch.Generator``
 passed in; in soft-assignment mode they only feed the diagnostics. The
-sparse descriptor loss is not ported (ROADMAP.md Queue 1 item 6).
+sparse descriptor loss is not ported (ROADMAP.md Queue 1 item 3).
 """
 import copy
 
@@ -51,7 +51,7 @@ DEFAULT_CONFIG = {
     'homography_regression_loss': {'check': False, 'gamma': 1.0},
 }
 
-_SPARSE_ITEM = "ROADMAP.md Queue 1 item 6 (sparse descriptor loss)"
+_SPARSE_ITEM = "ROADMAP.md Queue 1 item 3 (sparse descriptor loss)"
 
 
 def _weighted_ce(logits, target, class_weights):

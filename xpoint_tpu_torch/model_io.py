@@ -22,7 +22,8 @@ def load_model(model_dir, version="latest", model_override=None,
                device="cuda"):
     """Returns (module, merged_config): the module in eval mode on
     ``device``. ``model_override`` deep-merges over the stored model config
-    (e.g. disabling the hm head)."""
+    (e.g. disabling the hm head: the checkpoint's head weights are then
+    not loaded, as flax ignores parameters its module does not use)."""
     params = load_yaml(os.path.join(model_dir, "params.yaml"))
     model_cfg = params["model"]
     if model_override:
@@ -36,6 +37,9 @@ def load_model(model_dir, version="latest", model_override=None,
         if os.path.exists(path):
             sd = torch.load(path, map_location="cpu",
                             weights_only=True)["module"]
+            if not hasattr(module, "hm_regressor"):
+                sd = {k: v for k, v in sd.items()
+                      if not k.startswith("hm_regressor.")}
             module.load_state_dict(sd, strict=True)
         elif os.path.exists(os.path.join(model_dir, f"{version}.model")):
             raise NotImplementedError(

@@ -7,7 +7,7 @@ bias, forward and backward. The flagship ``v05_noz`` with N = 1 runs the
 flip-free token-major bidirectional scan; ``v051d`` / ``v052d`` with N = 1
 run ``cross_scan``, the single-direction fused scan and ``cross_merge``;
 N > 1 and cascade2d run ``ops.selective_scan.selective_scan``. ``SS2Dv3``
-(xv) and ``SS2Dm0`` raise NotImplementedError (ROADMAP.md, Queue 1 item 10).
+(xv) and ``SS2Dm0`` raise NotImplementedError (ROADMAP.md, Queue 1 item 7).
 
 Submodule and parameter names follow the flax module tree, so the weight
 bridge (``compat.from_flax``) maps names one to one. Parameters are fp32;
@@ -32,7 +32,7 @@ from ..ops.gridops import depth_to_space
 from ..ops.selective_scan import selective_scan
 from ..ops.selective_scan_cuda import scan_bidir, selective_scan_fused_bkld
 
-_ROADMAP_ITEM = "ROADMAP.md Queue 1 item 10 (other encoders and forward types)"
+_ROADMAP_ITEM = "ROADMAP.md Queue 1 item 7 (other encoders and forward types)"
 
 
 def layer_norm(norm, x):

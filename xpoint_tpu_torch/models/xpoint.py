@@ -12,8 +12,8 @@ the spectrum too, for their per-spectrum statistics
 DropPath and Dropout between their train and eval behaviour (the JAX
 ``train`` flag); their randomness comes from the ``torch.Generator``
 passed to the forward. Not ported yet, and raising NotImplementedError:
-the Swin encoder and the HomographyNet head (ROADMAP.md Queue 1 item 10),
-and the pretrained-encoder YAML merge (Queue 1 item 7).
+the Swin encoder, the HomographyNet head and the pretrained-encoder YAML
+merge (ROADMAP.md Queue 1 item 7).
 """
 import copy
 import os
@@ -366,14 +366,14 @@ def build_xpoint(config=None, dtype=None, device="cuda", seed=0):
     else:
         raise NotImplementedError(
             f"encoder {ua.get('type')}: only the CNN and VMamba encoders "
-            f"are ported (Swin: ROADMAP.md Queue 1 item 10)")
+            f"are ported (Swin: ROADMAP.md Queue 1 item 7)")
     hm = cfg.get('homography_regression_head', {})
     hm_head = None
     if hm.get('check'):
         if hm.get('type', 'RegNet') != 'RegNet':
             raise NotImplementedError(
                 f"homography head {hm.get('type')}: only RegNet is ported "
-                f"(HomographyNet: ROADMAP.md Queue 1 item 10)")
+                f"(HomographyNet: ROADMAP.md Queue 1 item 7)")
         hm_head = RegNet(enc_channels, dtype=dtype)
     module = XPointNet(
         make_encoder, encoder_type, enc_channels, head_channels,

@@ -254,3 +254,20 @@ def box_nms_extract(prob, size, min_prob, iou=0.1, k=1024):
         scores = torch.nn.functional.pad(scores, (0, pad))
         mask = torch.nn.functional.pad(mask, (0, pad))
     return kps, scores, mask
+
+
+def extract_keypoints(prob_nms, k, min_prob=0.0):
+    """The k highest scores of an NMS'd (H, W) or (B, H, W) heatmap
+    (``xpoint_tpu/ops/nms.py::extract_keypoints``): keypoints (..., k, 2)
+    int32 (row, col), scores (..., k) and mask (..., k), padding rows
+    zero. Ties take the lower flat index first, as ``jax.lax.top_k`` does
+    (a stable descending sort; ``torch.topk`` promises no tie order)."""
+    H, W = prob_nms.shape[-2:]
+    flat = prob_nms.reshape(*prob_nms.shape[:-2], H * W)
+    scores, idx = torch.sort(flat, dim=-1, descending=True, stable=True)
+    scores, idx = scores[..., :k], idx[..., :k]
+    mask = scores > min_prob
+    kps = torch.stack([idx // W, idx % W], dim=-1).int()
+    kps = torch.where(mask[..., None], kps, torch.zeros_like(kps))
+    scores = torch.where(mask, scores, torch.zeros_like(scores))
+    return kps, scores, mask

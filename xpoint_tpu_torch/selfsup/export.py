@@ -10,8 +10,9 @@ sink already holds; a backup is taken every ``frequency`` steps.
     python -m xpoint_tpu_torch.selfsup.export -o labels.npz [--samples 4]
 
 exports labels for the seeded synthetic corpus with a seeded, untrained
-flagship model (no checkpoint or dataset is in the repository; loading them
-needs ``model_io`` and the HDF5 data path, ROADMAP.md Queue 1 items 6-7).
+flagship model (no checkpoint or dataset is in the repository; the
+export CLI that loads them, ``cli/export_keypoints.py``, is ROADMAP.md
+Queue 1 item 6).
 """
 import argparse
 import os

@@ -15,7 +15,7 @@ homographies per step, under ``torch.no_grad()``; its warps go through
 ``ops/warp_projective.py`` (the projective-warp kernel on the card, the
 plain gather on the CPU, at any image size). Images and probability
 maps are channels-last / (B, H, W), as on the JAX side. The mesh-sharded
-variant (``make_sharded_ha_fn``) is not ported (ROADMAP.md Queue 1 item 12).
+variant (``make_sharded_ha_fn``) is not ported (ROADMAP.md Queue 1 item 9).
 """
 import copy
 from math import pi
