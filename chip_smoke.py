@@ -148,9 +148,9 @@ data path, in a scratch directory under build/ that is removed at the end:
      in pair mode with 256^2 crops, host homographic augmentation and the
      hm-regression input, B=16, 8 loader workers, through the Trainer, on a
      folder corpus (optical/, thermal/) of 128 SyntheticPairs at 512^2
-     written as PNG files here (labels: SyntheticPairs' keypoints through a
-     subclass, since labels come from HDF5); get_dataset on the same
-     folder config once; the first batch with 1 and 8 workers bit for bit;
+     written as PNG files here (labels: SyntheticPairs' keypoints in an
+     .npz label file, keypoints_filename); get_dataset on the same folder
+     config without labels once; the first batch with 1 and 8 workers bit for bit;
      a warm-up epoch and a measured one of 8 steps, each under the sync
      check, finite, none skipped, 16 K1 and 16 K3 launches a step (counts
      zeroed just before, read just after); ms a step beside phase 7's,
@@ -190,6 +190,30 @@ data path, in a scratch directory under build/ that is removed at the end:
      1 px noise): corner error to the known H under 2 px, the card's H
      within 0.01 px of the CPU's on the same Gumbel array with the same
      inliers away from the threshold, a second run bit for bit, its time;
+ 21. the port's full cycle at the smoke size: python -m
+     xpoint_tpu_torch.tools.full_cycle (4 train and 2 test pairs at 256^2,
+     20 cached synthetic samples, 2 pretrain and 2 pair epochs, HA with 5
+     warps) on the card, its seven stages each a process of its own with
+     $XPOINT_TORCH_RUN_REPORT set: the metrics JSON read back with the JAX
+     file's keys and nesting (homography_device included), finite and in
+     range; the stages in order, none of which imported h5py; each stage's
+     wall seconds; the K4 and K2 launches each stage's process counted
+     against what the code predicts (3 K4 calls a chunk of warps and 2 NMS
+     calls an exported pair; 1 + 2 x 2 x 2 NMS calls a sweep); then, in
+     this process, the masked (1, 256, 256) planes the sweep's timing
+     harness hands NMS, from the cycle's model and eval config: K2 exact
+     against its plain version at NMS 4 on each, with times; K4 against
+     its plain version at the export's three calls (4 warps at 256^2);
+ 22. the other entry points on phase 19's flagship checkpoint through
+     their main(): predict_keypoints (-p) and predict_align_image_pair
+     (-p) on pair 3 of phase 19's folder corpus at 512^2 (phase 20's
+     config, MAGSAC), the demo (no --plot) on that pair's PNGs, and
+     export_keypoints (window, 5 warps) on two pairs, then with -skip on
+     three: one pair exported, none twice; the K1 / K2 / K4 launches of
+     each against what the code predicts (counts zeroed before, read
+     after); K2 exact on one 512^2 plane at size 8, K1 at the 512^2 stage
+     shapes with B=1 and K4 at the export's three calls (4 warps at 512^2)
+     against their plain versions, with times;
 then a details JSON line, the per-kernel JSON line, the card line and the
 final JSON line.
 """
@@ -891,30 +915,37 @@ def phase_train_reference(dev, forward_type=None, d_state=1, ran=()):
 HA_S, HA_WB = 512, 8            # the HA image size and warps per step
 
 
-def _ha_homography_sets(n_sets, dev):
-    """n_sets stacks of HA_WB fp32 homographies at HA_S^2: six from the HA
+def _ha_homography_sets(n_sets, dev, S=HA_S, n=HA_WB):
+    """n_sets stacks of n fp32 homographies at S^2: n - 2 from the HA
     sampler (max_angle pi), a rotation 0.05 rad short of 90 degrees about
     the image centre, and the identity."""
     from xpoint_tpu_torch.geometry.homography import sample_homography
     from xpoint_tpu_torch.selfsup.homographic_adaptation import (
         HA_DEFAULT_CONFIG)
     rng = np.random.default_rng(9)
-    c, th = (HA_S - 1) / 2.0, math.pi / 2 - 0.05
+    c, th = (S - 1) / 2.0, math.pi / 2 - 0.05
     rot = np.array([[math.cos(th), -math.sin(th), 0],
                     [math.sin(th), math.cos(th), 0], [0, 0, 1]])
     shift = np.array([[1, 0, c], [0, 1, c], [0, 0, 1]])
     near90 = shift @ rot @ np.linalg.inv(shift)
     sets = []
     for _ in range(n_sets):
-        hs = [sample_homography((HA_S, HA_S), rng=rng,
+        hs = [sample_homography((S, S), rng=rng,
                                 **HA_DEFAULT_CONFIG["homographies"])
-              for _ in range(HA_WB - 2)] + [near90, np.eye(3)]
+              for _ in range(n - 2)] + [near90, np.eye(3)]
         sets.append(torch.from_numpy(np.stack(hs).astype(np.float32)).to(dev))
     return sets
 
 
-def phase_warp(dev):
-    """K4 against its plain version at the calls of one HA step."""
+K4_CALLS = (("image warp", True, "bilinear", "reflection", 2),
+            ("prob unwarp", False, "bilinear", "zeros", 1),
+            ("prob unwarp, 2 maps", False, "bilinear", "zeros", 2),
+            ("mask unwarp", False, "nearest", "zeros", 1))
+
+
+def phase_warp(dev, S=HA_S, n=HA_WB, calls=K4_CALLS, odd_size=True):
+    """K4 against its plain version at the calls of one HA step (n warps
+    at S^2), then at an odd size."""
     import torch.nn.functional as F
     from xpoint_tpu_torch.geometry.homography import (
         compute_valid_mask_device)
@@ -924,15 +955,10 @@ def phase_warp(dev):
     from xpoint_tpu_torch.ops.warp_projective import (warp_batch,
                                                       warp_projective)
     g = torch.Generator(device=dev).manual_seed(3)
-    S, n = HA_S, HA_WB
-    h_sets = _ha_homography_sets(6, dev)
+    h_sets = _ha_homography_sets(6, dev, S, n)
     delay = queued_delay(dev)
     rows = []
-    for name, multi, mode, padding, C in (
-            ("image warp", True, "bilinear", "reflection", 2),
-            ("prob unwarp", False, "bilinear", "zeros", 1),
-            ("prob unwarp, 2 maps", False, "bilinear", "zeros", 2),
-            ("mask unwarp", False, "nearest", "zeros", 1)):
+    for name, multi, mode, padding, C in calls:
         inputs = []
         for hs in h_sets:
             if multi:
@@ -1026,7 +1052,7 @@ def phase_warp(dev):
         if lib_share > 1e-2 if mode == "nearest" else lib_mean > 1e-3:
             raise SystemExit(f"grid_sample does not compute the {name}: "
                              f"mean {lib_mean}, share {lib_share}")
-    return rows, warp_odd_size_check(g, dev)
+    return rows, (warp_odd_size_check(g, dev) if odd_size else None)
 
 
 def warp_odd_size_check(g, dev):
@@ -1066,18 +1092,12 @@ def warp_odd_size_check(g, dev):
 
 
 def _zero_counts():
-    from xpoint_tpu_torch.ops.nms import grid_nms_keep
-    from xpoint_tpu_torch.ops.linear_scan import linear_scan
-    from xpoint_tpu_torch.ops.selective_scan_cuda import (
-        selective_scan_bidir, selective_scan_bidir_bwd,
-        selective_scan_fused_bkld)
-    from xpoint_tpu_torch.ops.warp_projective import warp_projective
-    fns = {"warp_projective": warp_projective,
-           "selective_scan_bidir": selective_scan_bidir,
-           "selective_scan_bidir_bwd": selective_scan_bidir_bwd,
-           "nms_sweep": grid_nms_keep,
-           "selective_scan_fused": selective_scan_fused_bkld,
-           "linear_scan": linear_scan}
+    """Set every kernel wrapper's launch count to 0; returns the function
+    that reads them."""
+    import importlib
+    from xpoint_tpu_torch.cli._common import KERNEL_COUNTERS
+    fns = {name: getattr(importlib.import_module(mod), fn)
+           for name, (mod, fn) in KERNEL_COUNTERS.items()}
     for f in fns.values():
         f.launches = 0
     return lambda: {k: f.launches for k, f in fns.items()}
@@ -2087,23 +2107,15 @@ def _equal_batches(a, b, path="batch"):
 
 def phase_flagship_host(dev, workdir, phase7_step_ms):
     """19: the flagship config's own training path, on the host data path
-    (see the module docstring). ImagePairDataset reads keypoint labels from
-    HDF5, which this machine cannot open (no h5py), so the corpus's labels,
-    SyntheticPairs' keypoints, come through a subclass that overrides the
-    label loader; everything else is the config's own dataset section."""
+    (see the module docstring). The corpus's labels, SyntheticPairs'
+    keypoints, are an .npz file (this machine has no h5py); everything else
+    is the config's own dataset section."""
     import cv2
     from xpoint_tpu_torch.data import DataLoader, ImagePairDataset, get_dataset
+    from xpoint_tpu_torch.data.group_file import write_npz_groups
     from xpoint_tpu_torch.data.synthetic_pairs import SyntheticPairs
     from xpoint_tpu_torch.models import VMAMBA_TRAIN_CFG
     from xpoint_tpu_torch.trainer import Trainer, batch_to_device_pair
-
-    class LabelledFolderPairs(ImagePairDataset):
-        def __init__(self, config, keypoints):
-            super().__init__(config)
-            self.keypoints = keypoints
-
-        def _load_keypoints(self, index):
-            return self.keypoints[index]
 
     root = f"{workdir}/flagship_corpus"
     pairs = SyntheticPairs(n_pairs=FLAGSHIP_N, size=FLAGSHIP_SIZE, n_kp=256,
@@ -2115,6 +2127,9 @@ def phase_flagship_host(dev, workdir, phase7_step_ms):
         for i, img in enumerate(images):
             cv2.imwrite(f"{root}/{side}/{i:04d}.png",
                         np.round(img * 255).astype(np.uint8))
+    labels = f"{workdir}/flagship_labels.npz"
+    write_npz_groups(labels, {f"{i:04d}.png": {"keypoints": kp}
+                              for i, kp in enumerate(pairs.kps)})
     write_s = time.time() - t0
     cfg = copy.deepcopy(VMAMBA_TRAIN_CFG)
     ds_cfg = cfg["dataset"]
@@ -2138,7 +2153,9 @@ def phase_flagship_host(dev, workdir, phase7_step_ms):
         raise SystemExit("get_dataset on the flagship's folder config built "
                          "an unexpected dataset or sample")
 
-    dataset = LabelledFolderPairs(ds_cfg, pairs.kps)
+    dataset = get_dataset(dict(ds_cfg, keypoints_filename=labels))
+    if not np.array_equal(dataset._load_keypoints(5), pairs.kps[5]):
+        raise SystemExit("the .npz labels do not read back as written")
     firsts = []
     for n in (1, workers):
         dataset.set_epoch(0, 0)
@@ -2258,6 +2275,27 @@ def _check_keys(tree, keys, path="json"):
             _check_keys(tree[k], sub, f"{path}[{k!r}]")
 
 
+def _check_metrics(res, n_pairs, what, curves=("homography",)):
+    """The benchmark JSON's unit metrics finite in [0, 1], the corner
+    errors in [0, 999], n_pairs keypoint counts."""
+    unit = [res["repeatability"][t] for t in res["repeatability"]]
+    for d in res["descriptor"].values():
+        unit += list(d.values())
+    errs = []
+    for curve in curves:
+        h = res[curve]["2"]
+        if sorted(h["h_correctness"]) != sorted(
+                f"epsilon_warp_th{t}" for t in range(1, 11)):
+            raise SystemExit(f"{what}: {curve} has thresholds "
+                             f"{sorted(h['h_correctness'])}")
+        unit += list(h["h_correctness"].values())
+        errs.append(h["average_h_error"])
+    if (not all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in unit)
+            or not all(0.0 <= e <= 999.0 for e in errs)
+            or len(res["n_kp_optical"]) != n_pairs):
+        raise SystemExit(f"{what} wrote metrics out of range: {res}")
+
+
 def _timed_attr(obj, name, times):
     """Wrap obj.name to append each call's wall seconds to ``times``;
     returns the function that restores it."""
@@ -2331,18 +2369,8 @@ def eval_sweep(dev, workdir):
         with open(out_path) as f:
             res = json.load(f)
         _check_keys(res, EVAL_KEYS)
+        _check_metrics(res, EVAL_SAMPLES, f"the {est} sweep")
         h = res["homography"]["2"]
-        unit = [res["repeatability"][t] for t in res["repeatability"]]
-        for d in res["descriptor"].values():
-            unit += list(d.values())
-        unit += list(h["h_correctness"].values())
-        if (not all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in unit)
-                or not 0.0 <= h["average_h_error"] <= 999.0
-                or sorted(h["h_correctness"]) != sorted(
-                    f"epsilon_warp_th{t}" for t in range(1, 11))
-                or len(res["n_kp_optical"]) != EVAL_SAMPLES):
-            raise SystemExit(f"the {est} sweep wrote metrics out of range: "
-                             f"{res}")
         stage_ms = {k: 1e3 * sum(v) / len(v)
                     for k, v in res["timing_seconds"].items()}
         runs[est] = {
@@ -2526,6 +2554,231 @@ def phase_eval(dev, workdir, module, phase3_latency_ms, stages, depths):
             "ransac_planted": eval_ransac_planted(dev)}
 
 
+# the full cycle at its smoke size (phase 21): seven stage processes
+CYCLE_ARGS = ["--n-train", "4", "--n-test", "2", "--size", "256",
+              "--synth-epochs", "2", "--synth-samples", "20",
+              "--pair-epochs", "2", "--ha-num", "5"]
+CYCLE_TEST_PAIRS, CYCLE_TRAIN_PAIRS, CYCLE_WARPS = 2, 4, 4
+CYCLE_STAGES = ["make_mini_corpus", "synthetic_set", "train",
+                "export_keypoints", "train", "benchmark", "benchmark"]
+CYCLE_KEYS = dict(EVAL_KEYS, homography_device=EVAL_KEYS["homography"])
+CYCLE_TIMEOUT_S = 600
+
+
+def _eval_planes(dev, eval_yaml, model_dir):
+    """The masked (1, H, W) planes the benchmark's timing harness hands
+    NMS for one test pair, run in this process on the model and config of
+    a cycle's evaluation."""
+    from types import SimpleNamespace
+    from xpoint_tpu_torch.cli._common import load_eval_setup
+    from xpoint_tpu_torch.eval.benchmark import timing_harness
+    from xpoint_tpu_torch.eval.infer import XPointInference
+    ns = SimpleNamespace(yaml_config=eval_yaml, model_dir=model_dir,
+                         version="latest", yaml_variable=None, device=dev)
+    config, _, infer, dataset = load_eval_setup(ns,
+                                                single_image_override=False)
+    planes, nms = [], XPointInference.nms
+
+    def keep(self, prob):
+        if isinstance(prob, torch.Tensor):
+            planes.append(prob)
+        return nms(self, prob)
+    XPointInference.nms = keep
+    try:
+        timing_harness(infer, dataset, [0], config, n_warmup=0)
+    finally:
+        XPointInference.nms = nms
+    return planes, config["prediction"]
+
+
+def phase_cycle(dev, workdir):
+    """21: the port's full cycle at the smoke size, each stage a process
+    of its own (see the module docstring)."""
+    from xpoint_tpu_torch.cli._common import RUN_REPORT_ENV
+    from xpoint_tpu_torch.tools.cycle_report import report as cycle_report
+    work, reports = f"{workdir}/cycle", f"{workdir}/cycle_reports"
+    log = f"{workdir}/cycle_log.txt"
+    env = dict(os.environ, **{RUN_REPORT_ENV: reports})
+    t0 = time.perf_counter()
+    with open(log, "w") as f:
+        proc = subprocess.run(
+            [sys.executable, "-m", "xpoint_tpu_torch.tools.full_cycle",
+             "--work", work, *CYCLE_ARGS, "--device", str(dev)],
+            cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+            stdout=f, stderr=subprocess.STDOUT, timeout=CYCLE_TIMEOUT_S)
+    total_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        with open(log) as f:
+            tail = f.read()[-4000:]
+        raise SystemExit(f"the full cycle failed ({proc.returncode}):\n{tail}")
+    with open(f"{work}/mini_corpus_metrics.json") as f:
+        res = json.load(f)
+    _check_keys(res, CYCLE_KEYS)
+    _check_metrics(res, CYCLE_TEST_PAIRS, "the full cycle",
+                   ("homography", "homography_device"))
+    rep = cycle_report(work, reports, log)
+    stages = [r["stage"] for r in rep["stages"]]
+    if stages != CYCLE_STAGES:
+        raise SystemExit(f"the cycle ran the stages {stages}, expected "
+                         f"{CYCLE_STAGES}")
+    if any(r["h5py_imported"] for r in rep["stages"]):
+        raise SystemExit(f"a stage of the cycle imported h5py: "
+                         f"{rep['stages']}")
+    # one launch of each kernel per call, counted in each stage's own
+    # process (its counts start at 0): the export's HA makes 3 K4 calls a
+    # chunk of up to 8 warps and 2 NMS calls a pair; a sweep one NMS call
+    # in the timing harness's warm-up and two a pair after it (both test
+    # pairs timed, then swept); the CNNs run no scan kernel
+    by_stage = {}
+    for r in rep["stages"]:
+        for k, v in r["launches"].items():
+            by_stage.setdefault(r["stage"], {}).setdefault(k, 0)
+            by_stage[r["stage"]][k] += v
+    chunks = -(-CYCLE_WARPS // 8)
+    expect = {"export_keypoints": {"warp_projective":
+                                   3 * chunks * CYCLE_TRAIN_PAIRS,
+                                   "nms_sweep": 2 * CYCLE_TRAIN_PAIRS},
+              "benchmark": {"nms_sweep":
+                            2 * (1 + 2 * 2 * CYCLE_TEST_PAIRS)}}
+    got = {k: v for k, v in by_stage.items() if v}
+    if got != expect:
+        raise SystemExit(f"the cycle's stages launched {got}, the code "
+                         f"predicts {expect}")
+    stage_s = [(r["stage"], r["wall_s"]) for r in rep["stages"]]
+    print(f"full cycle (smoke size, {len(stages)} stage processes): "
+          f"{total_s:.1f} s; stage wall s {stage_s}; labels "
+          f"{rep['labels']}; launches {got} (as predicted); no stage "
+          f"imported h5py; metrics at seed 0 {rep['metrics_seed0']} (a "
+          f"functional check, not an accuracy)", flush=True)
+
+    planes, pred = _eval_planes(dev, f"{work}/eval.yaml",
+                                f"{work}/pair-train")
+    if len(planes) != 2 or tuple(planes[0].shape) != (1, 256, 256):
+        raise SystemExit(f"the cycle's eval handed NMS "
+                         f"{[tuple(p.shape) for p in planes]}")
+    k2 = [k2_on(p, pred["nms"], pred["detection_threshold"],
+                f"cycle eval ({side}, one masked plane)")
+          for p, side in zip(planes, ("optical", "thermal"))]
+    # K4 at the calls of one HA step of the cycle's export: 4 warps at 256^2
+    k4_rows, _ = phase_warp(dev, S=256, n=CYCLE_WARPS, odd_size=False,
+                            calls=[c for c in K4_CALLS
+                                   if c[0] != "prob unwarp"])
+    return {"total_s": total_s, "stage_s": stage_s, "report": rep,
+            "launches": got, "k2": k2[0], "k2_thermal": k2[1],
+            "k4": k4_rows}
+
+
+def phase_clis(dev, workdir, depths):
+    """22: the other entry points on phase 19's flagship checkpoint (see
+    the module docstring), each through its main() in this process, with
+    K1 and K2 held at their shapes (512^2, B=1)."""
+    from xpoint_tpu_torch.cli import (demo, export_keypoints,
+                                      predict_align_image_pair,
+                                      predict_keypoints)
+    from xpoint_tpu_torch.config import load_yaml, save_yaml
+    from xpoint_tpu_torch.data.group_file import open_group_file
+    from xpoint_tpu_torch.eval.infer import XPointInference
+    model = f"{workdir}/flagship"
+    cfg = load_yaml(f"{workdir}/eval_magsac.yaml")
+    cfg["dataset"].update(height=-1, width=-1)      # the PNGs' 512^2
+    cfg["homographic_adaptation"] = {
+        "num": 5, "aggregation": "window", "min_count": 2,
+        "erosion_radius": 5, "mask_border": True}
+    path = f"{workdir}/clis.yaml"
+    save_yaml(cfg, path)
+    out = f"{workdir}/clis"
+    per_forward = sum(depths)              # one K1 launch a block and image
+    base = ["-m", model, "--device", str(dev)]
+    planes, nms = [], XPointInference.nms
+
+    def keep(self, prob):
+        planes.append(torch.as_tensor(prob).to(dev))
+        return nms(self, prob)
+    corpus = f"{workdir}/flagship_corpus"
+    runs = [
+        ("predict_keypoints", lambda: predict_keypoints.main(
+            ["-y", path, "-i", "3", "-p", "-o", out] + base),
+         {"selective_scan_bidir": 2 * per_forward, "nms_sweep": 2}),
+        ("predict_align_image_pair", lambda: predict_align_image_pair.main(
+            ["-y", path, "-i", "3", "-p", "-o", out] + base),
+         {"selective_scan_bidir": 2 * per_forward, "nms_sweep": 2}),
+        ("demo", lambda: demo.main(
+            ["--visible", f"{corpus}/optical/0003.png", "--other",
+             f"{corpus}/thermal/0003.png", "--config", path, "--model-dir",
+             model, "--output", f"{out}/demo", "--device", str(dev)]),
+         {"selective_scan_bidir": 2 * per_forward, "nms_sweep": 2}),
+        # HA with 4 warps in one chunk: two base forwards and two of the
+        # warped stack a pair, 3 K4 calls and 2 NMS calls a pair
+        ("export_keypoints", lambda: export_keypoints.main(
+            ["-y", path, "-o", f"{out}/labels.npz", "--max-samples", "2"]
+            + base),
+         {"selective_scan_bidir": 2 * 4 * per_forward,
+          "warp_projective": 2 * 3, "nms_sweep": 2 * 2}),
+        ("export_keypoints -skip", lambda: export_keypoints.main(
+            ["-y", path, "-o", f"{out}/labels.npz", "--max-samples", "3",
+             "-skip"] + base),
+         {"selective_scan_bidir": 4 * per_forward, "warp_projective": 3,
+          "nms_sweep": 2}),
+    ]
+    res = {}
+    for name, run, expect in runs:
+        XPointInference.nms = keep
+        read = _zero_counts()
+        t0 = time.perf_counter()
+        try:
+            value = run()
+        finally:
+            XPointInference.nms = nms
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = {k: v for k, v in read().items() if v}
+        if launches != expect:
+            raise SystemExit(f"{name} launched {launches}, the code predicts "
+                             f"{expect}")
+        res[name] = {"wall_s": wall_s, "launches": launches}
+        if name == "predict_keypoints":
+            res[name]["keypoints"] = [len(k) for k in value]
+        elif name == "predict_align_image_pair":
+            res[name]["matches"] = len(value[2])
+            res[name]["homography"] = value[3] is not None
+        elif name == "demo":
+            res[name]["keypoints"] = value[0]["keypoints"]
+        else:
+            res[name]["exported"] = value
+        print(f"cli {name} on the flagship: {res[name]}", flush=True)
+    if (res["export_keypoints"]["exported"] != 2
+            or res["export_keypoints -skip"]["exported"] != 1):
+        raise SystemExit("export_keypoints -skip exported a sample twice")
+    with open_group_file(f"{out}/labels.npz") as f:
+        names = f.keys()
+        if names != ["0000.png", "0001.png", "0002.png"] or any(
+                f[n][k].shape[1:] != (2,) for n in names
+                for k in ("keypoints_optical", "keypoints_thermal")):
+            raise SystemExit(f"the exported labels hold {names}")
+    for png in ("keypoints_optical_i3.png", "matches_i3.png",
+                "demo/matches.png"):
+        if not os.path.exists(f"{out}/{png}"):
+            raise SystemExit(f"{png} was not written")
+    plane = planes[0][:1]
+    if tuple(plane.shape) != (1, 512, 512):
+        raise SystemExit(f"predict_keypoints handed NMS {plane.shape}")
+    k2 = k2_on(plane, cfg["prediction"]["nms"],
+               cfg["prediction"]["detection_threshold"],
+               "predict_keypoints (512^2, one plane)")
+    stages = [((512 // 4 >> i) ** 2, 96 << i) for i in range(4)]
+    k1_rows, k1_tot, k1_err, _ = phase_scan(
+        dev, stages, [2 * d for d in depths], batch=1, tails=False)
+    k4_rows, _ = phase_warp(dev, S=512, n=4, odd_size=False,
+                            calls=[c for c in K4_CALLS
+                                   if c[0] != "prob unwarp"])
+    return {"runs": res, "k2": k2, "k1_stages": k1_rows, "k1_per_pair": k1_tot,
+            "k1_err": k1_err, "k4": k4_rows,
+            "launches": {k: sum(r["launches"].get(k, 0)
+                                for r in res.values())
+                         for k in ("selective_scan_bidir", "nms_sweep",
+                                   "warp_projective")}}
+
+
 def host_modules():
     """Which of the host data path's modules (and tqdm, which the JAX
     package's evaluation imports and the port does not) import here."""
@@ -2617,6 +2870,8 @@ def main():
                                             train_res["step_ms"])
         eval_res = phase_eval(dev, workdir, serve_module,
                               main_res["latency_ms"], train_stages, depths)
+        cycle_res = phase_cycle(dev, workdir)
+        clis_res = phase_clis(dev, workdir, depths)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -2773,6 +3028,51 @@ def main():
          "ms": eval_res["k2"]["ms"], "plain_ms": eval_res["k2"]["plain_ms"],
          "bound_ms": eval_res["k2"]["bound_ms"],
          "bound_by": eval_res["k2"]["bound_by"], "library_ms": None},
+        {"name": "nms_sweep",
+         "path": "cycle eval (256^2, one masked plane, size 4)",
+         "route": "cuda", "source": "xpoint_tpu_torch/csrc/nms_sweep.cu",
+         "replaces": "xpoint_tpu/ops/nms.py:36",
+         "launches": cycle_res["launches"]["benchmark"]["nms_sweep"],
+         "max_abs_err": 0.0, "ms": cycle_res["k2"]["ms"],
+         "plain_ms": cycle_res["k2"]["plain_ms"],
+         "bound_ms": cycle_res["k2"]["bound_ms"],
+         "bound_by": cycle_res["k2"]["bound_by"], "library_ms": None},
+        *[{"name": "warp_projective",
+           "path": f"cycle export ({r['call']}, 4 warps at 256^2)",
+           "route": "cuda",
+           "source": "xpoint_tpu_torch/csrc/warp_projective.cu",
+           "replaces": "xpoint_tpu/ops/warp_tiled.py:129",
+           "launches": cycle_res["launches"]["export_keypoints"][
+               "warp_projective"] // 3,
+           "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+           "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+           "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+          for r in cycle_res["k4"]],
+        {"name": "selective_scan_bidir", "path": "clis (512^2, B=1)", **k1,
+         "launches": clis_res["launches"]["selective_scan_bidir"],
+         "max_abs_err": clis_res["k1_err"],
+         "ms": clis_res["k1_per_pair"]["ms"],
+         "ms_with_host_launch": clis_res["k1_per_pair"][
+             "ms_with_host_launch"],
+         "plain_ms": clis_res["k1_per_pair"]["plain_ms"],
+         "bound_ms": clis_res["k1_per_pair"]["bound_ms"]},
+        {"name": "nms_sweep", "path": "clis (512^2, one plane, size 8)",
+         "route": "cuda", "source": "xpoint_tpu_torch/csrc/nms_sweep.cu",
+         "replaces": "xpoint_tpu/ops/nms.py:36",
+         "launches": clis_res["launches"]["nms_sweep"], "max_abs_err": 0.0,
+         "ms": clis_res["k2"]["ms"], "plain_ms": clis_res["k2"]["plain_ms"],
+         "bound_ms": clis_res["k2"]["bound_ms"],
+         "bound_by": clis_res["k2"]["bound_by"], "library_ms": None},
+        *[{"name": "warp_projective",
+           "path": f"clis export ({r['call']}, 4 warps at 512^2)",
+           "route": "cuda",
+           "source": "xpoint_tpu_torch/csrc/warp_projective.cu",
+           "replaces": "xpoint_tpu/ops/warp_tiled.py:129",
+           "launches": clis_res["launches"]["warp_projective"] // 3,
+           "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+           "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+           "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+          for r in clis_res["k4"]],
     ]
     print("details: " + json.dumps(
         {"card": card, "build_s": build_s, "k1_stages": scan_rows,
@@ -2790,7 +3090,8 @@ def main():
          "forward_type_train_references": trefs, "host_modules": host,
          "cnn_synth_pretrain": synth_res, "cnn_train_reference": cnn_ref,
          "cnn_export": cnn_export, "cnn_pair": cnn_pair,
-         "flagship_host_data": flagship_host, "eval": eval_res}),
+         "flagship_host_data": flagship_host, "eval": eval_res,
+         "cycle": cycle_res, "clis": clis_res}),
         flush=True)
     print("serve: K1 ms/plain_ms/bound_ms are per pipeline call (sum over "
           "stage shapes x launches), K2's per call (one launch runs every "
@@ -2816,7 +3117,14 @@ def main():
           "sizes); eval: launches of phase 20's MAGSAC sweep (38 pair "
           "forwards, the device sweep's are equal), K1 times per pair (sum "
           "over the 256^2 stage shapes at B=1 x 4 launches), K2's per call "
-          "on one masked 256^2 plane of the timing harness",
+          "on one masked 256^2 plane of the timing harness; cycle: "
+          "launches counted in the stage processes of phase 21 (K2 in its "
+          "two sweeps, K4 a call of the export), K2 timed on the sweep's "
+          "masked optical plane at NMS 4, K4 at the export's three calls "
+          "(4 warps at 256^2); clis: launches of phase 22's five entry-point "
+          "runs, K1 per pair at the 512^2 stage shapes (B=1), K2 on one "
+          "512^2 plane at size 8, K4 a call of the export (4 warps at "
+          "512^2)",
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -106,15 +106,24 @@ def test_port_imports_no_jax(path):
 
 def _import_time_imports(path):
     """The modules a file imports when it is imported (not in a function
-    body)."""
+    body): import statements, and ``__import__`` / ``import_module`` calls
+    with a literal name."""
     def walk(nodes):
         for node in nodes:
-            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                                 ast.Lambda)):
                 continue
             if isinstance(node, ast.Import):
                 yield from (a.name for a in node.names)
             elif isinstance(node, ast.ImportFrom) and node.level == 0:
                 yield node.module
+            elif (isinstance(node, ast.Call) and node.args
+                  and isinstance(node.args[0], ast.Constant)
+                  and isinstance(node.args[0].value, str)
+                  and getattr(node.func, "id",
+                              getattr(node.func, "attr", None))
+                  in ("__import__", "import_module")):
+                yield node.args[0].value
             yield from walk(ast.iter_child_nodes(node))
     yield from walk(ast.parse(open(path).read(), path).body)
 
@@ -127,6 +136,45 @@ def test_port_imports_h5py_only_where_a_file_is_opened(path):
     host data path's folder layout included) imports there."""
     names = {n.split(".")[0] for n in _import_time_imports(path)}
     assert "h5py" not in names, f"{os.path.relpath(path, ROOT)} imports h5py"
+
+
+def test_import_time_imports_sees_every_form(tmp_path):
+    """The walk behind the h5py rule: statements and literal dynamic
+    imports at module level, in classes and branches; nothing inside a
+    function."""
+    path = tmp_path / "m.py"
+    path.write_text(
+        "import os\nimport importlib\nfrom a.b import c\n"
+        "x = importlib.import_module('h5py')\n"
+        "class K:\n    import yaml\n"
+        "if x:\n    __import__('cv2')\n"
+        "def f():\n    import h5py as h\n    return __import__('jax')\n"
+        "g = lambda: importlib.import_module('flax')\n")
+    assert sorted(set(_import_time_imports(str(path)))) == [
+        "a.b", "cv2", "h5py", "importlib", "os", "yaml"]
+
+
+def test_port_imports_where_h5py_and_jax_cannot_be_imported():
+    """Every module of xpoint_tpu_torch imports in a process in which
+    h5py, jax, flax and the JAX package raise ImportError, as on the
+    card's machine (no h5py, no JAX)."""
+    import subprocess
+    import sys
+    code = (
+        "import sys, pkgutil, importlib\n"
+        "for m in ('h5py', 'jax', 'jaxlib', 'flax', 'optax', 'orbax', "
+        "'xpoint_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import xpoint_tpu_torch as p\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
+        "'xpoint_tpu_torch.')]\n"
+        "for n in names:\n"
+        "    importlib.import_module(n)\n"
+        "print(len(names))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert int(out.stdout.split()[-1]) >= 60
 
 
 def test_entry_points_default_to_cuda():

@@ -18,7 +18,7 @@ import os
 
 import numpy as np
 
-from ._common import load_eval_setup, set_seeds
+from ._common import load_eval_setup, report_at_exit, set_seeds
 
 
 class _Head:
@@ -68,6 +68,7 @@ def main(argv=None):
     """Runs the benchmark; returns the path of the JSON written (None
     without ``-e``)."""
     args = parse_args(argv)
+    report_at_exit('benchmark')
     set_seeds(args.seed)
 
     config, _, infer, dataset = load_eval_setup(

@@ -16,8 +16,10 @@ copy of ``xpoint_tpu/data/image_pair.py``):
 
 Samples are numpy dicts with NHWC images in [0, 1]. ``sample(index, rng,
 py_rng)`` draws from the generators passed in, in the JAX package's order
-(see ``data/seeding.py``). ``h5py`` is imported where a file is opened: the
-folder layout needs only cv2.
+(see ``data/seeding.py``). The files (``filename``, ``keypoints_filename``)
+are HDF5 or ``.npz`` by their suffix (``data/group_file.py``): h5py is
+imported only where an HDF5 file is opened, and the folder layout and the
+``.npz`` files need only cv2 and numpy.
 """
 import copy
 import math
@@ -29,6 +31,7 @@ import numpy as np
 from ..utils import dict_update, generate_keypoint_map
 from .augmentation import (dummy_valid_mask, homographic_augmentation,
                            photometric_augmentation)
+from .group_file import open_group_file
 from .seeding import SeededSamples
 
 DEFAULT_CONFIG = {
@@ -60,9 +63,8 @@ class ImagePairDataset(SeededSamples):
 
         self.data_is_file = self.config['filename'] is not None
         if self.data_is_file:
-            import h5py
             self.data_path = self.config['filename']
-            with h5py.File(self.data_path, 'r') as f:
+            with open_group_file(self.data_path) as f:
                 self.memberslist = list(f.keys())
         else:
             root = self.config['foldername']
@@ -84,8 +86,7 @@ class ImagePairDataset(SeededSamples):
 
         # every member needs a label group of its own name
         if self.config['keypoints_filename'] is not None:
-            import h5py
-            with h5py.File(self.config['keypoints_filename'], 'r') as kf:
+            with open_group_file(self.config['keypoints_filename']) as kf:
                 keys = set(kf.keys())
             missing = [m for m in self.memberslist if m not in keys]
             if missing:
@@ -95,8 +96,7 @@ class ImagePairDataset(SeededSamples):
 
     def _load_images(self, index):
         if self.data_is_file:
-            import h5py
-            with h5py.File(self.data_path, 'r', swmr=True) as f:
+            with open_group_file(self.data_path, swmr=True) as f:
                 sample = f[self.memberslist[index]]
                 optical = sample['optical'][...]
                 if 'thermal' in sample or 'thermal_raw' in sample:
@@ -118,9 +118,8 @@ class ImagePairDataset(SeededSamples):
     def _load_keypoints(self, index):
         if self.config['keypoints_filename'] is None:
             return None
-        import h5py
-        with h5py.File(self.config['keypoints_filename'], 'r',
-                       swmr=True) as kf:
+        with open_group_file(self.config['keypoints_filename'],
+                             swmr=True) as kf:
             grp = kf[self.memberslist[index]]
             if 'keypoints_optical' in grp:
                 return [np.array(grp['keypoints_optical']),

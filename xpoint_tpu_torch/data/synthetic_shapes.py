@@ -1,6 +1,7 @@
 """SyntheticShapes: on-the-fly SuperPoint synthetic images with exact corner
-ground truth, or their replay from an HDF5 file (own copy of
-``xpoint_tpu/data/synthetic_shapes.py``).
+ground truth, or their replay from a file (own copy of
+``xpoint_tpu/data/synthetic_shapes.py``; the replay file, ``hdf5-file``, is
+HDF5 or ``.npz`` by its suffix, ``data/group_file.py``).
 
 A random blob background and one primitive at ``generation_size``, a
 Gaussian blur (and an extra one for a simulated thermal image), a resize to
@@ -21,6 +22,7 @@ from ..utils import dict_update, generate_keypoint_map, parse_primitives
 from . import draw_primitives
 from .augmentation import (dummy_valid_mask, homographic_augmentation,
                            photometric_augmentation)
+from .group_file import open_group_file
 from .seeding import SeededSamples
 
 DEFAULT_CONFIG = {
@@ -67,8 +69,7 @@ class SyntheticShapes(SeededSamples):
         self.primitives = parse_primitives(self.config['primitives'],
                                            ALL_PRIMITIVES)
         if not self.config['on-the-fly']:
-            import h5py
-            with h5py.File(self.config['hdf5-file'], 'r') as f:
+            with open_group_file(self.config['hdf5-file']) as f:
                 self.memberslist = list(f.keys())
                 self.config['length'] = len(self.memberslist)
 
@@ -99,8 +100,7 @@ class SyntheticShapes(SeededSamples):
         return image.astype(np.float32), keypoints, is_optical
 
     def get_hdf5_image(self, index):
-        import h5py
-        with h5py.File(self.config['hdf5-file'], 'r', swmr=True) as f:
+        with open_group_file(self.config['hdf5-file'], swmr=True) as f:
             sample = f[self.memberslist[index]]
             image = np.asarray(sample['image'], dtype=np.float32) / 255.0
             keypoints = np.asarray(sample['points'], dtype=np.float32)

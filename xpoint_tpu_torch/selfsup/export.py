@@ -5,43 +5,39 @@ For every dataset pair: run the HA warp -> forward -> unwarp -> aggregate
 program, NMS + threshold, and write the keypoint coordinates to a sink keyed
 by sample name (``keypoints``, or ``keypoints_optical`` /
 ``keypoints_thermal`` in window aggregation). Resume skips the names the
-sink already holds; a backup is taken every ``frequency`` steps.
-
-    python -m xpoint_tpu_torch.selfsup.export -o labels.npz [--samples 4]
-
-exports labels for the seeded synthetic corpus with a seeded, untrained
-flagship model (no checkpoint or dataset is in the repository; the
-export CLI that loads them, ``cli/export_keypoints.py``, is ROADMAP.md
-Queue 1 item 6).
+sink already holds; a backup is taken every ``frequency`` steps. The
+entry point over a model directory and a dataset config is
+``python -m xpoint_tpu_torch.cli.export_keypoints``.
 """
-import argparse
 import os
 import shutil
-import sys
 
 import numpy as np
 import torch
 
+from ..data.group_file import NpzGroupFile, is_hdf5, write_npz_groups
 from ..eval.infer import XPointInference
 from ..ops.detector import prob_from_logits
-from .homographic_adaptation import (EXPORT_HA_CONFIG,
-                                     EXPORT_PREDICTION_CONFIG, make_ha_fn,
-                                     sample_ha_homographies)
+from .homographic_adaptation import make_ha_fn, sample_ha_homographies
 
 
 class NumpySink:
     """Keypoints in memory as {sample name: {dataset name: array}}, saved as
-    one ``.npz`` (entries ``<sample>/<dataset>``) when a path is given.
-    Needs nothing but numpy."""
+    one ``.npz`` (entries ``<sample>/<dataset>``, which
+    ``data.group_file`` reads as groups) when a path is given. Needs
+    nothing but numpy. As :class:`H5Sink` appends to an existing file, the
+    samples of an existing file are kept and skipped; ``resume`` only
+    records them as done before the run (``done``)."""
 
     def __init__(self, path=None, resume=False):
         self.path = path
         self.groups = {}
-        if resume and path and os.path.exists(path):
-            with np.load(path) as f:
-                for key in f.files:
-                    name, ds = key.rsplit("/", 1)
-                    self.groups.setdefault(name, {})[ds] = f[key]
+        if path and os.path.exists(path):
+            with NpzGroupFile(path) as f:
+                for name in f.keys():
+                    self.groups[name] = {ds: f[name][ds]
+                                         for ds in f[name].keys()}
+        self.done = set(self.groups) if resume else set()
 
     def names(self):
         return set(self.groups)
@@ -50,10 +46,10 @@ class NumpySink:
         self.groups[name] = {k: np.asarray(v) for k, v in arrays.items()}
 
     def flush(self):
+        """Rewrite the whole file (fine at the label sets of the cycle:
+        128 pairs); it is replaced only when complete."""
         if self.path:
-            np.savez(self.path, **{f"{n}/{k}": v
-                                   for n, g in self.groups.items()
-                                   for k, v in g.items()})
+            write_npz_groups(self.path, self.groups)
 
     def backup(self):
         if self.path and os.path.exists(self.path):
@@ -72,14 +68,14 @@ class H5Sink:
         import h5py
         self.path = path
         exists = os.path.exists(path)
-        self._done = set()
+        self.done = set()
         if resume and exists:
             with h5py.File(path, 'r') as f:
-                self._done = set(f.keys())
+                self.done = set(f.keys())
         self.file = h5py.File(path, 'a' if exists else 'w')
 
     def names(self):
-        return self._done | set(self.file.keys())
+        return self.done | set(self.file.keys())
 
     def write(self, name, arrays):
         grp = self.file.create_group(name)
@@ -94,6 +90,12 @@ class H5Sink:
 
     def close(self):
         self.file.close()
+
+
+def open_sink(path, resume=False):
+    """The sink of ``path`` by its suffix: :class:`H5Sink` for ``.hdf5`` /
+    ``.h5``, else :class:`NumpySink`."""
+    return (H5Sink if is_hdf5(path) else NumpySink)(path, resume=resume)
 
 
 def make_prob_fn(module):
@@ -156,40 +158,3 @@ def export_keypoints(module, dataset, sink, ha_config=None,
             sink.backup()
     return n_done
 
-
-def main(argv=None):
-    parser = argparse.ArgumentParser(
-        description='Export keypoints via homographic adaptation')
-    parser.add_argument('-o', '--output_file', required=True,
-                        help='.npz, or .hdf5 / .h5 (needs h5py)')
-    parser.add_argument('-skip', dest='skip_processed', action='store_true')
-    parser.add_argument('-f', '--frequency', default=1, type=int)
-    parser.add_argument('-s', '--seed', default=0, type=int)
-    parser.add_argument('--samples', default=4, type=int)
-    parser.add_argument('--size', default=512, type=int)
-    parser.add_argument('--batch', default=1, type=int)
-    parser.add_argument('--device', default='cuda')
-    args = parser.parse_args(argv)
-
-    from ..data.synthetic_pairs import SyntheticPairs
-    from ..models import VMAMBA_MODEL_CFG, build_xpoint
-    module, _ = build_xpoint(VMAMBA_MODEL_CFG, device=args.device,
-                             seed=args.seed)
-    dataset = SyntheticPairs(n_pairs=args.samples, size=args.size, n_kp=1,
-                             seed=args.seed)
-    h5 = args.output_file.endswith(('.hdf5', '.h5'))
-    sink = (H5Sink if h5 else NumpySink)(args.output_file,
-                                         resume=args.skip_processed)
-    try:
-        n = export_keypoints(module, dataset, sink, EXPORT_HA_CONFIG,
-                             EXPORT_PREDICTION_CONFIG, seed=args.seed,
-                             batch=args.batch, frequency=args.frequency,
-                             log=print)
-    finally:
-        sink.close()
-    print(f"done: keypoints of {n} samples written to {args.output_file}")
-    return 0
-
-
-if __name__ == '__main__':
-    sys.exit(main())
