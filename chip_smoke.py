@@ -214,6 +214,36 @@ data path, in a scratch directory under build/ that is removed at the end:
      after); K2 exact on one 512^2 plane at size 8, K1 at the 512^2 stage
      shapes with B=1 and K4 at the export's three calls (4 warps at 512^2)
      against their plain versions, with times;
+ 23. SwinV2 serving: the model section of configs/cmt.yaml (SwinV2-T: embed
+     96, depths [2, 2, 6, 2], heads [3, 6, 12, 24], window 8, RegNet, bf16)
+     read by the port's load_yaml, built at full width from seed 0, through
+     make_pair_pipeline at 512^2, B=8, k=1024, NMS 8, threshold 0.015 on
+     fresh random images each call: latency and pairs/s (median of five
+     after a warm-up), one K2 launch a call (counts zeroed just before,
+     read just after), one more call profiled by kernel and by host op
+     (launches, device ms, idle share), K2 exact against its plain version
+     on the last timed call's heatmaps, and the tiny Swin XPoint (depths
+     [2, 2], embed 24, window 4, fp32) on the card against the CPU (1e-4
+     of max |CPU|);
+ 24. SwinV2 training through the Trainer from the whole of configs/cmt.yaml
+     with two changes: its dataset is a mini corpus of 128 pairs at 256^2
+     written in the scratch directory by the port's
+     tools.make_mini_corpus with seeded random keypoints as .npz labels
+     (data/MULTIPOINT is not in the repository), and its pretrained block
+     points at an ImageNet-style checkpoint under the reference's key names
+     that the phase writes (the port's Swin encoder from seed 1, with the
+     relative-position buffers and a 1000-class head); 256^2 crops, B=16,
+     bf16, RegNet and the hm loss, 8 loader workers, two epochs of 8 steps,
+     every step under the sync check: ms a step, samples/s, peak memory,
+     loader wait, idle share against one profiled step; the encoder the
+     Trainer built equal to the checkpoint's (a device copy taken after
+     __init__, compared after the steps); then one epoch each with the
+     sparse descriptor loss and with the HomographyNet head;
+ 25. one HA-labelled pair with phase 23's Swin model: export_keypoints with
+     the export settings at num 10 (window) on 512^2 synthetic pairs after
+     a warm-up pair, 6 K4 and 2 K2 launches for the pair, K2 exact against
+     its plain version on the Swin HA maps, and K4 against its plain
+     version at the export's calls (8 warps at 512^2);
 then a details JSON line, the per-kernel JSON line, the card line and the
 final JSON line.
 """
@@ -221,6 +251,7 @@ import copy
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -2779,6 +2810,306 @@ def phase_clis(dev, workdir, depths):
                                    "warp_projective")}}
 
 
+SWIN_N, SWIN_SIZE = 128, 256    # phase 24's corpus: pairs and their size
+SWIN_TINY = {"EMBED_DIM": 24, "DEPTHS": [2, 2], "NUM_HEADS": [3, 6],
+             "WINDOW_SIZE": 4}
+
+
+def swin_config():
+    """configs/cmt.yaml, read by the port's load_yaml."""
+    from xpoint_tpu_torch.config import load_yaml
+    return load_yaml(os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "configs", "cmt.yaml"))
+
+
+def phase_swin_serve(dev):
+    """23: the SwinV2 XPoint of configs/cmt.yaml serving at full width (see
+    the module docstring)."""
+    from xpoint_tpu_torch.eval.profile_pipeline import pipeline
+    from xpoint_tpu_torch.models import build_xpoint
+    model_cfg = swin_config()["model"]
+    t0 = time.time()
+    module, _ = build_xpoint(model_cfg, device=dev, seed=0)
+    init_s = time.time() - t0
+    run = pipeline(module)
+    g = torch.Generator(device=dev).manual_seed(5)
+    images = [(torch.rand(B, H, W, 1, generator=g, device=dev),
+               torch.rand(B, H, W, 1, generator=g, device=dev))
+              for _ in range(N_CALLS + 2)]
+    run(*images[0])                                         # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    read = _zero_counts()
+    lat = []
+    for img_o, img_t in images[1:-1]:
+        t0 = time.perf_counter()
+        out = run(img_o, img_t)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+        for key, v in out.items():
+            if v.is_floating_point() and not bool(torch.isfinite(v).all()):
+                raise SystemExit(f"Swin serving: non-finite {key}")
+    launches = read()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    expect = {"prob_optical": (B, H, W), "keypoints_optical": (B, 1024, 2),
+              "desc_optical": (B, 1024, 256), "matched": (B, 1024)}
+    for key, shape in expect.items():
+        if tuple(out[key].shape) != shape:
+            raise SystemExit(f"Swin serving: {key} has shape "
+                             f"{tuple(out[key].shape)}, expected {shape}")
+    if launches["nms_sweep"] != N_CALLS:
+        raise SystemExit(f"Swin serving launched K2 {launches['nms_sweep']} "
+                         f"times in {N_CALLS} calls, expected one a call")
+    lat_ms = _median(lat)
+    res = {"init_s": init_s, "latency_ms": lat_ms, "latency_all_ms": lat,
+           "pairs_per_s": B / lat_ms * 1e3, "launches": launches,
+           "matches": int(out["matched"].sum()),
+           "keypoints_optical": int(out["mask_optical"].sum()),
+           "peak_mem_gib": peak}
+    print(f"Swin serving (configs/cmt.yaml, SwinV2-T, bf16) {H}^2 B={B}: "
+          f"latency_ms={lat_ms} pairs_per_s={res['pairs_per_s']} "
+          f"peak_mem_gib={peak} launches={launches}", flush=True)
+    res["profile"] = profile_once(lambda: run(*images[-1]),
+                                  "Swin serving call (profiled)", lat_ms,
+                                  by_op=True, batch=B, size=H,
+                                  model="configs/cmt.yaml")
+    probs = torch.cat([out["prob_optical"], out["prob_thermal"]])
+    res["k2"] = k2_on(probs, 8, 0.015, "Swin serving")
+
+    # the tiny Swin XPoint in fp32 on the card against the CPU
+    cfg = copy.deepcopy(model_cfg)
+    cfg["mixed_precision"] = False
+    cfg["use_attention"]["model_parameters"]["MODEL"]["SWINV2"].update(
+        SWIN_TINY)
+    img = torch.rand(2, 64, 64, 1, generator=torch.Generator().manual_seed(6))
+    outs = {}
+    for d in ("cpu", dev):
+        m, _ = build_xpoint(cfg, device=d, seed=3)
+        with torch.no_grad():
+            outs[str(d)] = {k: v.cpu() for k, v in m(img.to(d)).items()}
+    err = {k: float((outs[str(dev)][k] - v).abs().max() / v.abs().max())
+           for k, v in outs["cpu"].items()}
+    print(f"tiny fp32 Swin XPoint, card against CPU: max |diff| / max |CPU| "
+          f"{err}", flush=True)
+    if max(err.values()) > 1e-4:
+        raise SystemExit("the Swin XPoint on the card disagrees with the CPU")
+    res["tiny_card_vs_cpu"] = err
+    return res, module
+
+
+def _swin_reference_key(k):
+    """A port Swin encoder key -> the reference's (SwinTransformerV2.py)
+    name for it."""
+    if k in ("patch_embed.weight", "patch_embed.bias"):
+        return k.replace("patch_embed.", "patch_embed.proj.")
+    k = re.sub(r"layers_(\d+)_blocks_(\d+)", r"layers.\1.blocks.\2", k)
+    k = re.sub(r"layers_(\d+)_downsample", r"layers.\1.downsample", k)
+    for a, b in (("patch_embed_norm", "patch_embed.norm"),
+                 ("attn.cpb_fc1", "attn.cpb_mlp.0"),
+                 ("attn.cpb_fc2", "attn.cpb_mlp.2"),
+                 ("mlp_fc1", "mlp.fc1"), ("mlp_fc2", "mlp.fc2"),
+                 ("attn.qkv_kernel", "attn.qkv.weight")):
+        k = k.replace(a, b)
+    return k
+
+
+def write_swin_checkpoint(model_cfg, path):
+    """An ImageNet-style SwinV2 checkpoint under the reference's names,
+    ``{"model": state_dict}``: the port's Swin encoder initialised from
+    seed 1 (the trainer's is seed 0), qkv as (3C, C), with the relative
+    position buffers and a 1000-class head beside it. Returns the encoder
+    state it holds."""
+    from xpoint_tpu_torch.models import build_xpoint
+    src, _ = build_xpoint(model_cfg, device="cpu", seed=1)
+    enc = src.encoder.state_dict()
+    sd = {}
+    for k, v in enc.items():
+        sd[_swin_reference_key(k)] = (v.t().contiguous()
+                                      if k.endswith("qkv_kernel") else v)
+        if k.endswith("attn.logit_scale"):
+            blk = _swin_reference_key(k)[:-len("logit_scale")]
+            ws = 8
+            sd[blk + "relative_coords_table"] = torch.zeros(
+                1, 2 * ws - 1, 2 * ws - 1, 2)
+            sd[blk + "relative_position_index"] = torch.zeros(
+                ws * ws, ws * ws, dtype=torch.int64)
+    dim = enc["norm.weight"].numel()
+    sd["head.weight"] = torch.zeros(1000, dim)
+    sd["head.bias"] = torch.zeros(1000)
+    torch.save({"model": sd}, path)
+    return enc
+
+
+def _swin_trainer(dev, cfg, out_dir, tag):
+    """A Trainer from ``cfg`` with phase 19's instruments: every step under
+    the sync check, loader waits, samples' and batches' host times."""
+    from xpoint_tpu_torch.trainer import Trainer
+    t0 = time.time()
+    trainer = Trainer(cfg, out_dir, seed=0, device=dev)
+    init_s = time.time() - t0
+    rows, waits, sample_ms = [], [], []
+    _watch_steps(trainer, rows, tag)
+    trainer.loader = TimedLoader(trainer.loader, waits)
+    _time_samples(trainer.dataset, sample_ms)
+    return trainer, {"init_s": init_s, "rows": rows, "waits": waits,
+                     "sample_ms": sample_ms}
+
+
+def phase_swin_train(dev, workdir):
+    """24: the SwinV2 XPoint trained through the Trainer from the whole of
+    configs/cmt.yaml (see the module docstring)."""
+    from xpoint_tpu_torch.data.group_file import write_npz_groups
+    from xpoint_tpu_torch.tools import make_mini_corpus
+    from xpoint_tpu_torch.trainer import batch_to_device_pair
+    t0 = time.time()
+    corpus = f"{workdir}/swin_corpus"
+    make_mini_corpus.main(["--out", corpus, "--n-train", str(SWIN_N),
+                           "--size", str(SWIN_SIZE), "--splits", "train"])
+    rng = np.random.default_rng(4)
+    labels = f"{workdir}/swin_labels.npz"
+    write_npz_groups(labels, {
+        f"sample_{i:04d}": {"keypoints": rng.uniform(
+            0, SWIN_SIZE, size=(200, 2)).astype(np.float32)}
+        for i in range(SWIN_N)})
+    pre_dir = f"{workdir}/swinv2-imagenet"
+    os.makedirs(pre_dir)
+    cfg = swin_config()
+    enc_ref = write_swin_checkpoint(cfg["model"], f"{pre_dir}/tiny256.pth")
+    setup_s = time.time() - t0
+    cfg["dataset"].update(filename=f"{corpus}/training.npz",
+                          keypoints_filename=labels)
+    cfg["model"]["use_attention"]["pretrained"]["type_dir"] = pre_dir
+    cfg["training"].update(n_epochs=2, save_every_n_epoch=1,
+                           use_writer=False, num_worker=8)
+    bs = cfg["training"]["batchsize"]
+    steps = SWIN_N // bs
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    trainer, inst = _swin_trainer(dev, cfg, f"{workdir}/swin", "Swin train")
+    # a device copy of the encoder as __init__ left it, compared after the
+    # steps so that no host read falls inside them
+    enc_init = {k: v.clone() for k, v in
+                trainer.module.encoder.state_dict().items()}
+    to_device_ms = []
+    restore = _time_to_device(to_device_ms)
+    read = _zero_counts()
+    try:
+        trainer.train()
+    finally:
+        restore()
+    launches = read()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    rows = inst["rows"]
+    if len(rows) != 2 * steps:
+        raise SystemExit(f"Swin training ran {len(rows)} steps, expected "
+                         f"{2 * steps}")
+    n_diff = [k for k, v in enc_init.items()
+              if not torch.equal(v.cpu(), enc_ref[k])]
+    if n_diff or set(enc_init) != set(enc_ref):
+        raise SystemExit(f"the Trainer's Swin encoder after __init__ is not "
+                         f"the pretrained checkpoint's: {n_diff[:5]}")
+    summary = _step_summary(rows[steps:], bs)
+    batch = batch_to_device_pair(next(iter(trainer.loader.loader)), dev)
+    prof = profile_once(
+        lambda: trainer.unwatched_step(trainer.state, batch, trainer.gen),
+        "Swin train step (profiled)", summary["step_ms"], by_op=True,
+        batch=bs, size=SWIN_SIZE)
+    host = _host_summary(rows, inst["waits"], inst["sample_ms"],
+                         to_device_ms, bs, prof["device_busy_ms"], steps)
+    del trainer.dataset.sample
+    res = {**summary, **host, "profile": prof, "init_s": inst["init_s"],
+           "setup_s": setup_s, "peak_mem_gib": peak, "pairs": SWIN_N,
+           "launches": launches, "pretrained_tensors": len(enc_ref)}
+    print(f"Swin train (configs/cmt.yaml, SwinV2-T, {SWIN_SIZE}^2 B={bs} "
+          f"bf16, RegNet + hm loss, 8 workers): step_ms={res['step_ms']} "
+          f"samples_per_s={res['samples_per_s']} loop_ms_per_step="
+          f"{host['loop_ms_per_step']} loader_wait_ms="
+          f"{host['loader_wait_ms']} idle_share={prof['idle_share']} "
+          f"peak_mem_gib={peak}; encoder after __init__ equal to the "
+          f"pretrained checkpoint in all {len(enc_ref)} tensors", flush=True)
+
+    # a few steps with the sparse descriptor loss, then with HomographyNet
+    for tag, change in (
+            ("sparse descriptor loss",
+             lambda c: c["loss"].update(sparse_descriptor_loss=True)),
+            ("HomographyNet head",
+             lambda c: c["model"]["homography_regression_head"].update(
+                 type="HomographyNet"))):
+        c = copy.deepcopy(cfg)
+        change(c)
+        c["training"]["n_epochs"] = 1
+        name = tag.split()[0]
+        t, inst = _swin_trainer(dev, c, f"{workdir}/swin_{name}",
+                                f"Swin train, {tag}")
+        t.train()
+        if len(inst["rows"]) != steps:
+            raise SystemExit(f"Swin training with the {tag} ran "
+                             f"{len(inst['rows'])} steps, expected {steps}")
+        del t.dataset.sample
+        res[f"{name}_step"] = _step_summary(inst["rows"], bs)
+        print(f"Swin train with the {tag}: {res[f'{name}_step']}",
+              flush=True)
+    return res
+
+
+def phase_swin_export(dev, module):
+    """25: one HA-labelled pair with the Swin serving model (see the module
+    docstring)."""
+    from xpoint_tpu_torch.data.synthetic_pairs import SyntheticPairs
+    from xpoint_tpu_torch.selfsup.export import (NumpySink, export_keypoints,
+                                                 make_prob_fn)
+    from xpoint_tpu_torch.selfsup.homographic_adaptation import (
+        make_ha_fn, sample_ha_homographies)
+    ha_cfg = dict(EXPORT_HA_CFG, num=10)
+    dataset = SyntheticPairs(n_pairs=2, size=HA_S, n_kp=1, seed=8)
+    chunks = -(-(ha_cfg["num"] - 1) // HA_WB)
+    expect = {"warp_projective": 3 * chunks, "nms_sweep": 2}
+    kw = dict(ha_config=ha_cfg, prediction_config=EXPORT_PRED_CFG, seed=0)
+    sink = NumpySink()
+    export_keypoints(module, dataset, sink, max_samples=1, **kw)  # warm-up
+    torch.cuda.synchronize()
+    read = _zero_counts()
+    t0 = time.perf_counter()
+    n_done = export_keypoints(module, dataset, sink, **kw)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    counts = read()
+    n_kps = {n: {k: len(v) for k, v in g.items()}
+             for n, g in sink.groups.items()}
+    print(f"Swin HA export ({HA_S}^2, num {ha_cfg['num']}, window, NMS "
+          f"{EXPORT_PRED_CFG['nms']}): {n_done} pair in {sec} s, launches "
+          f"{counts}, keypoints {n_kps}", flush=True)
+    if (n_done != 1 or len(n_kps) != 2
+            or any(counts[k] != v for k, v in expect.items())):
+        raise SystemExit(f"Swin HA export failed its checks (expected "
+                         f"launches per pair {expect})")
+    run_ha, cfg = make_ha_fn(make_prob_fn(module), ha_cfg)
+    s = dataset[1]
+    img_o, img_t = (torch.from_numpy(s[k]["image"][None]).to(dev)
+                    for k in ("optical", "thermal"))
+    hs = torch.from_numpy(sample_ha_homographies(
+        cfg, (HA_S, HA_S), np.random.default_rng(1))).to(dev)
+    maps = run_ha(img_o, img_t, hs)
+    # the window aggregation weighs each map by the other spectrum's mass
+    # around it, which an untrained detector may put above 1
+    for key in ("prob_optical", "prob_thermal"):
+        p = maps[key]
+        if (not bool(torch.isfinite(p).all()) or float(p.min()) < 0
+                or float(p.max()) == 0):
+            raise SystemExit(f"Swin HA: {key} not finite, non-negative and "
+                             f"non-zero: {float(p.min())} {float(p.max())}")
+    k2 = k2_on(torch.cat([maps["prob_optical"], maps["prob_thermal"]]),
+               EXPORT_PRED_CFG["nms"], EXPORT_PRED_CFG["detection_threshold"],
+               "Swin export")
+    k4_rows, _ = phase_warp(dev, S=HA_S, n=HA_WB, odd_size=False,
+                            calls=[c for c in K4_CALLS
+                                   if c[0] != "prob unwarp"])
+    return {"num": ha_cfg["num"], "chunks": chunks, "seconds_per_pair": sec,
+            "launches": counts, "launches_per_pair": expect,
+            "keypoints": n_kps, "k2": k2, "k4": k4_rows}
+
+
 def host_modules():
     """Which of the host data path's modules (and tqdm, which the JAX
     package's evaluation imports and the port does not) import here."""
@@ -2872,6 +3203,9 @@ def main():
                               main_res["latency_ms"], train_stages, depths)
         cycle_res = phase_cycle(dev, workdir)
         clis_res = phase_clis(dev, workdir, depths)
+        swin_serve, swin_module = phase_swin_serve(dev)
+        swin_train = phase_swin_train(dev, workdir)
+        swin_export = phase_swin_export(dev, swin_module)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -3073,6 +3407,27 @@ def main():
            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
            "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
           for r in clis_res["k4"]],
+        *[{"name": "nms_sweep", "path": path, "route": "cuda",
+           "source": "xpoint_tpu_torch/csrc/nms_sweep.cu",
+           "replaces": "xpoint_tpu/ops/nms.py:36", "launches": n,
+           "max_abs_err": 0.0, "ms": k2["ms"], "plain_ms": k2["plain_ms"],
+           "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
+           "library_ms": None}
+          for path, n, k2 in (
+              ("swin serve (16 planes 512^2, size 8)",
+               swin_serve["launches"]["nms_sweep"], swin_serve["k2"]),
+              ("swin export (2 planes 512^2, size 4)",
+               swin_export["launches"]["nms_sweep"], swin_export["k2"]))],
+        *[{"name": "warp_projective",
+           "path": f"swin export ({r['call']}, 8 warps at 512^2)",
+           "route": "cuda",
+           "source": "xpoint_tpu_torch/csrc/warp_projective.cu",
+           "replaces": "xpoint_tpu/ops/warp_tiled.py:129",
+           "launches": swin_export["launches"]["warp_projective"] // 3,
+           "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+           "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+           "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+          for r in swin_export["k4"]],
     ]
     print("details: " + json.dumps(
         {"card": card, "build_s": build_s, "k1_stages": scan_rows,
@@ -3091,7 +3446,8 @@ def main():
          "cnn_synth_pretrain": synth_res, "cnn_train_reference": cnn_ref,
          "cnn_export": cnn_export, "cnn_pair": cnn_pair,
          "flagship_host_data": flagship_host, "eval": eval_res,
-         "cycle": cycle_res, "clis": clis_res}),
+         "cycle": cycle_res, "clis": clis_res, "swin_serve": swin_serve,
+         "swin_train": swin_train, "swin_export": swin_export}),
         flush=True)
     print("serve: K1 ms/plain_ms/bound_ms are per pipeline call (sum over "
           "stage shapes x launches), K2's per call (one launch runs every "
@@ -3124,7 +3480,10 @@ def main():
           "(4 warps at 256^2); clis: launches of phase 22's five entry-point "
           "runs, K1 per pair at the 512^2 stage shapes (B=1), K2 on one "
           "512^2 plane at size 8, K4 a call of the export (4 warps at "
-          "512^2)",
+          "512^2); swin serve: launches of phase 23's five timed calls of "
+          "the SwinV2 pipeline, K2 timed on its heatmaps; swin export: "
+          "launches of phase 25's one exported pair, K2 timed on the Swin "
+          "HA maps at NMS 4, K4 at the export's calls (8 warps at 512^2)",
           flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

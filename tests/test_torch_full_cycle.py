@@ -208,6 +208,10 @@ def test_cycle_runs_end_to_end_on_cpu(tmp_path, monkeypatch):
     nothing."""
     work, reports = tmp_path / "w", tmp_path / "reports"
     monkeypatch.setenv(RUN_REPORT_ENV, str(reports))
+    # two compute threads in each stage process: the suite runs beside
+    # other test workers, and a stage that spins a thread per core beside
+    # them took 680 s against 481 s with two
+    monkeypatch.setenv("OMP_NUM_THREADS", "2")
     args = ["--work", str(work), "--n-train", "8", "--n-test", "2",
             "--size", "256", "--synth-epochs", "1", "--synth-samples", "16",
             "--pair-epochs", "1", "--ha-num", "3", "--device", "cpu"]

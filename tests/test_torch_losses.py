@@ -176,9 +176,110 @@ def test_hard_negative_replace_uniform():
         np.testing.assert_allclose(float(mine), float(theirs), rtol=RTOL)
 
 
-def test_sparse_descriptor_loss_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        XPointLoss({'sparse_descriptor_loss': True})
+def _jax_sparse_cells(key, Hc, Wc, divisor):
+    """The cells JAX's sparse descriptor loss draws from ``key``."""
+    n = (Hc * Wc) // divisor
+    r1, r2 = jax.random.split(key)
+    return np.stack([np.asarray(jax.random.randint(r1, (n,), 0, Hc)),
+                     np.asarray(jax.random.randint(r2, (n,), 0, Wc))], -1)
+
+
+@pytest.mark.parametrize("hn", ["off", "uniform", "replace"])
+@pytest.mark.parametrize("warped", [True, False])
+def test_sparse_descriptor_loss_matches_jax(hn, warped):
+    """The sparse descriptor loss on JAX's own cell draws (64 of 16 x 16
+    cells, divisor 4), warped by mild homographies or not at all, hard
+    negatives off, beside the uniform term, or replacing it: total,
+    positive and negative, and the gradients w.r.t. both descriptor maps,
+    within rtol 1e-5."""
+    d1, d2, _, _, _, _ = _desc_inputs(20 + len(hn), 2, 16, 16, 32)
+    rng = np.random.default_rng(21)
+    h1, h2 = (_homographies(rng, 2, scale=0.02) if warped else None
+              for _ in range(2))
+    cfg = _cfg(sparse_descriptor_loss=True,
+               sparse_descriptor_loss_num_cell_divisor=4,
+               hard_negative_weighting={'check': hn != "off",
+                                        'temperature': 0.1, 'weight': 0.2,
+                                        'keep_uniform': hn != "replace"})
+    key = jax.random.PRNGKey(len(hn))
+    opt = lambda v: None if v is None else jnp.asarray(v)  # noqa: E731
+
+    def jf(a, b):
+        tot, pos, neg = jx_descriptor_loss(a, b, opt(h1), opt(h2), None,
+                                           None, cfg, key)
+        return tot, (pos, neg)
+    (jt, (jp, jn)), (ga, gb) = jax.value_and_grad(
+        jf, argnums=(0, 1), has_aux=True)(jnp.asarray(d1), jnp.asarray(d2))
+    a, b = T(d1).requires_grad_(), T(d2).requires_grad_()
+    opt_t = lambda v: None if v is None else T(v)  # noqa: E731
+    tt, tp, tn = descriptor_loss(a, b, opt_t(h1), opt_t(h2), None, None, cfg,
+                                 cells=T(_jax_sparse_cells(key, 16, 16, 4)))
+    tt.backward()
+    for mine, theirs in ((tt, jt), (tp, jp), (tn, jn)):
+        np.testing.assert_allclose(float(mine.detach()), float(theirs),
+                                   rtol=RTOL, atol=ATOL)
+    for mine, theirs in ((a.grad, ga), (b.grad, gb)):
+        theirs = np.asarray(theirs)
+        assert np.abs(theirs).max() > 0
+        np.testing.assert_allclose(mine.numpy(), theirs, rtol=RTOL,
+                                   atol=ATOL * np.abs(theirs).max())
+
+
+def test_sparse_descriptor_loss_raises(monkeypatch):
+    """(The sparse loss raised here before it was ported.) XPointLoss with
+    ``sparse_descriptor_loss`` on a pair batch, the flagship loss config
+    otherwise, against JAX's with the cells JAX draws from the descriptor
+    key of its rng split handed to the port: every component and the
+    gradients w.r.t. both predictions within rtol 1e-5; without cells the
+    port draws its own from the generator, the same ones for the same
+    seed."""
+    from xpoint_tpu_torch.losses import xpoint_loss
+    rng = np.random.default_rng(23)
+    B, H, W = 2, 64, 64
+    cfg = dict(VMAMBA_TRAIN_CFG["loss"], space_to_depth_ratio=8,
+               sparse_descriptor_loss=True,
+               sparse_descriptor_loss_num_cell_divisor=2)
+    d1, d2, _, _, vm1, vm2 = _desc_inputs(24, B, H // 8, W // 8, 32)
+    h1, h2 = (_homographies(rng, B, scale=0.01) for _ in range(2))
+    data = {
+        'optical': {'keypoints': _keypoint_map(rng, B, H, W),
+                    'valid_mask': vm1, 'homography': h1},
+        'thermal': {'keypoints': _keypoint_map(rng, B, H, W),
+                    'valid_mask': vm2, 'homography': h2}}
+    preds = [{'logits': rng.normal(size=(B, 8, 8, 65)).astype(np.float32),
+              'desc': d} for d in (d1, d2)]
+    key = jax.random.PRNGKey(3)
+    jloss = JxXPointLoss(cfg)
+    jdata = jax.tree.map(jnp.asarray, data)
+    (jl, jc), jg = jax.value_and_grad(
+        lambda p1, p2: jloss(jdata, p1, p2, None, key), argnums=(0, 1),
+        has_aux=True)(*jax.tree.map(jnp.asarray, (preds[0], preds[1])))
+
+    cells = T(_jax_sparse_cells(jax.random.split(key, 3)[2], 8, 8, 2))
+    inner = xpoint_loss.sparse_descriptor_loss
+    monkeypatch.setattr(
+        xpoint_loss, "sparse_descriptor_loss",
+        lambda *a, **kw: inner(*a[:5], cells=cells))
+    tdata = {k: {kk: T(vv) for kk, vv in v.items()} for k, v in data.items()}
+    tp = [{k: T(v).requires_grad_() for k, v in p.items()} for p in preds]
+    tl, tc = XPointLoss(cfg)(tdata, tp[0], tp[1])
+    tl.backward()
+    assert set(tc) == set(jc)
+    for k in tc:
+        np.testing.assert_allclose(float(tc[k].detach()), float(jc[k]),
+                                   rtol=RTOL, atol=ATOL, err_msg=k)
+    for mine, theirs in ((tp[0], jg[0]), (tp[1], jg[1])):
+        for k in ('logits', 'desc'):
+            ref = np.asarray(theirs[k])
+            np.testing.assert_allclose(mine[k].grad.numpy(), ref, rtol=RTOL,
+                                       atol=ATOL * max(np.abs(ref).max(), 1),
+                                       err_msg=k)
+    monkeypatch.setattr(xpoint_loss, "sparse_descriptor_loss", inner)
+    drawn = [XPointLoss(cfg)(tdata, tp[0], tp[1],
+                             gen=torch.Generator().manual_seed(5))[1]
+             for _ in range(2)]
+    assert float(drawn[0]['descriptor_loss'].detach()) == \
+        float(drawn[1]['descriptor_loss'].detach())
 
 
 @pytest.mark.parametrize("similarity", [False, True])

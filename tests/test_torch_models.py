@@ -188,29 +188,71 @@ def test_unported_encoder_configs_raise(cfg):
 @pytest.mark.parametrize("case", ["swin", "homographynet",
                                   "pretrained_yaml", "pretrained_type_dir"])
 def test_unported_model_configs_raise(case, tmp_path):
-    """What is still not ported raises, naming its ROADMAP item: the Swin
-    encoder, the HomographyNet head and the pretrained-encoder YAML merge,
-    where the JAX build_xpoint would merge one (an existing ``yaml_file``,
-    or a ``.yaml`` in ``type_dir``). The multispectral model and the head
-    options raised here before they were ported;
-    test_ported_model_configs_match_flax holds them now."""
-    from xpoint_tpu_torch.utils import dict_update
-    (tmp_path / "vssm.yaml").write_text("MODEL: {}\n")
-    case_cfg = {
-        "swin": {"use_attention": {"check": True, "type": "SwinV2"}},
-        "homographynet": {"homography_regression_head": {
-            "check": True, "type": "HomographyNet"}},
-        "pretrained_yaml": {"use_attention": {"pretrained": {
-            "check": True, "yaml_file": str(tmp_path / "vssm.yaml")}}},
-        "pretrained_type_dir": {"use_attention": {"pretrained": {
-            "check": True, "type_dir": str(tmp_path)}}}}[case]
-    cfg = dict_update(tiny_cfg(), case_cfg)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_xpoint(cfg, device="cpu")
+    """These configs raised NotImplementedError until they were ported;
+    each now builds and matches flax through the bridge, pair forward in
+    eval mode, optical_not_warped both ways in one batch, atol 1e-4: the
+    Swin encoder (configs/cmt.yaml at the tiny width, RegNet head), the
+    HomographyNet head, and the pretrained-encoder YAML merge from an
+    existing ``yaml_file`` or the first ``.yaml`` in ``type_dir``: the
+    file's MODEL is the base (d_state 2 and MLP ratio 2 here, both left
+    out of the inline parameters), the inline parameters override it
+    (embed 24 over the file's 48). Without the file, the JAX build merges
+    nothing, and the port builds the same parameter shapes."""
+    from test_torch_swinv2 import swin_cfg
+    (tmp_path / "vssm.yaml").write_text(
+        "MODEL:\n  VSSM:\n    SSM_D_STATE: 2\n    MLP_RATIO: 2.0\n"
+        "    EMBED_DIM: 48\n")
+    cfg = swin_cfg() if case == "swin" else tiny_cfg()
+    if case == "homographynet":
+        cfg["homography_regression_head"] = {"check": True,
+                                             "type": "HomographyNet"}
+    elif case.startswith("pretrained"):
+        vssm = cfg["use_attention"]["model_parameters"]["MODEL"]["VSSM"]
+        del vssm["SSM_D_STATE"], vssm["MLP_RATIO"]
+        cfg["use_attention"]["pretrained"] = (
+            {"check": True, "yaml_file": str(tmp_path / "vssm.yaml")}
+            if case == "pretrained_yaml"
+            else {"check": True, "type_dir": str(tmp_path)})
+    jm, _ = jx_build_xpoint(cfg, dtype=jnp.float32, scan_backend="assoc")
+    v = jax.jit(lambda r: jm.init(r, jnp.zeros((1, 64, 64, 1), jnp.float32),
+                                  method=jm.init_all))(jax.random.PRNGKey(4))
+    v = _perturb(v, 14, scale=0.05)
+    tm, _ = build_xpoint(cfg, device="cpu")
+    load_flax_variables(tm, v)
     if case.startswith("pretrained"):
-        # no YAML to merge: the JAX build merges nothing, and so builds
+        op = tm.encoder.layers_0_blocks_0
+        assert op.op.A_logs.shape[-1] == 2
+        assert op.mlp.Dense_0.weight.shape == (48, 24)
+    rng = np.random.default_rng(15)
+    img_o, img_t = (rng.uniform(size=(2, 64, 64, 1)).astype(np.float32)
+                    for _ in range(2))
+    not_warped = np.array([True, False])
+    ref = jm.apply(v, jnp.asarray(img_o), jnp.asarray(img_t), False,
+                   jnp.asarray(not_warped), method=jm.forward_pair)
+    with torch.no_grad():
+        out = tm.forward_pair(T(img_o), T(img_t),
+                              optical_not_warped=T(not_warped))
+    for side in (0, 1):
+        for key in ("logits", "desc", "encoder_output"):
+            np.testing.assert_allclose(out[side][key].numpy(),
+                                       np.asarray(ref[side][key]), atol=1e-4,
+                                       rtol=1e-4, err_msg=f"{side} {key}")
+    np.testing.assert_allclose(out[2].numpy(), np.asarray(ref[2]), atol=1e-4,
+                               rtol=1e-4, err_msg="homography head")
+    if case.startswith("pretrained"):
+        # no YAML to merge: the JAX build merges nothing, and so does the
+        # port's
         (tmp_path / "vssm.yaml").unlink()
-        build_xpoint(cfg, device="cpu")
+        jm, _ = jx_build_xpoint(cfg, dtype=jnp.float32, scan_backend="assoc")
+        shapes = jax.eval_shape(lambda: jm.init(
+            jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 1), jnp.float32),
+            method=jm.init_all))
+        ref = flax_to_state_dict(jax.tree.map(
+            lambda s: np.zeros(s.shape, np.float32), shapes))
+        tm, _ = build_xpoint(cfg, device="cpu")
+        assert {k: tuple(t.shape) for k, t in tm.state_dict().items()} == \
+            {k: tuple(t.shape) for k, t in ref.items()}
+        assert tm.encoder.layers_0_blocks_0.op.A_logs.shape[-1] != 2
 
 
 @pytest.mark.parametrize("key", ["multispectral", "final_batchnorm",

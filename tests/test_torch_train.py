@@ -457,9 +457,130 @@ def test_eval_step_matches_jax():
         assert abs(float(tc[k]) - float(jc[k])) <= tol, k
 
 
-def test_unported_heads_raise():
-    cfg = copy.deepcopy(tiny_cfg())
-    cfg["homography_regression_head"] = {"check": True,
-                                         "type": "HomographyNet"}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_xpoint(cfg, device="cpu")
+def _no_dropout(monkeypatch):
+    """Dropout as the identity on both sides: its masks come from random
+    streams that cannot match (test_droppath_and_dropout_statistics holds
+    the port's to flax's statistics)."""
+    from xpoint_tpu_torch.models import homographynet, regnet
+    monkeypatch.setattr(fnn.Dropout, "__call__",
+                        lambda self, x, deterministic=None, rng=None: x)
+    for mod in (homographynet, regnet):
+        monkeypatch.setattr(mod, "dropout", lambda x, *args: x)
+
+
+def _cnn_homographynet_cfg():
+    return {"multispectral": False, "descriptor_size": 32,
+            "channel_version": 2, "takes_pair": True,
+            "homography_regression_head": {"check": True,
+                                           "type": "HomographyNet"}}
+
+
+def _hm_batch(seed, S=64):
+    """A pair batch with the hm target, optical_not_warped true for the
+    first sample and false for the second: its optical homography is not
+    the identity either, so HomographyNet takes its thermal map first."""
+    batch = _pair_batch(seed, S=S)
+    batch["optical"]["homography"][1] = batch["thermal"]["homography"][1]
+    batch["hfour_points"] = np.random.default_rng(seed).normal(
+        size=(2, 4, 2)).astype(np.float32) * 8
+    return batch
+
+
+@pytest.mark.parametrize("model", ["swin_regnet", "vmamba_homographynet"])
+def test_train_step_hm_heads_match_jax(model, monkeypatch):
+    """One train step of the tiny Swin XPoint with RegNet (configs/cmt.yaml
+    at depths [2, 2], embed 24, window 4; DropPath 0; 32^2, 16 x 16 cells)
+    and of the tiny VMamba XPoint with HomographyNet (64^2), the flagship
+    loss with the HM loss, Dropout the identity on both sides,
+    optical_not_warped true and false in one batch: loss components within 1e-5
+    relative and every gradient leaf (Adam's first moment, mu = 0.1 g)
+    within 1e-4 of the leaf's max + 1e-7 of the largest, as
+    test_train_step_matches_jax; the BatchNorm statistics the step updates
+    within 1e-5 of each leaf's max.
+
+    The encoders here are smooth (GELU, SiLU): in a ReLU network a
+    pre-activation within fp32 roundoff of zero takes the other side of
+    the ReLU in the other framework and moves whole gradient leaves (the
+    CNN encoder of test_unported_heads_raise: 17% of a leaf's max from a
+    7e-5 difference in one layer's input), and the more cells a head
+    sees, the likelier such a pre-activation is; the CNN with
+    HomographyNet is held by that eval-step test."""
+    from test_torch_swinv2 import swin_cfg
+    _no_dropout(monkeypatch)
+    S = 64
+    if model == "swin_regnet":
+        cfg = swin_cfg()
+        cfg["use_attention"]["model_parameters"]["MODEL"][
+            "DROP_PATH_RATE"] = 0.0
+        S = 32
+    else:
+        cfg = _tiny_train_cfg()
+        cfg["homography_regression_head"] = {"check": True,
+                                             "type": "HomographyNet"}
+    jm, _ = jx_build_xpoint(cfg, dtype=jnp.float32, scan_backend="assoc")
+    v = jax.jit(lambda r: jm.init(r, jnp.zeros((1, 64, 64, 1), jnp.float32),
+                                  method=jm.init_all))(jax.random.PRNGKey(0))
+    v = _perturb(v, 23, scale=0.05)
+    ratio = jm.encoder_downsample_ratio
+    loss_cfg = dict(VMAMBA_TRAIN_CFG["loss"], space_to_depth_ratio=ratio)
+    jtx, _ = jx_make_optimizer({"learningrate": 1e-4})
+    jstate = JxTrainState.create(v["params"], v["batch_stats"], jtx)
+    jstep = jx_make_train_step(jm, JxXPointLoss(loss_cfg), donate=False)
+    tm, _ = build_xpoint(cfg, device="cpu")
+    assert tm.encoder_downsample_ratio == ratio
+    load_flax_variables(tm, v)
+    tstate = TrainState(tm, make_optimizer({"learningrate": 1e-4})[0])
+    tstep = make_train_step(tm, XPointLoss(loss_cfg))
+    batch = _hm_batch(6, S)
+    jstate, jc = jstep(jstate, jax.tree.map(jnp.asarray, batch),
+                       jax.random.PRNGKey(0))
+    tb = _torch_batch({k: v for k, v in batch.items() if k != "hfour_points"})
+    tb["hfour_points"] = T(batch["hfour_points"])
+    tc = tstep(tstate, tb, torch.Generator().manual_seed(0))
+    assert float(tc["skipped_nonfinite"]) == 0.0 and set(tc) == set(jc)
+    assert "homography_regression_loss" in tc
+    for k in tc:
+        tol = 1.5 / 128 if "ratio" in k else 1e-5 * abs(float(jc[k])) + 1e-6
+        assert abs(float(tc[k]) - float(jc[k])) <= tol, k
+    variables, mu, _ = _port_state_tree(tstate)
+    _assert_trees_close(mu, jstate.opt_state[0].mu, 1e-4,
+                        "gradients (mu / 0.1)", floor=1e-7)
+    _assert_trees_close(variables["batch_stats"], jstate.batch_stats, 1e-5,
+                        "batch_stats")
+
+
+def test_unported_heads_raise(monkeypatch):
+    """The HomographyNet head raised NotImplementedError until it was
+    ported; the CNN XPoint with it now builds it and its eval step (running
+    BatchNorm statistics perturbed away from 0 / 1, no Dropout) matches
+    JAX's, rtol 1e-5, with optical_not_warped true and false in one batch
+    (the first sample's optical homography the identity, the second's
+    not)."""
+    from xpoint_tpu_torch.models.homographynet import HomographyNet
+    cfg = _cnn_homographynet_cfg()
+    jm, _ = jx_build_xpoint(cfg, dtype=jnp.float32)
+    v = jax.jit(lambda r: jm.init(r, jnp.zeros((1, 64, 64, 1), jnp.float32),
+                                  method=jm.init_all))(jax.random.PRNGKey(2))
+    v = _perturb(v, 33, scale=0.05)
+    rng = np.random.default_rng(34)
+    v["batch_stats"] = jax.tree.map(
+        lambda s: np.asarray(s) + rng.uniform(0.05, 0.2, s.shape).astype(
+            np.float32), v["batch_stats"])
+    loss_cfg = dict(VMAMBA_TRAIN_CFG["loss"], space_to_depth_ratio=8)
+    batch = _hm_batch(8)
+    jstate = JxTrainState.create(v["params"], v["batch_stats"],
+                                 jx_make_optimizer({})[0])
+    jl, jc = jax.jit(jx_make_eval_step(jm, JxXPointLoss(loss_cfg)))(
+        jstate, jax.tree.map(jnp.asarray, batch))
+    tm, _ = build_xpoint(cfg, device="cpu")
+    assert isinstance(tm.hm_regressor, HomographyNet)
+    load_flax_variables(tm, v)
+    tb = _torch_batch({k: v for k, v in batch.items() if k != "hfour_points"})
+    tb["hfour_points"] = T(batch["hfour_points"])
+    tl, tc = make_eval_step(tm, XPointLoss(loss_cfg))(
+        TrainState(tm, make_optimizer({})[0]), tb)
+    np.testing.assert_allclose(float(tl), float(jl), rtol=1e-5)
+    assert "homography_regression_loss" in tc and set(tc) == set(jc)
+    for k in tc:
+        tol = 1.5 / 128 if "ratio" in k else 1e-5 * abs(float(jc[k])) + 1e-6
+        assert abs(float(tc[k]) - float(jc[k])) <= tol, k

@@ -302,17 +302,26 @@ def test_committed_checkpoint_through_the_bridge():
 
 
 def test_trainer_builds_host_datasets_and_raises_for_a_pretrained_checkpoint(
-        tmp_path):
-    """A pretrained encoder checkpoint to load raises NotImplementedError
-    naming its ROADMAP item; a pretrained block without a checkpoint trains
-    from scratch, as in JAX. The datasets the host data path builds are
-    ported: a config alone gives the Trainer its SyntheticShapes (train
-    and validation)."""
+        tmp_path, capsys):
+    """The datasets the host data path builds are ported: a config alone
+    gives the Trainer its SyntheticShapes (train and validation). A
+    pretrained block without a checkpoint trains from scratch, as in JAX.
+    A pretrained encoder checkpoint (which raised NotImplementedError until
+    it was ported): a reference-named VMamba backbone under
+    ``{"model": state_dict}`` in ``type_dir`` (the first of the sorted
+    checkpoint names) loads through the Trainer's own path, and the
+    encoder the Trainer trains from holds exactly the weights JAX's
+    convert_pretrained_encoder gives, carried through the bridge; the
+    rest of the model keeps the seeded initialisation."""
+    from xpoint_tpu.compat.torch_converter import \
+        convert_pretrained_encoder as jx_convert_pretrained_encoder
+    from xpoint_tpu_torch.compat.from_flax import flax_to_state_dict
     from xpoint_tpu_torch.data import SyntheticShapes
+    from test_torch_models import tiny_cfg
+    from test_torch_pretrained import reference_checkpoint
     t = Trainer(synth_config(), str(tmp_path / "a"), device="cpu")
     assert isinstance(t.dataset, SyntheticShapes)
     assert isinstance(t.val_loader.dataset, SyntheticShapes)
-    from test_torch_models import tiny_cfg
     cfg = synth_config()
     cfg["model"] = tiny_cfg()
     (tmp_path / "enc").mkdir()
@@ -321,7 +330,22 @@ def test_trainer_builds_host_datasets_and_raises_for_a_pretrained_checkpoint(
     ds = FrozenSingleImages(4, S=64)
     Trainer(cfg, str(tmp_path / "b"), device="cpu", dataset=ds,
             val_dataset=ds)
-    (tmp_path / "enc" / "vssm_tiny.pth").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Trainer(cfg, str(tmp_path / "c"), device="cpu", dataset=ds,
+    assert "training from scratch" in capsys.readouterr().out
+
+    seeded, _ = build_xpoint(cfg["model"], device="cpu")
+    sd = reference_checkpoint(seeded, 7)
+    torch.save({"model": sd}, tmp_path / "enc" / "a_vssm_tiny.pth")
+    torch.save({"model": {}}, tmp_path / "enc" / "b_other.pth")
+    t = Trainer(cfg, str(tmp_path / "c"), device="cpu", dataset=ds,
                 val_dataset=ds)
+    assert "loaded pretrained encoder weights from" in capsys.readouterr().out
+    jm, _ = jx_build_xpoint(cfg["model"], dtype=jnp.float32,
+                            scan_backend="assoc")
+    v = jm.init(jax.random.PRNGKey(0), jnp.zeros((1, 64, 64, 1)),
+                method=jm.init_all)
+    want = flax_to_state_dict(jx_convert_pretrained_encoder(
+        {k: x.numpy() for k, x in sd.items()}, jm, jax.device_get(v)))
+    init = seeded.state_dict()
+    for k, x in t.module.state_dict().items():
+        ref = want[k] if k.startswith("encoder.") else init[k]
+        assert torch.equal(x, ref), k

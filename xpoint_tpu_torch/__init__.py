@@ -2,8 +2,11 @@
 
 This package holds the serving path (detect + describe + match, and the
 homography by RANSAC on the device), the training step, homographic
-adaptation and the label export of the flagship VMamba XPoint and of the
-full cycle's CNN models (two spectrum encoders, per-spectrum BatchNorm),
+adaptation and the label export of the flagship VMamba XPoint, of the
+full cycle's CNN models (two spectrum encoders, per-spectrum BatchNorm)
+and of the SwinV2 XPoint of ``configs/cmt.yaml`` (with the HomographyNet
+head, pretrained encoders under the reference's key names and the sparse
+descriptor loss),
 the Trainer with its checkpoints, ``model_io`` and config files, the host
 data path, and evaluation (the metrics, the metric sweep and timing
 harness, and the ``benchmark`` entry point, ``python -m

@@ -1,11 +1,14 @@
 """Where the time of one pair-pipeline call goes, on the card.
 
     python -m xpoint_tpu_torch.eval.profile_pipeline [forward_type]
+    python -m xpoint_tpu_torch.eval.profile_pipeline --yaml CONFIG.yaml
 
 Builds the flagship VMamba XPoint (bf16, seed 0; ``forward_type``, e.g.
-``v052d_noz``, replaces its SSM_FORWARDTYPE v05_noz), warms the pipeline
-up, then profiles one call with torch.profiler (CPU + CUDA activities) and
-prints what :func:`report` prints. Needs a CUDA card.
+``v052d_noz``, replaces its SSM_FORWARDTYPE v05_noz), or with ``--yaml``
+the model of a config file's ``model:`` section (``configs/cmt.yaml``: the
+SwinV2 XPoint), seed 0, warms the pipeline up, then profiles one call with
+torch.profiler (CPU + CUDA activities) and prints what :func:`report`
+prints. Needs a CUDA card.
 """
 import copy
 import json
@@ -18,10 +21,18 @@ import torch
 B, S, TOP = 8, 512, 25
 
 
-def flagship_pipeline(dev, forward_type=None):
-    """make_pair_pipeline over the flagship VMamba XPoint (bf16, seed 0;
-    ``forward_type`` in place of its SSM_FORWARDTYPE v05_noz) at S x S."""
+def pipeline(module):
+    """make_pair_pipeline over ``module`` at S x S, k 1024, NMS 8,
+    threshold 0.015, the cell size the module's own."""
     from . import make_pair_pipeline
+    return make_pair_pipeline(module, (S, S), k=1024, nms_size=8,
+                              detection_threshold=0.015,
+                              ratio=module.encoder_downsample_ratio)
+
+
+def flagship_pipeline(dev, forward_type=None):
+    """The pipeline over the flagship VMamba XPoint (bf16, seed 0;
+    ``forward_type`` in place of its SSM_FORWARDTYPE v05_noz)."""
     from ..models import VMAMBA_MODEL_CFG, build_xpoint
 
     cfg = copy.deepcopy(VMAMBA_MODEL_CFG)
@@ -29,20 +40,27 @@ def flagship_pipeline(dev, forward_type=None):
         cfg["use_attention"]["model_parameters"]["MODEL"]["VSSM"][
             "SSM_FORWARDTYPE"] = forward_type
     module, _ = build_xpoint(cfg, device=dev, seed=0)
-    return make_pair_pipeline(module, (S, S), k=1024, nms_size=8,
-                              detection_threshold=0.015)
+    return pipeline(module)
 
 
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
-    forward_type = argv[0] if argv else None
     if not torch.cuda.is_available():
         print("profile_pipeline: no CUDA device", file=sys.stderr)
         return 1
     from torch.profiler import ProfilerActivity, profile
 
     dev = torch.device("cuda")
-    run = flagship_pipeline(dev, forward_type)
+    if argv[:1] == ["--yaml"]:
+        from ..config import load_yaml
+        from ..models import build_xpoint
+        model = argv[1]
+        module, _ = build_xpoint(load_yaml(model)["model"], device=dev,
+                                 seed=0)
+        run = pipeline(module)
+    else:
+        model = argv[0] if argv else "v05_noz"
+        run = flagship_pipeline(dev, argv[0] if argv else None)
     g = torch.Generator(device=dev).manual_seed(0)
     imgs = [torch.rand(B, S, S, 1, generator=g, device=dev) for _ in range(4)]
     run(imgs[0], imgs[1])
@@ -53,8 +71,7 @@ def main(argv=None):
         run(imgs[2], imgs[3])
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    report(prof, wall_ms, "pipeline call", batch=B, size=S,
-           forward_type=forward_type or "v05_noz")
+    report(prof, wall_ms, "pipeline call", batch=B, size=S, model=model)
     return 0
 
 

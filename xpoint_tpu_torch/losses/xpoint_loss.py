@@ -7,14 +7,17 @@
   descriptor loss  dense cell-centre hinge with homography-warped
                    correspondences (distance <= threshold), valid-mask outer
                    product, optional hard-negative weighting; streamed over
-                   chunks of the cell2 axis with fp32 sums
+                   chunks of the cell2 axis with fp32 sums; the sparse
+                   variant samples Hc*Wc // divisor cells
   hm loss          MSE on the L2-normalised 8-vector
   encoder sim      1 - cosine similarity of the flattened features
 
 Config schema identical to the reference ``loss:`` YAML section. Random
-draws (the hard-assignment tiebreak) come from the ``torch.Generator``
-passed in; in soft-assignment mode they only feed the diagnostics. The
-sparse descriptor loss is not ported (ROADMAP.md Queue 1 item 3).
+draws (the hard-assignment tiebreak, the sparse loss's cells) come from
+the ``torch.Generator`` passed in; in soft-assignment mode the tiebreak
+only feeds the diagnostics. The JAX package draws the sparse cells with
+``jax.random.randint``, which torch cannot reproduce: the same cells can be
+handed to :func:`descriptor_loss` instead.
 """
 import copy
 
@@ -50,9 +53,6 @@ DEFAULT_CONFIG = {
     'use_encoder_similarity': False,
     'homography_regression_loss': {'check': False, 'gamma': 1.0},
 }
-
-_SPARSE_ITEM = "ROADMAP.md Queue 1 item 3 (sparse descriptor loss)"
-
 
 def _weighted_ce(logits, target, class_weights):
     """-sum_c w_c t_c log softmax_c per position."""
@@ -151,20 +151,94 @@ def _chunk_size(N):
     return next(g for g in range(min(512, N), 0, -1) if N % g == 0)
 
 
-def descriptor_loss(desc1, desc2, homography1, homography2,
-                    valid_mask1, valid_mask2, config, gen=None):
-    """Dense descriptor hinge loss; desc (B, Hc, Wc, D) L2-normalised.
-    Returns (total, positive, negative).
+def _wmean(num, den, dim):
+    """Mean over anchors of sum(num) / sum(den) along ``dim``, anchors with
+    an empty denominator left out. where() on both sides of the division:
+    the gradient of x / max(den, eps) overflows for empty anchors."""
+    d = den.sum(dim)
+    ok = d > 0.0
+    m = torch.where(ok, num.sum(dim) / torch.where(ok, d, 1.0), 0.0)
+    return m.sum(1) / ok.float().sum(1).clamp_min(1.0)
 
-    Cell centres (i*8+4) are warped by each side's inverse homography; a
-    pair (cell2, cell1) corresponds when the warped centres lie within the
-    threshold. The (B, N, N) hinge volume is streamed over chunks of the
-    cell2 axis (the largest G <= 512 dividing N) with fp32 sums, as the JAX
-    scan does."""
-    del gen                     # only the sparse variant draws
+
+def sparse_descriptor_loss(desc1, desc2, homography1, homography2, config,
+                           gen=None, cells=None):
+    """The sparse descriptor hinge loss (``xpoint_loss.py:173-230``):
+    ``cells`` ((n, 2) int (row, col) cell indices, n = Hc*Wc // divisor;
+    drawn from ``gen`` when not given) are warped by each side's
+    homography, each side's descriptors gathered at its rounded warped
+    cell; a pair corresponds when the two cells lie within sqrt(0.5), and
+    is valid where the first side's warped row and the second side's warped
+    column fall inside the grid. fp32 dot matrix, optional hard negatives.
+    Returns (total, positive, negative)."""
+    B, Hc, Wc, D = desc1.shape
+    dev = desc1.device
+    pos_margin = config['positive_margin']
+    neg_margin = config['negative_margin']
+    lambda_d = config['lambda_d']
+    if cells is None:
+        n = int((Hc * Wc) // config['sparse_descriptor_loss_num_cell_divisor'])
+        if gen is None:
+            gen = torch.Generator(device=dev).manual_seed(0)
+        cells = torch.stack(
+            [torch.randint(0, Hc, (n,), generator=gen, device=dev),
+             torch.randint(0, Wc, (n,), generator=gen, device=dev)], -1)
+    cells = cells.to(dev, torch.float32)[None].expand(B, -1, -1)
+
+    w1 = cells if homography1 is None else warp_points(cells, homography1)
+    w2 = cells if homography2 is None else warp_points(cells, homography2)
+    dist = torch.linalg.vector_norm(cells[:, None, :, :] - cells[:, :, None, :],
+                                    dim=-1)
+    corr = (dist <= 0.5 ** 0.5).float()
+    valid = (((w1[:, :, 0] > -0.5) & (w1[:, :, 0] < Hc - 0.5))[:, None, :]
+             & ((w2[:, :, 1] > -0.5) & (w2[:, :, 1] < Wc - 0.5))[:, :, None]
+             ).float()
+
+    def clampi(idx, hi):
+        return torch.round(idx).long().clamp(0, hi - 1)
+
+    rows = torch.arange(B, device=dev)[:, None]
+    d1 = desc1[rows, clampi(w1[..., 0], Hc), clampi(w1[..., 1], Wc)]
+    d2 = desc2[rows, clampi(w2[..., 0], Hc), clampi(w2[..., 1], Wc)]
+    dot = torch.bmm(d2.float(), d1.float().transpose(1, 2))
+    positive = lambda_d * corr * (pos_margin - dot).clamp_min(0.0) * valid
+    neg_hinge = (dot - neg_margin).clamp_min(0.0)
+    negative = (1 - corr) * neg_hinge * valid
+    loss = positive + negative
+    norm = valid.sum(dim=(1, 2)).clamp_min(1.0)
+    hn = config['hard_negative_weighting']
+    hard = 0.0
+    if hn.get('check'):
+        # the dense path's softmax(dot / tau) emphasis on the sampled-cell
+        # matrix, both anchor directions
+        e = (torch.exp(dot / float(hn.get('temperature', 0.1)))
+             * (1 - corr) * valid)
+        e_num = e * neg_hinge
+        hard = float(hn.get('weight', 0.2)) * 0.5 * (
+            _wmean(e_num, e, 2) + _wmean(e_num, e, 1))
+        if not hn.get('keep_uniform', True):
+            loss = positive
+            negative = torch.zeros_like(negative)
+    total = (loss.sum(dim=(1, 2)) / norm + hard).mean()
+    pos = (positive.sum(dim=(1, 2)) / norm).mean()
+    neg = (negative.sum(dim=(1, 2)) / norm + hard).mean()
+    return total, pos, neg
+
+
+def descriptor_loss(desc1, desc2, homography1, homography2,
+                    valid_mask1, valid_mask2, config, gen=None, cells=None):
+    """Descriptor hinge loss; desc (B, Hc, Wc, D) L2-normalised. Returns
+    (total, positive, negative). With ``sparse_descriptor_loss``, the
+    sparse variant on ``cells`` (or cells drawn from ``gen``).
+
+    Dense: cell centres (i*8+4) are warped by each side's inverse
+    homography; a pair (cell2, cell1) corresponds when the warped centres
+    lie within the threshold. The (B, N, N) hinge volume is streamed over
+    chunks of the cell2 axis (the largest G <= 512 dividing N) with fp32
+    sums, as the JAX scan does."""
     if config['sparse_descriptor_loss']:
-        raise NotImplementedError(
-            f"sparse descriptor loss: see {_SPARSE_ITEM}")
+        return sparse_descriptor_loss(desc1, desc2, homography1, homography2,
+                                      config, gen, cells)
     B, Hc, Wc, D = desc1.shape
     r = config['space_to_depth_ratio']
     pos_margin = config['positive_margin']
@@ -261,10 +335,6 @@ class XPointLoss:
 
     def __init__(self, config=None):
         self.config = dict_update(copy.deepcopy(DEFAULT_CONFIG), config or {})
-        if self.config['descriptor_loss'] and \
-                self.config['sparse_descriptor_loss']:
-            raise NotImplementedError(
-                f"sparse descriptor loss: see {_SPARSE_ITEM}")
 
     def __call__(self, data, pred, pred2=None, pred_hm=None, gen=None):
         """data: 'optical'/'thermal' sub-dicts (keypoints (B,H,W),

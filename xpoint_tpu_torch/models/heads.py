@@ -125,16 +125,19 @@ def _batchnorm(features, spectral_stats):
 
 
 class Conv(nn.Module):
-    """flax ``nn.Conv`` with VALID padding: conv in x's dtype, then bias."""
+    """flax ``nn.Conv`` (VALID padding unless ``padding``): conv in x's
+    dtype, then bias."""
 
-    def __init__(self, in_features, features, kernel_size):
+    def __init__(self, in_features, features, kernel_size, stride=1,
+                 padding=0):
         super().__init__()
+        self.stride, self.padding = stride, padding
         self.weight = nn.Parameter(
             torch.empty(features, in_features, kernel_size, kernel_size))
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x):
-        y = _conv_nhwc(x, self.weight)
+        y = _conv_nhwc(x, self.weight, self.stride, self.padding)
         return y + self.bias.to(y.dtype)
 
 

@@ -7,9 +7,11 @@ defaults used by ``xpoint_tpu/models/heads.py``):
 
   * Dense layers of the encoder (``in_proj`` of width D, or 2 D with the
     gate) and ``x_proj_weight`` (K, R + 2 N, D): normal(0.02) truncated to
-    +-2 std;
-  * convolutions, and RegNet's dense layers: lecun_normal (truncated
-    normal, fan_in scaling), bias 0;
+    +-2 std; so are Swin's ``qkv_kernel``, ``proj``, ``mlp_fc1`` /
+    ``mlp_fc2`` and ``reduction`` (``xpoint_tpu/models/swinv2.py``);
+  * convolutions, RegNet's and HomographyNet's dense layers and Swin's CPB
+    MLP: lecun_normal (truncated normal, fan_in scaling), bias 0;
+  * Swin's ``logit_scale``: log 10; its q / v biases: 0;
   * ``dt_projs_weight``: uniform [0, 2 R^-0.5) (stored unshifted);
   * ``dt_projs_bias``: softplus-inverse of log-uniform dt in [1e-3, 0.1];
   * ``A_logs`` (K D, N): log(1..N) in every row; ``Ds``: 1; SS2D's conv
@@ -24,6 +26,8 @@ from torch import nn
 
 from .heads import SPECTRA, BatchNorm, Conv, SpectralBatchNorm
 from .regnet import Conv3x3, Dense
+from .swinv2 import Dense as SwinDense
+from .swinv2 import WindowAttention
 from .vssm import SS2D, StridedConv3x3
 
 # std of the standard normal truncated to [-2, 2]
@@ -71,6 +75,19 @@ def init_xpoint_(module, gen):
                 _lecun_normal_(m.conv2d.weight, gen)
                 if m.conv2d.bias is not None:
                     m.conv2d.bias.zero_()
+        elif isinstance(m, WindowAttention):
+            m.logit_scale.fill_(math.log(10.0))
+            _trunc_normal_(m.qkv_kernel, 0.02, gen)
+            if hasattr(m, "q_bias"):
+                m.q_bias.zero_()
+                m.v_bias.zero_()
+        elif isinstance(m, SwinDense):
+            if m.init == "lecun_normal":
+                _lecun_normal_(m.weight, gen)
+            else:
+                _trunc_normal_(m.weight, 0.02, gen)
+            if m.bias is not None:
+                m.bias.zero_()
         elif isinstance(m, nn.Linear):
             _trunc_normal_(m.weight, 0.02, gen)
             if m.bias is not None:

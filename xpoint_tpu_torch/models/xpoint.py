@@ -1,7 +1,9 @@
 """XPoint model: encoder(s) + detector head (+ descriptor head) (+ the
-RegNet homography head), port of ``xpoint_tpu/models/xpoint.py:32-322``.
+RegNet or HomographyNet homography head), port of
+``xpoint_tpu/models/xpoint.py:32-322``.
 
-The encoder is the plain CNN (``models.heads.CNNEncoder``) or VMamba; with
+The encoder is the plain CNN (``models.heads.CNNEncoder``), VMamba or
+SwinV2; with
 ``multispectral`` there are two, ``encoder_optical`` and
 ``encoder_thermal``, routed by the static ``spectrum`` of the forward:
 ``"optical"`` / ``"thermal"`` run one, ``"mixed"`` runs both on the whole
@@ -11,9 +13,10 @@ the spectrum too, for their per-spectrum statistics
 (``spectral_norm_stats``). ``train()`` / ``eval()`` switch BatchNorm,
 DropPath and Dropout between their train and eval behaviour (the JAX
 ``train`` flag); their randomness comes from the ``torch.Generator``
-passed to the forward. Not ported yet, and raising NotImplementedError:
-the Swin encoder, the HomographyNet head and the pretrained-encoder YAML
-merge (ROADMAP.md Queue 1 item 7).
+passed to the forward. A VMamba encoder with a ``pretrained`` block that
+names a YAML file (``yaml_file``, else the first ``.yaml`` in
+``type_dir``) takes that file's ``MODEL`` as the base of its parameters,
+the inline ``model_parameters`` overriding it, as in JAX.
 """
 import copy
 import os
@@ -21,10 +24,13 @@ import os
 import torch
 from torch import nn
 
+from ..config import load_yaml
 from ..utils import dict_update
 from .heads import CNNEncoder, Head
+from .homographynet import HomographyNet
 from .init import init_xpoint_
 from .regnet import RegNet
+from .swinv2 import build_swin_from_config
 from .vssm import build_vssm_from_config
 
 # The flagship model (own copy of __graft_entry__.py::VMAMBA_MODEL_CFG):
@@ -210,9 +216,10 @@ _CHANNEL_VERSIONS = {
 
 class XPointNet(nn.Module):
     """Encoder(s) + detector head (r^2 + 1 cell classes) + optional
-    descriptor head (+ RegNet with ``hm_head``). Construct via
-    :func:`build_xpoint`; ``make_encoder()`` builds one encoder, and
-    ``encoder_type`` ("cnn" or "vmamba") says how it is called."""
+    descriptor head (+ the RegNet or HomographyNet module ``hm_head``).
+    Construct via :func:`build_xpoint`; ``make_encoder()`` builds one
+    encoder, and ``encoder_type`` ("cnn", "vmamba" or "swin") says how it
+    is called."""
 
     def __init__(self, make_encoder, encoder_type, encoder_channels,
                  head_channels, descriptor_size=256,
@@ -285,12 +292,16 @@ class XPointNet(nn.Module):
         return self.forward_impl(image, spectrum, is_optical, gen)
 
     def forward_pair(self, optical_image, thermal_image, gen=None,
-                     is_optical_o=None, is_optical_t=None):
+                     is_optical_o=None, is_optical_t=None,
+                     optical_not_warped=None):
         """takes_pair forward (``xpoint.py:178-221``): the optical image
         through the optical route and the thermal one through the thermal
         route, or, with two encoders and a per-sample ``is_optical_o`` /
         ``is_optical_t``, each side 'mixed'; then RegNet on both encoder
-        outputs. Returns (pred_optical, pred_thermal, pred_hm or None)."""
+        outputs, or HomographyNet on their channel means, the optical map
+        first where ``optical_not_warped`` ((B,) bool; default all true)
+        holds and the thermal one first elsewhere. Returns (pred_optical,
+        pred_thermal, pred_hm or None)."""
         if self.multispectral and is_optical_o is not None:
             pred_o = self.forward_impl(optical_image, "mixed", is_optical_o,
                                        gen)
@@ -302,9 +313,20 @@ class XPointNet(nn.Module):
         else:
             pred_t = self.forward_impl(thermal_image, "thermal", gen=gen)
         pred_hm = None
-        if hasattr(self, "hm_regressor"):
+        if isinstance(getattr(self, "hm_regressor", None), RegNet):
             pred_hm = self.hm_regressor(pred_o["encoder_output"],
                                         pred_t["encoder_output"], gen)
+        elif hasattr(self, "hm_regressor"):
+            mo = pred_o["encoder_output"].mean(dim=-1, keepdim=True)
+            mt = pred_t["encoder_output"].mean(dim=-1, keepdim=True)
+            if optical_not_warped is None:
+                first, second = mo, mt
+            else:
+                sel = optical_not_warped.reshape(-1, 1, 1, 1)
+                first = torch.where(sel, mo, mt)
+                second = torch.where(sel, mt, mo)
+            pred_hm = self.hm_regressor(torch.cat([first, second], dim=-1),
+                                        gen)
         return pred_o, pred_t, pred_hm
 
 
@@ -326,12 +348,14 @@ def build_xpoint(config=None, dtype=None, device="cuda", seed=0):
     """Build an XPointNet from the reference YAML ``model:`` dict.
 
     Returns (module, merged_config). The encoder is the CNN (channel
-    version 0, 1 or 2) unless ``use_attention`` asks for VMamba. The
-    module is initialised from ``seed`` with the JAX package's initialiser
-    distributions (``models.init``), in eval mode, on ``device``. dtype
-    defaults to bf16 with ``mixed_precision`` and fp32 otherwise. The
-    RegNet head is built when ``homography_regression_head`` is ``{check:
-    true, type: RegNet}``.
+    version 0, 1 or 2) unless ``use_attention`` asks for VMamba or SwinV2
+    (``Swinv2`` / ``SwinV2``; encoder width embed * 2^(n-1) / 16 and
+    downsample ratio 2^(n-1) for n stages). The module is initialised from
+    ``seed`` with the JAX package's initialiser distributions
+    (``models.init``), in eval mode, on ``device``. dtype defaults to bf16
+    with ``mixed_precision`` and fp32 otherwise. The homography head is
+    built when ``homography_regression_head`` has ``check: true``: its
+    ``type`` RegNet (the default) or HomographyNet.
     """
     cfg = dict_update(copy.deepcopy(DEFAULT_CONFIG), config or {})
     if dtype is None:
@@ -341,6 +365,7 @@ def build_xpoint(config=None, dtype=None, device="cuda", seed=0):
     if head_channels is None:
         head_channels = cfg['descriptor_size']
     ua = cfg.get('use_attention', {})
+    ratio = 8
     if not ua.get('check'):
         encoder_type, enc_channels = "cnn", n_channels[4]
 
@@ -349,10 +374,13 @@ def build_xpoint(config=None, dtype=None, device="cuda", seed=0):
                               cfg['bn_first'], cfg['double_convolution'],
                               dtype, cfg['spectral_norm_stats'])
     elif ua.get('type') == 'VMamba':
-        if _pretrained_yaml(ua.get('pretrained', {}) or {}):
-            raise NotImplementedError(
-                "pretrained encoder YAML merge: ROADMAP.md Queue 1 item 7")
-        vssm = (ua.get('model_parameters', {}) or {}).get('MODEL', {})
+        # the pretrained encoder's YAML is the base, the inline
+        # parameters override it (reference get_config)
+        yaml_file = _pretrained_yaml(ua.get('pretrained', {}) or {})
+        base = ((load_yaml(yaml_file) or {}).get('MODEL', {})
+                if yaml_file else {})
+        vssm = dict_update(copy.deepcopy(base), (ua.get(
+            'model_parameters', {}) or {}).get('MODEL', {}))
         vssm_cfg = dict(vssm.get('VSSM', {}))
         vssm_cfg['DROP_PATH_RATE'] = vssm.get('DROP_PATH_RATE', 0.2)
         encoder_type = "vmamba"
@@ -363,20 +391,34 @@ def build_xpoint(config=None, dtype=None, device="cuda", seed=0):
 
         def make_encoder():
             return build_vssm_from_config(vssm_cfg, dtype=dtype)
+    elif ua.get('type') in ('Swinv2', 'SwinV2'):
+        model = (ua.get('model_parameters', {}) or {}).get('MODEL', {})
+        swin_cfg = dict(model.get('SWINV2', {}))
+        swin_cfg['DROP_PATH_RATE'] = model.get('DROP_PATH_RATE', 0.2)
+        encoder_type = "swin"
+        n_stages = len(swin_cfg.get('DEPTHS', (2, 2, 6, 2)))
+        enc_channels = int(int(swin_cfg.get('EMBED_DIM', 96))
+                           * 2 ** (n_stages - 1) / 16)
+        # overall ratio 2^(n-1) * 4, divided by depth_to_space(4)
+        ratio = 2 ** (n_stages - 1)
+
+        def make_encoder():
+            return build_swin_from_config(swin_cfg, dtype=dtype)
     else:
-        raise NotImplementedError(
-            f"encoder {ua.get('type')}: only the CNN and VMamba encoders "
-            f"are ported (Swin: ROADMAP.md Queue 1 item 7)")
+        raise ValueError(f"unsupported attention encoder: {ua.get('type')}")
     hm = cfg.get('homography_regression_head', {})
     hm_head = None
     if hm.get('check'):
-        if hm.get('type', 'RegNet') != 'RegNet':
-            raise NotImplementedError(
-                f"homography head {hm.get('type')}: only RegNet is ported "
-                f"(HomographyNet: ROADMAP.md Queue 1 item 7)")
-        hm_head = RegNet(enc_channels, dtype=dtype)
+        hm_type = hm.get('type', 'RegNet')
+        if hm_type == 'RegNet':
+            hm_head = RegNet(enc_channels, dtype=dtype)
+        elif hm_type == 'HomographyNet':
+            hm_head = HomographyNet(dtype=dtype)
+        else:
+            raise ValueError(f"unknown homography head {hm_type}")
     module = XPointNet(
         make_encoder, encoder_type, enc_channels, head_channels,
+        encoder_downsample_ratio=ratio,
         descriptor_size=cfg['descriptor_size'],
         multispectral=cfg['multispectral'],
         descriptor_head=cfg['descriptor_head'],

@@ -156,22 +156,31 @@ class TrainState:
 
 
 def _pair_routing_args(batch):
-    """Per-sample encoder routing (random_pairs spectrum shuffling) from the
-    batch, shared by the train and eval steps: is_optical of each side,
-    flattened to (B,), or None (``parallel/train_step.py:47-61``; the
-    HomographyNet ordering it also derives is not ported)."""
-    is_o = batch["optical"].get("is_optical")
+    """Per-sample encoder routing (random_pairs spectrum shuffling) and
+    HomographyNet input ordering from the batch, shared by the train and
+    eval steps (``parallel/train_step.py:47-61``): optical_not_warped, (B,)
+    bool where the optical homography is the identity within 1e-6 (None
+    without a homography), and is_optical of each side, flattened to
+    (B,), or None."""
+    opt = batch["optical"]
+    is_o = opt.get("is_optical")
     is_t = batch["thermal"].get("is_optical")
-    return (None if is_o is None else is_o.reshape(-1),
+    optical_not_warped = None
+    if "homography" in opt:
+        h = opt["homography"]
+        eye = torch.eye(3, dtype=torch.float32, device=h.device)
+        optical_not_warped = ((h - eye).abs() < 1e-6).flatten(1).all(1)
+    return (optical_not_warped,
+            None if is_o is None else is_o.reshape(-1),
             None if is_t is None else is_t.reshape(-1))
 
 
 def _forward_loss(module, loss_fn, batch, takes_pair, gen):
     if takes_pair:
-        is_o, is_t = _pair_routing_args(batch)
+        not_warped, is_o, is_t = _pair_routing_args(batch)
         pred_o, pred_t, pred_hm = module.forward_pair(
             batch['optical']['image'], batch['thermal']['image'], gen,
-            is_o, is_t)
+            is_o, is_t, not_warped)
         return loss_fn(batch, pred_o, pred_t, pred_hm, gen)
     pred = module(batch['image'], "mixed", batch['is_optical'].reshape(-1),
                   gen)

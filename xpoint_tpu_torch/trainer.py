@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from . import checkpoints as ckpt
+from .compat.torch_converter import load_pretrained_encoder
 from .config import save_yaml
 from .data import DataLoader, get_dataset
 from .losses import XPointLoss
@@ -166,14 +167,20 @@ class Trainer:
             print(f"pretrained encoder dir not found ({type_dir}); "
                   f"training from scratch", flush=True)
             return
-        if not any(f.endswith(('.pth', '.model', '.ckpt', '.pt'))
-                   for f in os.listdir(type_dir)):
+        ckpts = [f for f in os.listdir(type_dir)
+                 if f.endswith(('.pth', '.model', '.ckpt', '.pt'))]
+        if not ckpts:
             print(f"no pretrained encoder checkpoint in {type_dir}; "
                   f"training from scratch", flush=True)
             return
-        raise NotImplementedError(
-            "loading a pretrained encoder checkpoint: ROADMAP.md Queue 1 "
-            "item 7")
+        path = os.path.join(type_dir, sorted(ckpts)[0])
+        sd = torch.load(path, map_location='cpu', weights_only=True)
+        for key in ('state_dict', 'model', 'model_state_dict'):
+            if isinstance(sd, dict) and isinstance(sd.get(key), dict):
+                sd = sd[key]
+                break
+        load_pretrained_encoder(self.module, sd)
+        print(f"loaded pretrained encoder weights from {path}", flush=True)
 
     def load_weights(self, path):
         """Initialise training from a checkpoint file, the fine-tuning
