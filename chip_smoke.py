@@ -193,13 +193,15 @@ data path, in a scratch directory under build/ that is removed at the end:
  21. the port's full cycle at the smoke size: python -m
      xpoint_tpu_torch.tools.full_cycle (4 train and 2 test pairs at 256^2,
      20 cached synthetic samples, 2 pretrain and 2 pair epochs, HA with 5
-     warps) on the card, its seven stages each a process of its own with
-     $XPOINT_TORCH_RUN_REPORT set: the metrics JSON read back with the JAX
-     file's keys and nesting (homography_device included), finite and in
-     range; the stages in order, none of which imported h5py; each stage's
-     wall seconds; the K4 and K2 launches each stage's process counted
-     against what the code predicts (3 K4 calls a chunk of warps and 2 NMS
-     calls an exported pair; 1 + 2 x 2 x 2 NMS calls a sweep); then, in
+     warps, --classical) on the card, its eight stages each a process of
+     its own with $XPOINT_TORCH_RUN_REPORT set: the metrics JSON and the
+     SIFT baseline's <out>_classical.json read back with the JAX file's
+     keys and nesting (homography_device included in the first), finite
+     and in range; the stages in order, none of which imported h5py; each
+     stage's wall seconds; the K4 and K2 launches each stage's process
+     counted against what the code predicts (3 K4 calls a chunk of warps
+     and 2 NMS calls an exported pair; 1 + 2 x 2 x 2 NMS calls a sweep, the
+     classical one's included); then, in
      this process, the masked (1, 256, 256) planes the sweep's timing
      harness hands NMS, from the cycle's model and eval config: K2 exact
      against its plain version at NMS 4 on each, with times; K4 against
@@ -244,8 +246,41 @@ data path, in a scratch directory under build/ that is removed at the end:
      a warm-up pair, 6 K4 and 2 K2 launches for the pair, K2 exact against
      its plain version on the Swin HA maps, and K4 against its plain
      version at the export's calls (8 warps at 512^2);
+ 26. xv / m0 serving: the flagship model section with only
+     SSM_FORWARDTYPE changed, for each of xv1a, xv2a, xv3a (SS2Dv3) and
+     m0_noz (SS2Dm0, the chunked SSD scan), from seed 0 through
+     make_pair_pipeline at 512^2, B=8, k=1024, NMS 8, threshold 0.015 on
+     fresh images each call: latency and pairs/s (median of five after a
+     warm-up), peak memory, the launches against the code's prediction (16
+     K5 and 1 K2 a call for each xv type, no scan kernel and 1 K2 for m0);
+     the K5 operand shapes of xv1a's blocks recorded and checked equal to
+     phase 11's (whose K5 checks and times stand for them); then the tiny
+     model (depths [1, 1, 1, 1], embed 24, fp32) in every postfix family
+     the CPU tests cover, on the card against the CPU (1e-4 of max |CPU|);
+ 27. xv / m0 training at full width (256^2, B=16, resident data as in
+     phase 7, 8 steps each, every step under
+     torch.cuda.set_sync_debug_mode("error")): xv1a (16 K5 forward and 32
+     K6 backward a step), xv1a with SSM_D_STATE 16 (the general scan: 32 K6
+     a step, forward and backward, its (L, B, K, C, N) fp32 planes saved)
+     and m0_noz (no scan kernel): ms a step, samples/s, peak memory,
+     launches against the prediction; K6 against its plain version at the
+     N = 16 shapes ((L, B K C N) time-major planes of each stage, fwd and
+     reversed-shifted, 1e-5 of max |plain|), with times;
+ 28. the baselines: the SIFT ClassicDetectors through python -m
+     xpoint_tpu_torch.cli.benchmark -m none -v none -e (its main() in this
+     process) with phase 20's config and a ClassicDetectors model section
+     on phase 19's folder corpus (32 pairs): the JSON's keys, finite
+     metrics in range, s a pair, K2 launches against the prediction (1 +
+     2 x 37 NMS calls), K2 exact against its plain version on one masked
+     SIFT plane, with times; LGHD and RIFT2 over two pairs each at 256^2
+     (host s a pair); MagicLeap SuperPoint (seed-0 weights) through
+     make_pair_pipeline at 512^2, B=8 (latency, pairs/s, 1 K2 a call, K2
+     exact on its heatmaps) and in fp32 at 64^2 on the card against the
+     CPU; a reference-named .model of the full cycle's pair CNN (seeded
+     numpy under the reference's names) read by model_io.load_model on the
+     card and on the CPU to the same bits, then one pipeline call;
 then a details JSON line, the per-kernel JSON line, the card line and the
-final JSON line.
+final JSON line, and the whole script's wall time.
 """
 import copy
 import json
@@ -801,25 +836,36 @@ ZERO_GRAD_PARAMS = ("detector_head.Conv_0.bias",
                     "descriptor_head.ConvBNRelu_0.BatchNorm_0.bias")
 
 
-# launches per train step by forward type, as the code predicts: 16 SS2D
-# blocks a step (8 blocks x 2 images); v05_noz runs K1 with checkpoints
-# forward and K3 backward; v052d_noz runs K5 forward and, in each block's
-# backward, K6 once to rebuild h and once reversed
+# launches per train step by forward type (and d_state, where not 1), as
+# the code predicts: 16 SS2D blocks a step (8 blocks x 2 images); v05_noz
+# runs K1 with checkpoints forward and K3 backward; v052d_noz and xv1a run
+# K5 forward and, in each block's backward, K6 once to rebuild h and once
+# reversed; xv1a with d_state 16 runs the general scan, K6 once forward and
+# once reversed in the backward; m0_noz's SSD scan is products, no kernel
+_NO_SCAN = {"selective_scan_bidir": 0, "selective_scan_bidir_bwd": 0,
+            "selective_scan_fused": 0, "linear_scan": 0}
 TRAIN_LAUNCHES = {
-    None: {"selective_scan_bidir": 16, "selective_scan_bidir_bwd": 16,
-           "selective_scan_fused": 0, "linear_scan": 0},
-    "v052d_noz": {"selective_scan_bidir": 0, "selective_scan_bidir_bwd": 0,
-                  "selective_scan_fused": 16, "linear_scan": 32}}
+    None: dict(_NO_SCAN, selective_scan_bidir=16,
+               selective_scan_bidir_bwd=16),
+    "v052d_noz": dict(_NO_SCAN, selective_scan_fused=16, linear_scan=32),
+    "xv1a": dict(_NO_SCAN, selective_scan_fused=16, linear_scan=32),
+    ("xv1a", 16): dict(_NO_SCAN, linear_scan=32),
+    "m0_noz": dict(_NO_SCAN)}
 
 
-def phase_train(dev, forward_type=None, n_steps=TRAIN_STEPS):
-    """The flagship train step (with ``forward_type`` in place of v05_noz)
-    on the resident synthetic corpus, as
-    xpoint_tpu_torch.train.profile_step builds and profiles it."""
+def phase_train(dev, forward_type=None, n_steps=TRAIN_STEPS, d_state=None,
+                sync_check=False):
+    """The flagship train step (with ``forward_type`` in place of v05_noz
+    and ``d_state`` in place of 1) on the resident synthetic corpus, as
+    xpoint_tpu_torch.train.profile_step builds and profiles it; with
+    ``sync_check`` every step runs under
+    torch.cuda.set_sync_debug_mode("error")."""
     from xpoint_tpu_torch.train.profile_step import flagship_train
     tag = forward_type or "v05_noz"
+    if d_state is not None:
+        tag = f"{tag}, d_state {d_state}"
     t0 = time.time()
-    state, step, data, meta = flagship_train(dev, forward_type)
+    state, step, data, meta = flagship_train(dev, forward_type, d_state)
     init_s = time.time() - t0
     gen = torch.Generator(device=dev).manual_seed(0)
     idx_gen = torch.Generator(device=dev).manual_seed(1)
@@ -832,7 +878,12 @@ def phase_train(dev, forward_type=None, n_steps=TRAIN_STEPS):
         idx = torch.randperm(meta["n"], generator=idx_gen,
                              device=dev)[:TRAIN_B]
         t1 = time.perf_counter()
-        comps = step(state, {"data": data, "idx": idx}, gen)
+        if sync_check:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            comps = step(state, {"data": data, "idx": idx}, gen)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
         torch.cuda.synchronize()
         ms.append((time.perf_counter() - t1) * 1e3)
         row = {k: float(v) for k, v in comps.items()}
@@ -845,7 +896,8 @@ def phase_train(dev, forward_type=None, n_steps=TRAIN_STEPS):
         if not math.isfinite(row["loss"]) or row["skipped_nonfinite"]:
             raise SystemExit(f"train step {i + 1} ({tag}): non-finite loss "
                              f"or a skipped step")
-    expect = TRAIN_LAUNCHES[forward_type]
+    expect = TRAIN_LAUNCHES[forward_type if d_state is None
+                            else (forward_type, d_state)]
     launches = {k: v for k, v in read().items() if k in expect}
     for name, n in launches.items():
         if n != expect[name] * n_steps:
@@ -867,7 +919,8 @@ def phase_train(dev, forward_type=None, n_steps=TRAIN_STEPS):
            "launches_per_step": {k: v / n_steps
                                  for k, v in launches.items()},
            "zero_grad_params": zero, "steps": per_step,
-           "n_params": sum(m.numel() for m in mu.values())}
+           "n_params": sum(m.numel() for m in mu.values()),
+           "sync_checked": sync_check}
     print(f"train path {tag} {TRAIN_S}^2 B={TRAIN_B} bf16: "
           f"step_ms={step_ms} "
           f"samples_per_s={res['samples_per_s']} peak_mem_gib="
@@ -1323,24 +1376,29 @@ def recurrence_operands(g, shape, dev):
             torch.randn(shape, generator=g, device=dev) * 0.1)
 
 
-def phase_linear_scan(dev, stages, blocks_per_stage):
+def phase_linear_scan(dev, stages, blocks_per_stage, cases=None, n_sets=6):
     """K6 against its plain version: forward and reversed-shifted at the
     shapes the v052d_noz train step gives it, and in the time-major layout
-    of the general (N > 1) scan."""
+    of the general (N > 1) scan; or at ``cases`` ((shape, scanned dim,
+    launches a step in each direction, name)), with ``n_sets`` input sets
+    (the first checked, the rest timed)."""
     from xpoint_tpu_torch.ops.linear_scan import (linear_scan_launch,
                                                   linear_scan_plain)
     g = torch.Generator(device=dev).manual_seed(7)
-    cases = [((TRAIN_B, 4, L, Dim), 2, n, f"train L={L} Dim={Dim}")
-             for (L, Dim), n in zip(stages, blocks_per_stage)]
-    # the general scan at the first stage with d_state 4, B=4: (L, M) planes
-    # with M = B * 4 * Dim * N lanes, as many as the first train shape has
-    L0, Dim0 = stages[0]
-    cases.append(((L0, 4 * 4 * Dim0 * 4), 0, 0, f"N=4 B=4 L={L0} Dim={Dim0}"))
+    if cases is None:
+        cases = [((TRAIN_B, 4, L, Dim), 2, n, f"train L={L} Dim={Dim}")
+                 for (L, Dim), n in zip(stages, blocks_per_stage)]
+        # the general scan at the first stage with d_state 4, B=4: (L, M)
+        # planes with M = B * 4 * Dim * N lanes, as many as the first train
+        # shape has
+        L0, Dim0 = stages[0]
+        cases.append(((L0, 4 * 4 * Dim0 * 4), 0, 0,
+                      f"N=4 B=4 L={L0} Dim={Dim0}"))
     rows, max_err = [], 0.0
     tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
     delay = queued_delay(dev)
     for shape, dim, n_launch, name in cases:
-        inputs = [recurrence_operands(g, shape, dev) for _ in range(6)]
+        inputs = [recurrence_operands(g, shape, dev) for _ in range(n_sets)]
         L, M = shape[dim], math.prod(shape) // shape[dim]
         b_ms, b_by = bound(12 * L * M, 2 * L * M)
         row = {"case": name, "shape": list(shape), "dim": dim, "L": L,
@@ -2588,10 +2646,11 @@ def phase_eval(dev, workdir, module, phase3_latency_ms, stages, depths):
 # the full cycle at its smoke size (phase 21): seven stage processes
 CYCLE_ARGS = ["--n-train", "4", "--n-test", "2", "--size", "256",
               "--synth-epochs", "2", "--synth-samples", "20",
-              "--pair-epochs", "2", "--ha-num", "5"]
+              "--pair-epochs", "2", "--ha-num", "5", "--classical"]
 CYCLE_TEST_PAIRS, CYCLE_TRAIN_PAIRS, CYCLE_WARPS = 2, 4, 4
 CYCLE_STAGES = ["make_mini_corpus", "synthetic_set", "train",
-                "export_keypoints", "train", "benchmark", "benchmark"]
+                "export_keypoints", "train", "benchmark", "benchmark",
+                "benchmark"]
 CYCLE_KEYS = dict(EVAL_KEYS, homography_device=EVAL_KEYS["homography"])
 CYCLE_TIMEOUT_S = 600
 
@@ -2647,6 +2706,11 @@ def phase_cycle(dev, workdir):
     _check_keys(res, CYCLE_KEYS)
     _check_metrics(res, CYCLE_TEST_PAIRS, "the full cycle",
                    ("homography", "homography_device"))
+    # the SIFT baseline of --classical (stage 5a)
+    with open(f"{work}/mini_corpus_metrics_classical.json") as f:
+        classical = json.load(f)
+    _check_keys(classical, EVAL_KEYS)
+    _check_metrics(classical, CYCLE_TEST_PAIRS, "the cycle's SIFT baseline")
     rep = cycle_report(work, reports, log)
     stages = [r["stage"] for r in rep["stages"]]
     if stages != CYCLE_STAGES:
@@ -2659,7 +2723,8 @@ def phase_cycle(dev, workdir):
     # process (its counts start at 0): the export's HA makes 3 K4 calls a
     # chunk of up to 8 warps and 2 NMS calls a pair; a sweep one NMS call
     # in the timing harness's warm-up and two a pair after it (both test
-    # pairs timed, then swept); the CNNs run no scan kernel
+    # pairs timed, then swept), three sweeps with the classical one; the
+    # CNNs run no scan kernel
     by_stage = {}
     for r in rep["stages"]:
         for k, v in r["launches"].items():
@@ -2670,7 +2735,7 @@ def phase_cycle(dev, workdir):
                                    3 * chunks * CYCLE_TRAIN_PAIRS,
                                    "nms_sweep": 2 * CYCLE_TRAIN_PAIRS},
               "benchmark": {"nms_sweep":
-                            2 * (1 + 2 * 2 * CYCLE_TEST_PAIRS)}}
+                            3 * (1 + 2 * 2 * CYCLE_TEST_PAIRS)}}
     got = {k: v for k, v in by_stage.items() if v}
     if got != expect:
         raise SystemExit(f"the cycle's stages launched {got}, the code "
@@ -2679,8 +2744,10 @@ def phase_cycle(dev, workdir):
     print(f"full cycle (smoke size, {len(stages)} stage processes): "
           f"{total_s:.1f} s; stage wall s {stage_s}; labels "
           f"{rep['labels']}; launches {got} (as predicted); no stage "
-          f"imported h5py; metrics at seed 0 {rep['metrics_seed0']} (a "
-          f"functional check, not an accuracy)", flush=True)
+          f"imported h5py; metrics at seed 0 {rep['metrics_seed0']}; SIFT "
+          f"baseline h-correctness@3 "
+          f"{classical['homography']['2']['h_correctness']['epsilon_warp_th3']}"
+          f" (a functional check, not an accuracy)", flush=True)
 
     planes, pred = _eval_planes(dev, f"{work}/eval.yaml",
                                 f"{work}/pair-train")
@@ -2696,7 +2763,8 @@ def phase_cycle(dev, workdir):
                                    if c[0] != "prob unwarp"])
     return {"total_s": total_s, "stage_s": stage_s, "report": rep,
             "launches": got, "k2": k2[0], "k2_thermal": k2[1],
-            "k4": k4_rows}
+            "k4": k4_rows, "classical_h_correctness@3": classical[
+                "homography"]["2"]["h_correctness"]["epsilon_warp_th3"]}
 
 
 def phase_clis(dev, workdir, depths):
@@ -3110,6 +3178,349 @@ def phase_swin_export(dev, module):
             "keypoints": n_kps, "k2": k2, "k4": k4_rows}
 
 
+# ---- xv / m0 forward types and the baselines (phases 26-28) --------------
+
+XV_M0_TYPES = ("xv1a", "xv2a", "xv3a", "m0_noz")
+# every postfix family the CPU tests cover, with d_state 1 and 2
+TINY_FAMILIES = (
+    ("xv1a", 1), ("xv2a", 1), ("xv3a", 1), ("xv1a", 2), ("xv3a", 2),
+    ("xv1a_onnone", 1), ("xv2a_ondwconv3", 1), ("xv3a_oncnorm", 2),
+    ("xv1a_onsoftmax", 1), ("xv2a_onsigmoid", 1), ("xv3a_mul", 1),
+    ("xv1a_act", 2), ("xv2a_ca", 1), ("xv3a_ca1", 1), ("xv1a_ocov", 1),
+    ("xv2a_ocov2", 2), ("xv3a_ocov_cpos", 1), ("xv1a_ca1_ocov_mul_act", 1),
+    ("m0_noz", 1), ("m0", 2))
+
+
+def flagship_with(ftype, **vssm):
+    """The flagship model section with SSM_FORWARDTYPE (and any other VSSM
+    key) changed."""
+    from xpoint_tpu_torch.models import VMAMBA_MODEL_CFG
+    cfg = copy.deepcopy(VMAMBA_MODEL_CFG)
+    cfg["use_attention"]["model_parameters"]["MODEL"]["VSSM"].update(
+        SSM_FORWARDTYPE=ftype, **vssm)
+    return cfg
+
+
+def _serve_calls(dev, module, tag, seed):
+    """make_pair_pipeline of ``module`` at 512^2, B=8, k 1024, NMS 8,
+    threshold 0.015: a warm-up, then N_CALLS timed calls on fresh images,
+    counts zeroed just before and read just after. Returns (result, the
+    last call's output)."""
+    from xpoint_tpu_torch.eval import make_pair_pipeline
+    run = make_pair_pipeline(module, (H, W), k=1024, nms_size=8,
+                             detection_threshold=0.015)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    images = [(torch.rand(B, H, W, 1, generator=g, device=dev),
+               torch.rand(B, H, W, 1, generator=g, device=dev))
+              for _ in range(N_CALLS + 1)]
+    run(*images[0])                                          # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    read = _zero_counts()
+    lat = []
+    for img_o, img_t in images[1:]:
+        t0 = time.perf_counter()
+        out = run(img_o, img_t)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+        for key, v in out.items():
+            if v.is_floating_point() and not bool(torch.isfinite(v).all()):
+                raise SystemExit(f"{tag} serving: non-finite {key}")
+    launches = read()
+    if (tuple(out["prob_optical"].shape) != (B, H, W)
+            or tuple(out["desc_optical"].shape) != (B, 1024, 256)):
+        raise SystemExit(f"{tag} serving: output shapes "
+                         f"{ {k: tuple(v.shape) for k, v in out.items()} }")
+    lat_ms = _median(lat)
+    return {"latency_ms": lat_ms, "latency_all_ms": lat,
+            "pairs_per_s": B / lat_ms * 1e3, "launches": launches,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "matches": int(out["matched"].sum())}, out
+
+
+def _tiny_card_vs_cpu(dev, families):
+    """The tiny model (depths [1, 1, 1, 1], embed 24, descriptor 32, fp32)
+    in each (forward type, d_state) on the card and on the CPU from the
+    same seed: max |diff| / max |CPU| of the logits and descriptors."""
+    from xpoint_tpu_torch.models import build_xpoint
+    img = torch.rand(2, 64, 64, 1, generator=torch.Generator().manual_seed(9))
+    errs = {}
+    for ftype, n in families:
+        cfg = flagship_with(ftype, DEPTHS=[1, 1, 1, 1], EMBED_DIM=24,
+                            SSM_D_STATE=n)
+        cfg.update(descriptor_size=32, mixed_precision=False)
+        outs = []
+        for d in ("cpu", dev):
+            m, _ = build_xpoint(cfg, device=d, seed=3)
+            with torch.no_grad():
+                outs.append({k: m(img.to(d))[k].cpu()
+                             for k in ("logits", "desc")})
+        errs[f"{ftype}, N={n}"] = max(
+            float((outs[1][k] - v).abs().max() / v.abs().max())
+            for k, v in outs[0].items())
+    worst = max(errs.values())
+    print(f"tiny fp32 xv / m0 XPoints, card against CPU: max |diff| / max "
+          f"|CPU| {errs}", flush=True)
+    if worst > 1e-4:
+        raise SystemExit("an xv / m0 model on the card disagrees with the "
+                         "CPU")
+    return errs
+
+
+def phase_xv_m0_serve(dev, stages):
+    """26: the xv and m0 forward types serving at full width (see the
+    module docstring)."""
+    from xpoint_tpu_torch.models import build_xpoint
+    from xpoint_tpu_torch.models.vssm import SS2Dv3
+    res, k5_shapes, heatmaps = {}, set(), None
+    for i, ftype in enumerate(XV_M0_TYPES):
+        module, _ = build_xpoint(flagship_with(ftype), device=dev, seed=0)
+        hooks = []
+        if ftype == "xv1a":
+            # the (B, K, L, Dim) operands K5 gets from each block
+            def record(op, args):
+                b, h, w, _ = args[0].shape
+                k5_shapes.add((b, 4, h * w, op.d_inner))
+            hooks = [m.register_forward_pre_hook(record)
+                     for m in module.modules() if isinstance(m, SS2Dv3)]
+        row, out = _serve_calls(dev, module, ftype, 40 + i)
+        for hk in hooks:
+            hk.remove()
+        xv = ftype.startswith("xv")
+        expect = dict(_NO_SCAN, selective_scan_fused=16 * N_CALLS if xv
+                      else 0, nms_sweep=N_CALLS)
+        got = {k: row["launches"][k] for k in expect}
+        if got != expect:
+            raise SystemExit(f"{ftype} serving launched {got}, the code "
+                             f"predicts {expect}")
+        row["launches_per_call"] = {k: v / N_CALLS for k, v in got.items()}
+        print(f"{ftype} serving (flagship width, bf16) {H}^2 B={B}: "
+              f"latency_ms={row['latency_ms']} pairs_per_s="
+              f"{row['pairs_per_s']} peak_mem_gib={row['peak_mem_gib']} "
+              f"launches per call {row['launches_per_call']} (as predicted)",
+              flush=True)
+        res[ftype] = row
+        if ftype == "m0_noz":
+            heatmaps = torch.cat([out["prob_optical"], out["prob_thermal"]])
+        del module, out
+    want = {(B, 4, L, Dim) for L, Dim in stages}
+    if k5_shapes != want:
+        raise SystemExit(f"xv1a gave K5 the shapes {sorted(k5_shapes)}, "
+                         f"phase 11 checks {sorted(want)}")
+    res["k5_shapes"] = sorted(k5_shapes)
+    res["k2_m0"] = k2_on(heatmaps, 8, 0.015, "m0_noz serving")
+    res["tiny_card_vs_cpu"] = _tiny_card_vs_cpu(dev, TINY_FAMILIES)
+    return res
+
+
+def phase_xv_m0_train(dev, train_stages, depths):
+    """27: xv / m0 training at full width (see the module docstring)."""
+    res = {}
+    for ftype, n in (("xv1a", None), ("xv1a", 16), ("m0_noz", None)):
+        torch.cuda.empty_cache()
+        res[ftype if n is None else f"{ftype}_n{n}"] = phase_train(
+            dev, ftype, d_state=n, sync_check=True)
+    torch.cuda.empty_cache()
+    # K6 at the N = 16 general scan's shapes: (L, B, K, C, N) planes scanned
+    # along L, one launch forward and one reversed a block and image
+    cases = [((L, TRAIN_B * 4 * Dim * 16), 0, 2 * d,
+              f"N=16 B={TRAIN_B} L={L} Dim={Dim}")
+             for (L, Dim), d in zip(train_stages, depths)]
+    rows, tot, err = phase_linear_scan(dev, None, None, cases=cases,
+                                       n_sets=3)
+    res["k6_n16"] = {"cases": rows, "per_step": tot, "max_abs_err": err}
+    return res
+
+
+def _reference_cnn_state(module, seed):
+    """A reference XPoint state_dict for a CNN ``module`` from seeded numpy
+    values, under the names the reference's Sequentials give
+    (``XPoint.py:112-138, 452-466``): an encoder block b's convs at 9b+1
+    and 9b+5 with BatchNorms at 9b+3 and 9b+7, a head's conv3 at 1, BN at 3,
+    conv1 at 4, final BN at 5."""
+    rng = np.random.default_rng(seed)
+    sd = {}
+
+    def conv(name, w):
+        sd[f"{name}.weight"] = torch.from_numpy(
+            rng.normal(0, 0.1, tuple(w.shape)).astype(np.float32))
+        sd[f"{name}.bias"] = torch.from_numpy(
+            rng.normal(0, 0.1, w.shape[0]).astype(np.float32))
+
+    def bn(name, n):
+        for leaf in ("weight", "bias", "running_mean"):
+            sd[f"{name}.{leaf}"] = torch.from_numpy(
+                rng.normal(0, 0.1, n).astype(np.float32))
+        sd[f"{name}.running_var"] = torch.from_numpy(
+            rng.uniform(0.5, 2.0, n).astype(np.float32))
+    for name in ("encoder_optical", "encoder_thermal"):
+        enc, seq, k = getattr(module, name), 0, 0
+        for block in range(4):
+            for _ in range(2 if enc.double_convolution else 1):
+                w = getattr(enc, f"ConvBNRelu_{k}").Conv_0.weight
+                conv(f"{name}.{seq + 1}", w)
+                bn(f"{name}.{seq + 3}", w.shape[0])
+                seq, k = seq + 4, k + 1
+            seq += block < 3
+    for name in ("detector_head", "descriptor_head"):
+        head = getattr(module, name)
+        w3, w1 = head.ConvBNRelu_0.Conv_0.weight, head.Conv_0.weight
+        conv(f"{name}_convolutions.1", w3)
+        bn(f"{name}_convolutions.3", w3.shape[0])
+        conv(f"{name}_convolutions.4", w1)
+        bn(f"{name}_convolutions.5", w1.shape[0])
+    return sd
+
+
+def phase_baselines(dev, workdir):
+    """28: the classical baselines, SuperPoint and a reference checkpoint
+    (see the module docstring)."""
+    from xpoint_tpu_torch.cli import benchmark as bench_cli
+    from xpoint_tpu_torch.config import load_yaml, save_yaml
+    from xpoint_tpu_torch.data import DataLoader, get_dataset
+    from xpoint_tpu_torch.eval import benchmark as eval_benchmark
+    from xpoint_tpu_torch.eval.infer import ClassicInference, XPointInference
+    from xpoint_tpu_torch.model_io import load_model
+    from xpoint_tpu_torch.models import build_xpoint, get_model
+    from xpoint_tpu_torch.models.classic import ClassicDetectors
+    res = {}
+    cfg = load_yaml(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                 "configs", "cipdp.yaml"))
+    cfg["dataset"].update(foldername=f"{workdir}/flagship_corpus",
+                          filename=None, keypoints_filename=None)
+    cfg["model"] = {"type": "ClassicDetectors", "method": "SIFT",
+                    "takes_pair": False}
+    path = f"{workdir}/eval_sift.yaml"
+    save_yaml(cfg, path)
+    n_timed = min(5, FLAGSHIP_N)
+    # one K2 launch an NMS call: one in the timing harness's warm-up, two a
+    # pair after it; no scan kernel
+    expect = dict(_NO_SCAN, nms_sweep=1 + 2 * (n_timed + EVAL_SAMPLES))
+    planes, nms = [], XPointInference.nms
+
+    def keep(self, prob):
+        if isinstance(prob, torch.Tensor):
+            planes[:] = [prob]
+        return nms(self, prob)
+    sweep_s = []
+    restore = _timed_attr(eval_benchmark, "compute_metrics", sweep_s)
+    XPointInference.nms = keep
+    read = _zero_counts()
+    t0 = time.perf_counter()
+    try:
+        out_path = bench_cli.main([
+            "-y", path, "-m", "none", "-v", "none", "-e", "--max-samples",
+            str(EVAL_SAMPLES), "-o", f"{workdir}/eval_sift", "--device",
+            str(dev)])
+    finally:
+        restore()
+        XPointInference.nms = nms
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = {k: v for k, v in read().items() if k in expect}
+    if launches != expect:
+        raise SystemExit(f"the SIFT sweep launched {launches}, the code "
+                         f"predicts {expect}")
+    with open(out_path) as f:
+        sift = json.load(f)
+    _check_keys(sift, EVAL_KEYS)
+    _check_metrics(sift, EVAL_SAMPLES, "the SIFT sweep")
+    h = sift["homography"]["2"]
+    res["sift"] = {
+        "sweep_s": sweep_s[0], "s_per_pair": sweep_s[0] / EVAL_SAMPLES,
+        "total_s": total_s, "launches": launches,
+        "k2_launches_per_pair": launches["nms_sweep"] / (
+            1 + n_timed + EVAL_SAMPLES),
+        "stage_ms": {k: 1e3 * sum(v) / len(v)
+                     for k, v in sift["timing_seconds"].items()},
+        "repeatability@3": sift["repeatability"]["3"],
+        "m_score@3": sift["descriptor"]["3"]["m_score"],
+        "h_correctness@3": h["h_correctness"]["epsilon_warp_th3"],
+        "keypoints_per_image": sum(sift["n_kp_optical"]) / EVAL_SAMPLES}
+    print(f"SIFT sweep (cli.benchmark -m none -v none -e, {EVAL_SAMPLES} "
+          f"pairs at {FLAGSHIP_SIZE}^2): {res['sift']} (launches as "
+          f"predicted)", flush=True)
+    res["sift"]["k2"] = k2_on(planes[0], cfg["prediction"]["nms"],
+                              cfg["prediction"]["detection_threshold"],
+                              "SIFT sweep (one masked plane)")
+
+    # LGHD and RIFT2: two pairs each at 256^2 through the same metric code
+    ds_cfg = dict(cfg["dataset"], height=256, width=256)
+    batches = list(DataLoader(bench_cli._Head(get_dataset(ds_cfg), 2),
+                              batch_size=1, shuffle=False))
+    for method in ("LGHD", "RIFT2"):
+        infer = ClassicInference(ClassicDetectors(
+            {"method": method, "image_H": 256, "image_W": 256}),
+            cfg["prediction"], device=dev)
+        t0 = time.perf_counter()
+        out = eval_benchmark.compute_metrics(
+            infer, batches, dict(cfg, dataset=ds_cfg), threshold_ransac=[2],
+            verbose=False)
+        s = time.perf_counter() - t0
+        rep = out["repeatability"][3]
+        if not (math.isfinite(rep) and sum(out["n_kp_optical"]) > 0):
+            raise SystemExit(f"{method}: {out}")
+        res[method] = {"host_s_per_pair": s / len(batches),
+                       "repeatability@3": rep,
+                       "keypoints": out["n_kp_optical"]}
+        print(f"{method} on {len(batches)} pairs at 256^2: {res[method]}",
+              flush=True)
+
+    # SuperPoint (seed-0 weights: MagicLeap's file is not in the repository)
+    module, _ = get_model({"type": "SuperPointMagicLeap"}, device=dev,
+                          seed=0)
+    row, out = _serve_calls(dev, module, "SuperPoint", 50)
+    if row["launches"]["nms_sweep"] != N_CALLS or any(
+            row["launches"][k] for k in _NO_SCAN):
+        raise SystemExit(f"SuperPoint serving launched {row['launches']}, "
+                         f"expected one K2 a call")
+    row["k2"] = k2_on(torch.cat([out["prob_optical"], out["prob_thermal"]]),
+                      8, 0.015, "SuperPoint serving")
+    img = torch.rand(2, 64, 64, 1, generator=torch.Generator().manual_seed(2))
+    outs = []
+    for d in ("cpu", dev):
+        m, _ = get_model({"type": "SuperPointMagicLeap"}, device=d, seed=0)
+        with torch.no_grad():
+            outs.append({k: v.cpu() for k, v in m(img.to(d)).items()})
+    row["card_vs_cpu"] = {k: float((outs[1][k] - v).abs().max()
+                                   / v.abs().max())
+                          for k, v in outs[0].items()}
+    print(f"SuperPoint serving {H}^2 B={B}: latency_ms={row['latency_ms']} "
+          f"pairs_per_s={row['pairs_per_s']} peak_mem_gib="
+          f"{row['peak_mem_gib']} launches={row['launches']}; fp32 64^2 "
+          f"card against CPU {row['card_vs_cpu']}", flush=True)
+    if max(row["card_vs_cpu"].values()) > 1e-4:
+        raise SystemExit("SuperPoint on the card disagrees with the CPU")
+    res["superpoint"] = row
+    del module, out
+
+    # a reference checkpoint of the full cycle's pair CNN, read by model_io
+    ref_dir = f"{workdir}/reference_pair"
+    os.makedirs(ref_dir, exist_ok=True)
+    model_cfg = copy.deepcopy(PAIR_CFG["model"])
+    src, merged = build_xpoint(model_cfg, device="cpu")
+    save_yaml({"model": merged}, f"{ref_dir}/params.yaml")
+    torch.save(_reference_cnn_state(src, 11), f"{ref_dir}/ref.model")
+    loaded = {}
+    for d in ("cpu", dev):
+        m, _ = load_model(ref_dir, "ref", device=d)
+        loaded[str(d)] = m
+    cpu_sd = loaded["cpu"].state_dict()
+    differ = [k for k, v in loaded[str(dev)].state_dict().items()
+              if not torch.equal(v.cpu(), cpu_sd[k])]
+    if differ:
+        raise SystemExit(f"the reference checkpoint loads differently on "
+                         f"the card: {differ}")
+    ref_row, _ = _serve_calls(dev, loaded[str(dev)], "reference pair CNN",
+                              60)
+    res["reference_checkpoint"] = {"entries": len(cpu_sd),
+                                   "serving": ref_row}
+    print(f"reference .model of the pair CNN: {len(cpu_sd)} entries, the "
+          f"same bits on the card and the CPU; pipeline latency_ms="
+          f"{ref_row['latency_ms']}", flush=True)
+    return res
+
+
 def host_modules():
     """Which of the host data path's modules (and tqdm, which the JAX
     package's evaluation imports and the port does not) import here."""
@@ -3128,6 +3539,7 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    t_start = time.time()
     from xpoint_tpu_torch.kernels import build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3206,6 +3618,10 @@ def main():
         swin_serve, swin_module = phase_swin_serve(dev)
         swin_train = phase_swin_train(dev, workdir)
         swin_export = phase_swin_export(dev, swin_module)
+        del swin_module
+        xv_serve = phase_xv_m0_serve(dev, stages)
+        xv_train = phase_xv_m0_train(dev, train_stages, depths)
+        base = phase_baselines(dev, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -3428,6 +3844,59 @@ def main():
            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
            "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
           for r in swin_export["k4"]],
+        {"name": "selective_scan_fused", "path": "serve (xv1a)",
+         "route": "cuda",
+         "source": "xpoint_tpu_torch/csrc/selective_scan_fused.cu",
+         "replaces": "xpoint_tpu/ops/selective_scan_pallas.py:121",
+         "launches": xv_serve["xv1a"]["launches"]["selective_scan_fused"],
+         "max_abs_err": fused_err, "ms": fused_tot["ms"],
+         "ms_with_host_launch": fused_tot["ms_with_host_launch"],
+         "plain_ms": fused_tot["plain_ms"],
+         "bound_ms": fused_tot["bound_ms"], "bound_by": "bytes",
+         "library_ms": None},
+        {"name": "selective_scan_fused", "path": "train (xv1a)",
+         "route": "cuda",
+         "source": "xpoint_tpu_torch/csrc/selective_scan_fused.cu",
+         "replaces": "xpoint_tpu/ops/selective_scan_pallas.py:121",
+         "launches": xv_train["xv1a"]["launches"]["selective_scan_fused"],
+         "max_abs_err": tfused_err, "ms": tfused_tot["ms"],
+         "ms_with_host_launch": tfused_tot["ms_with_host_launch"],
+         "plain_ms": tfused_tot["plain_ms"],
+         "bound_ms": tfused_tot["bound_ms"], "bound_by": "bytes",
+         "library_ms": None},
+        {"name": "linear_scan", "path": "train (xv1a, N=1 backward)",
+         "route": "cuda",
+         "source": "xpoint_tpu_torch/csrc/linear_scan.cu",
+         "replaces": "xpoint_tpu/ops/selective_scan_pallas.py:34",
+         "launches": xv_train["xv1a"]["launches"]["linear_scan"],
+         "max_abs_err": k6_err, "ms": k6_tot["ms"],
+         "plain_ms": k6_tot["plain_ms"], "bound_ms": k6_tot["bound_ms"],
+         "bound_by": "bytes", "library_ms": None},
+        {"name": "linear_scan", "path": "train (xv1a, N=16)",
+         "route": "cuda",
+         "source": "xpoint_tpu_torch/csrc/linear_scan.cu",
+         "replaces": "xpoint_tpu/ops/selective_scan_pallas.py:34",
+         "launches": xv_train["xv1a_n16"]["launches"]["linear_scan"],
+         "max_abs_err": xv_train["k6_n16"]["max_abs_err"],
+         "ms": xv_train["k6_n16"]["per_step"]["ms"],
+         "plain_ms": xv_train["k6_n16"]["per_step"]["plain_ms"],
+         "bound_ms": xv_train["k6_n16"]["per_step"]["bound_ms"],
+         "bound_by": "bytes", "library_ms": None},
+        *[{"name": "nms_sweep", "path": path, "route": "cuda",
+           "source": "xpoint_tpu_torch/csrc/nms_sweep.cu",
+           "replaces": "xpoint_tpu/ops/nms.py:36", "launches": n,
+           "max_abs_err": 0.0, "ms": k2["ms"], "plain_ms": k2["plain_ms"],
+           "bound_ms": k2["bound_ms"], "bound_by": k2["bound_by"],
+           "library_ms": None}
+          for path, n, k2 in (
+              ("serve (m0_noz, 16 planes 512^2, size 8)",
+               xv_serve["m0_noz"]["launches"]["nms_sweep"],
+               xv_serve["k2_m0"]),
+              ("SIFT sweep (one masked plane 256^2, size 8)",
+               base["sift"]["launches"]["nms_sweep"], base["sift"]["k2"]),
+              ("SuperPoint serve (16 planes 512^2, size 8)",
+               base["superpoint"]["launches"]["nms_sweep"],
+               base["superpoint"]["k2"]))],
     ]
     print("details: " + json.dumps(
         {"card": card, "build_s": build_s, "k1_stages": scan_rows,
@@ -3447,7 +3916,9 @@ def main():
          "cnn_export": cnn_export, "cnn_pair": cnn_pair,
          "flagship_host_data": flagship_host, "eval": eval_res,
          "cycle": cycle_res, "clis": clis_res, "swin_serve": swin_serve,
-         "swin_train": swin_train, "swin_export": swin_export}),
+         "swin_train": swin_train, "swin_export": swin_export,
+         "xv_m0_serve": xv_serve, "xv_m0_train": xv_train,
+         "baselines": base}, default=str),
         flush=True)
     print("serve: K1 ms/plain_ms/bound_ms are per pipeline call (sum over "
           "stage shapes x launches), K2's per call (one launch runs every "
@@ -3483,8 +3954,17 @@ def main():
           "512^2); swin serve: launches of phase 23's five timed calls of "
           "the SwinV2 pipeline, K2 timed on its heatmaps; swin export: "
           "launches of phase 25's one exported pair, K2 timed on the Swin "
-          "HA maps at NMS 4, K4 at the export's calls (8 warps at 512^2)",
+          "HA maps at NMS 4, K4 at the export's calls (8 warps at 512^2); "
+          "serve (xv1a): launches of phase 26's five xv1a calls, K5 times "
+          "those of phase 11 (the same (B, K, L, Dim) shapes, checked); train "
+          "(xv1a): launches of phase 27's 8 xv1a steps, K5 and K6 times "
+          "those of phase 14 (the same shapes); train (xv1a, N=16): K6 per "
+          "step over the (L, B K C N) time-major planes of each stage (4 "
+          "forward and 4 reversed launches a stage); K2 rows of phases 26 "
+          "and 28 timed on the heatmaps or the masked plane of that path",
           flush=True)
+    print(f"chip_smoke wall time: {time.time() - t_start:.1f} s "
+          f"({card})", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -325,7 +325,8 @@ def _train_setup(root):
 def test_train_writes_latest_and_resumes_bit_equal(tmp_path, capsys):
     """Two epochs straight against one epoch, then --resume for the second
     in another directory: the same latest.pt bit for bit; -w takes a .pt
-    (every tensor), and refuses an orbax or reference checkpoint."""
+    (every tensor) and a reference checkpoint (converted), and refuses an
+    orbax checkpoint."""
     cfg = _train_setup(tmp_path)
     straight = str(tmp_path / "straight")
     train.main(["-y", cfg, "-o", straight, "--device", "cpu"])
@@ -348,10 +349,18 @@ def test_train_writes_latest_and_resumes_bit_equal(tmp_path, capsys):
                         "--device", "cpu"])
     assert "0 missing" in capsys.readouterr().out
     assert tuned.state is not None
-    for bad in ("weights.ckpt", "weights.model"):
-        with pytest.raises(NotImplementedError):
-            train.main(["-y", cfg, "-o", str(tmp_path / "bad"), "-w", bad,
-                        "--device", "cpu"])
+    with pytest.raises(NotImplementedError):
+        train.main(["-y", cfg, "-o", str(tmp_path / "bad"), "-w",
+                    "weights.ckpt", "--device", "cpu"])
+    # a reference checkpoint of the same model (per-spectrum statistics
+    # filled from its one set): every tensor converted and taken
+    from test_torch_baselines import reference_checkpoint
+    ref_path = str(tmp_path / "weights.model")
+    torch.save(reference_checkpoint(tuned.module, 2), ref_path)
+    train.main(["-y", cfg, "-o", str(tmp_path / "ref"), "-e", "1",
+                "--max-steps", "1", "-w", ref_path, "--device", "cpu"])
+    printed = capsys.readouterr().out
+    assert "0 missing" in printed and "0 unexpected" in printed
 
 
 def test_export_keypoints_resumes_without_exporting_twice(setup, tmp_path,

@@ -142,8 +142,9 @@ def test_checkpoint_round_trip(tmp_path):
 def test_load_model_round_trip(tmp_path):
     """load_model rebuilds the model of params.yaml and loads <version>.pt
     exactly; 'none' gives the seeded initialisation; model_override merges
-    over the stored config; a reference .model checkpoint raises naming
-    its ROADMAP item; a missing one raises FileNotFoundError."""
+    over the stored config; a reference .model checkpoint is converted
+    as the JAX package converts it; a missing one raises
+    FileNotFoundError."""
     ds = _Ones(4)
     t = Trainer({**CONFIG, "training": {"batchsize": 2}}, str(tmp_path),
                 device="cpu", dataset=ds)
@@ -161,9 +162,16 @@ def test_load_model_round_trip(tmp_path):
     wide, cfg = load_model(str(tmp_path), "none", device="cpu",
                            model_override={"descriptor_head": True})
     assert cfg["descriptor_head"] and hasattr(wide, "descriptor_head")
-    (tmp_path / "ref.model").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 8"):
-        load_model(str(tmp_path), "ref", device="cpu")
+    # a reference torch checkpoint of the same model loads, equal to the
+    # JAX package's conversion of it (its BatchNorm statistics in both
+    # spectra's slots of the port's SpectralBatchNorms)
+    from test_torch_baselines import jax_conversion, reference_checkpoint
+    sd = reference_checkpoint(module, 6)
+    torch.save(sd, str(tmp_path / "ref.model"))
+    ref, _ = load_model(str(tmp_path), "ref", device="cpu")
+    want = jax_conversion(sd, CONFIG["model"], ref)
+    for k, t in ref.state_dict().items():
+        assert torch.equal(t, want[k]), k
     with pytest.raises(FileNotFoundError):
         load_model(str(tmp_path), "e7", device="cpu")
 

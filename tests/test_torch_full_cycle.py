@@ -13,6 +13,7 @@ import random
 import shutil
 import sys
 
+import cv2
 import h5py
 import numpy as np
 import pytest
@@ -156,9 +157,50 @@ def test_tools_take_every_jax_flag(tool, monkeypatch):
         assert os.path.basename(got["work"]) == "cycle"
 
 
-def test_classical_baseline_is_not_ported():
-    with pytest.raises(NotImplementedError, match="item 8"):
-        full_cycle.main(["--classical", "--work", "unused"])
+def test_classical_baseline_is_not_ported(tmp_path, monkeypatch):
+    """The classical stage (5a) alone, as ``--classical`` runs it, on a PNG
+    folder corpus the test writes: ``cli.benchmark -m none -v none -e`` in
+    a process of its own with the cycle's evaluation config and its SIFT
+    model section; ``<out>_classical.json`` holds the JAX keys and nesting
+    with finite values, and the process did not import h5py. (The name is
+    kept from when ``--classical`` raised NotImplementedError.)"""
+    from test_torch_cli_benchmark import _keys
+    from xpoint_tpu_torch.data.synthetic_pairs import SyntheticPairs
+    root = tmp_path / "corpus"
+    pairs = SyntheticPairs(n_pairs=3, size=96, n_kp=1, seed=4)
+    for side, images in (("optical", pairs.optical),
+                         ("thermal", pairs.thermal)):
+        os.makedirs(root / side)
+        for i, img in enumerate(images):
+            cv2.imwrite(str(root / side / f"{i:04d}.png"),
+                        np.round(img * 255).astype(np.uint8))
+    body = (full_cycle.EVAL_CFG + full_cycle.CLASSICAL_MODEL_CFG).replace(
+        "{work}", str(tmp_path))
+    cfg = yaml.safe_load(body)
+    cfg["dataset"].update(foldername=str(root), filename=None, height=96,
+                          width=96)
+    eval_yaml = str(tmp_path / "eval_classical.yaml")
+    with open(eval_yaml, "w") as f:
+        yaml.safe_dump(cfg, f)
+    reports = tmp_path / "reports"
+    monkeypatch.setenv("XPOINT_TORCH_RUN_REPORT", str(reports))
+    out = full_cycle.classical_stage(
+        [sys.executable, "-m", "xpoint_tpu_torch.cli.benchmark"], eval_yaml,
+        str(tmp_path / "outputs_classical"),
+        str(tmp_path / "m" / "metrics.json"), ["--device", "cpu"])
+    assert out == str(tmp_path / "m" / "metrics_classical.json")
+    with open(out) as f:
+        res = json.load(f)
+    assert set(res) >= {"repeatability", "descriptor", "homography",
+                        "n_kp_optical", "n_kp_thermal", "timing_seconds"}
+    assert _keys(res["descriptor"]["3"]) == {
+        k: "num" for k in res["descriptor"]["3"]}
+    assert res["homography"]["2"]["h_correctness"]["epsilon_warp_th3"] \
+        is not None
+    assert all(np.isfinite(v) for v in res["repeatability"].values())
+    assert sum(res["n_kp_optical"]) > 0
+    (report,) = [json.load(open(reports / n)) for n in os.listdir(reports)]
+    assert report["stage"] == "benchmark" and not report["h5py_imported"]
 
 
 def test_holdout_summary_equals_jax(tmp_path, monkeypatch):

@@ -180,9 +180,24 @@ def test_port_init_matches_flax_distributions():
 @pytest.mark.parametrize("cfg", [
     {"SSM_FORWARDTYPE": f} for f in ("m0_noz", "xv1a")])
 def test_unported_encoder_configs_raise(cfg):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_vssm_from_config({"DEPTHS": [1, 1, 1, 1], "EMBED_DIM": 24,
-                                **cfg})
+    """The m0 and xv forward types raised NotImplementedError until they
+    were ported; the encoder built from the config now matches flax's
+    build_vssm_from_config through the bridge (fp32, 1e-4 of max |ref|)."""
+    from xpoint_tpu.models.vssm import \
+        build_vssm_from_config as jx_build_vssm_from_config
+    vcfg = {"DEPTHS": [1, 1, 1, 1], "EMBED_DIM": 24, **cfg}
+    x = np.random.default_rng(4).uniform(size=(2, 64, 64, 1)).astype(
+        np.float32)
+    jm = jx_build_vssm_from_config(vcfg)
+    v = _perturb(jax.jit(jm.init)(jax.random.PRNGKey(0), jnp.asarray(x)), 3,
+                 scale=0.05)
+    ref = np.asarray(jax.jit(jm.apply)(v, jnp.asarray(x)))
+    tm = load_flax_variables(build_vssm_from_config(vcfg), v).eval()
+    with torch.no_grad():
+        out = tm(T(x)).numpy()
+    assert out.shape == ref.shape == (2, 8, 8, 12)
+    np.testing.assert_allclose(out, ref, rtol=0,
+                               atol=1e-4 * np.abs(ref).max())
 
 
 @pytest.mark.parametrize("case", ["swin", "homographynet",

@@ -48,7 +48,9 @@ def seeded_dataset(ds_cfg, seed):
 def load_eval_setup(args, single_image_override=None):
     """Config + variable-config merge + model + dataset (reference
     benchmark.py:50-130 flow). Returns (config, module, infer, dataset);
-    the module is on ``args.device``."""
+    the module is on ``args.device``. With ``-v none`` and a
+    ``ClassicDetectors`` model section, ``module`` is the host-side
+    baseline and ``infer`` a ClassicInference on ``args.device``."""
     from ..config import load_yaml
     from ..eval.infer import XPointInference
     from ..model_io import load_model
@@ -58,6 +60,27 @@ def load_eval_setup(args, single_image_override=None):
     config = load_yaml(args.yaml_config)
     if getattr(args, "yaml_variable", None):
         dict_update(config, load_yaml(args.yaml_variable))
+
+    def dataset():
+        if single_image_override is not None:
+            config.setdefault("dataset", {})["single_image"] = \
+                single_image_override
+        ds_cfg = config.get("dataset", {})
+        return (seeded_dataset(ds_cfg, getattr(args, "seed", 0))
+                if ds_cfg.get("filename") or ds_cfg.get("foldername")
+                else None)
+
+    # `-v none` with a classical baseline: the host-side model of the
+    # config, no weights (reference benchmark.py:93-96); its maps go to
+    # ``args.device`` for NMS, sampling and matching
+    if (getattr(args, "version", None) == "none"
+            and (config.get("model") or {}).get("type") == "ClassicDetectors"):
+        from ..eval.infer import ClassicInference
+        from ..models import get_model
+        model, config["model"] = get_model(config["model"])
+        infer = ClassicInference(model, config.get("prediction", {}),
+                                 device=args.device)
+        return config, model, infer, dataset()
 
     # the reference disables the homography head at eval time when the
     # config asks for it (benchmark.py:50-76, cipdp.yaml 'disable_hmhead')
@@ -81,17 +104,8 @@ def load_eval_setup(args, single_image_override=None):
                                        model_override=override,
                                        device=args.device)
     config["model"] = model_cfg
-
-    if single_image_override is not None:
-        config.setdefault("dataset", {})["single_image"] = \
-            single_image_override
-    ds_cfg = config.get("dataset", {})
-    dataset = (seeded_dataset(ds_cfg, getattr(args, "seed", 0))
-               if ds_cfg.get("filename") or ds_cfg.get("foldername")
-               else None)
-
     infer = XPointInference(module, config.get("prediction", {}))
-    return config, module, infer, dataset
+    return config, module, infer, dataset()
 
 
 def report_at_exit(stage):

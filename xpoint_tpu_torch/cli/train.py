@@ -2,13 +2,14 @@
 reference train.py CLI).
 
     python -m xpoint_tpu_torch.cli.train -y CONFIG.yaml [-o DIR] [-e N]
-        [--max-steps N] [--resume] [-w WEIGHTS.pt] [--device cuda]
+        [--max-steps N] [--resume] [-w WEIGHTS] [--device cuda]
 
 The ``Trainer`` writes ``params.yaml``, ``e{N}.pt`` every
 ``save_every_n_epoch`` epochs and ``latest.pt`` at the end into the output
-directory. ``-w`` initialises the weights from a ``.pt`` of this package
-(strict=False); reference ``.model`` files and orbax ``.ckpt`` directories
-are not read (ROADMAP.md Queue 1 items 8 and 9). Runs on the card unless
+directory. ``-w`` initialises the weights (strict=False) from a ``.pt`` of
+this package or a reference checkpoint (``.model`` / ``.pth`` / ``.pt``,
+told apart by their keys: ``Trainer.load_weights``); orbax ``.ckpt``
+directories of the JAX package are not read. Runs on the card unless
 ``--device`` says otherwise.
 """
 import argparse

@@ -1,5 +1,6 @@
 """Inference wrapper of the evaluation loops, the label export and the CLIs
-(port of ``xpoint_tpu/eval/infer.py::XPointInference``).
+(port of ``xpoint_tpu/eval/infer.py``: ``XPointInference`` and the
+classical baselines' ``ClassicInference``).
 
 Heatmaps, NMS, subpixel refinement, descriptor sampling and matching run on
 the module's device; keypoint extraction is host-side with exact reference
@@ -23,7 +24,12 @@ from ..ops.nms import box_nms
 
 
 class XPointInference:
-    def __init__(self, module, prediction_config=None, max_kp=4096):
+    """``module`` None is a host-side baseline (``ClassicInference``),
+    which brings its own forward; NMS, descriptor sampling and matching
+    then run on ``device``. Otherwise they run on the module's device."""
+
+    def __init__(self, module, prediction_config=None, max_kp=4096,
+                 device="cuda"):
         self.module = module
         self.cfg = dict({'nms': 8, 'detection_threshold': 0.015, 'topk': 0,
                          'subpixel': False},
@@ -32,8 +38,11 @@ class XPointInference:
         # refinement of the integer keypoints on the raw heatmap
         self.subpixel = bool(self.cfg['subpixel'])
         self.max_kp = max_kp
-        self.ratio = module.encoder_downsample_ratio
-        self.device = next(module.parameters()).device
+        if module is None:
+            self.ratio, self.device = None, torch.device(device)
+        else:
+            self.ratio = module.encoder_downsample_ratio
+            self.device = next(module.parameters()).device
 
         # the configured matcher (reference matching.py:4-36 dispatch)
         mcfg = self.cfg.get('matching') or {}
@@ -184,3 +193,53 @@ class XPointInference:
             return [(int(i), int(j), float(dmat[i, j]))
                     for i, j in zip(ii, jj)]
         return matches_to_list(*(t[0] for t in out))
+
+
+def _host(img):
+    return img.cpu().numpy() if torch.is_tensor(img) else np.asarray(img)
+
+
+class ClassicInference(XPointInference):
+    """The benchmark adapter of the classical baselines (SIFT / SURF / LGHD
+    / RIFT2, ``models.classic.ClassicDetectors``), as in the JAX package:
+    the forward is the host-side cv2 model, whose sparse prob / desc maps
+    go to ``device``; NMS (the grid NMS kernel on the card), descriptor
+    sampling, matching and every metric downstream are
+    XPointInference's, so the baseline's numbers and a learned model's come
+    from the same code."""
+
+    def __init__(self, model, prediction_config=None, max_kp=4096,
+                 device="cuda"):
+        super().__init__(None, prediction_config, max_kp, device)
+        self.model = model
+
+    def takes_pair(self):
+        return bool(self.model.takes_pair())
+
+    def _forward_pair_host(self, img_o, img_t):
+        out_o = self.model({'image': _host(img_o)})
+        out_t = self.model({'image': _host(img_t)})
+        desc_o, desc_t = out_o['desc'], out_t['desc']
+        # a side with no detection gives a depth-1 placeholder plane; pad
+        # so that the descriptor metrics see one depth
+        if desc_o.shape[-1] != desc_t.shape[-1]:
+            depth = max(desc_o.shape[-1], desc_t.shape[-1])
+
+            def _pad(d):
+                return np.pad(d, [(0, 0)] * (d.ndim - 1)
+                              + [(0, depth - d.shape[-1])])
+            desc_o, desc_t = _pad(desc_o), _pad(desc_t)
+        return out_o['prob'], out_t['prob'], desc_o, desc_t
+
+    def forward_pair_device(self, img_o, img_t):
+        """images (1, H, W, 1) -> the sparse maps as tensors on the device
+        (prob_o, prob_t, desc_o, desc_t, None)."""
+        return (*(self._to_device(m) for m in self._forward_pair_host(
+            img_o, img_t)), None)
+
+    def forward_pair(self, img_o, img_t):
+        return [*self._forward_pair_host(img_o, img_t), None]
+
+    def forward_single(self, img, is_optical):
+        out = self.model({'image': _host(img)})
+        return [out['prob'], out['desc']]

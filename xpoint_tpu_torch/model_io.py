@@ -4,9 +4,10 @@ directory's ``params.yaml`` and load its checkpoint.
 
 Checkpoint resolution for ``<model_dir>/<version>``:
   1. ``<version>.pt``  — a checkpoint written by this package's Trainer;
-  2. ``version == 'none'`` — the seeded initialisation.
-A reference torch checkpoint (``<version>.model``) is not read yet
-(ROADMAP.md Queue 1 item 8), nor is an orbax directory of the JAX package.
+  2. ``<version>.model`` — a reference torch checkpoint, converted on load
+     (``compat.torch_converter.load_torch_checkpoint``);
+  3. ``version == 'none'`` — the seeded initialisation.
+An orbax directory of the JAX package (``.ckpt``) is not read.
 """
 import copy
 import os
@@ -42,10 +43,11 @@ def load_model(model_dir, version="latest", model_override=None,
                       if not k.startswith("hm_regressor.")}
             module.load_state_dict(sd, strict=True)
         elif os.path.exists(os.path.join(model_dir, f"{version}.model")):
-            raise NotImplementedError(
-                "reference torch checkpoints (.model) are not read yet: "
-                "ROADMAP.md Queue 1 item 8")
+            from .compat.torch_converter import load_torch_checkpoint
+            sd = load_torch_checkpoint(
+                os.path.join(model_dir, f"{version}.model"), module)
+            module.load_state_dict(sd, strict=True)
         else:
-            raise FileNotFoundError(f"no checkpoint {version}.pt in "
-                                    f"{model_dir}")
+            raise FileNotFoundError(f"no checkpoint {version}(.pt|.model) "
+                                    f"in {model_dir}")
     return module, merged_cfg

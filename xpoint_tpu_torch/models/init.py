@@ -12,10 +12,13 @@ defaults used by ``xpoint_tpu/models/heads.py``):
   * convolutions, RegNet's and HomographyNet's dense layers and Swin's CPB
     MLP: lecun_normal (truncated normal, fan_in scaling), bias 0;
   * Swin's ``logit_scale``: log 10; its q / v biases: 0;
-  * ``dt_projs_weight``: uniform [0, 2 R^-0.5) (stored unshifted);
-  * ``dt_projs_bias``: softplus-inverse of log-uniform dt in [1e-3, 0.1];
-  * ``A_logs`` (K D, N): log(1..N) in every row; ``Ds``: 1; SS2D's conv
-    bias, where configured: 0;
+  * ``dt_projs_weight``: uniform [0, 2 R^-0.5) (SS2D's, stored unshifted);
+    uniform [-R^-0.5, R^-0.5) (SS2Dv3's, ``_dt_w_init``);
+  * ``dt_projs_bias``: softplus-inverse of log-uniform dt in [1e-3, 0.1]
+    (SS2D, SS2Dv3); uniform [0, 0.1) (SS2Dm0);
+  * ``A_logs`` (K D, N): log(1..N) in every row (SS2D, SS2Dv3); zeros of
+    (K, R) (SS2Dm0); ``Ds``: 1; the SS2D blocks' convs: lecun_normal, bias
+    0;
   * LayerNorm / BatchNorm: scale 1, bias 0, running stats 0 / 1 (both
     spectra's slots of a SpectralBatchNorm).
 """
@@ -28,7 +31,7 @@ from .heads import SPECTRA, BatchNorm, Conv, SpectralBatchNorm
 from .regnet import Conv3x3, Dense
 from .swinv2 import Dense as SwinDense
 from .swinv2 import WindowAttention
-from .vssm import SS2D, StridedConv3x3
+from .vssm import SS2D, SS2Dm0, SS2Dv3, StridedConv3x3
 
 # std of the standard normal truncated to [-2, 2]
 _TRUNC_STD = 0.87962566103423978
@@ -50,31 +53,62 @@ def _lecun_normal_(w, gen):
 
 
 @torch.no_grad()
-def _init_ss2d_(m, gen, dt_min=0.001, dt_max=0.1, dt_floor=1e-4):
-    R = m.dt_rank
-    _trunc_normal_(m.x_proj_weight, 0.02, gen)
-    m.dt_projs_weight.copy_(torch.rand(m.dt_projs_weight.shape, generator=gen)
-                            * (2 * R ** -0.5))
-    dt = torch.exp(torch.rand(m.dt_projs_bias.shape, generator=gen)
+def _dt_bias_(t, gen, dt_min=0.001, dt_max=0.1, dt_floor=1e-4):
+    dt = torch.exp(torch.rand(t.shape, generator=gen)
                    * (math.log(dt_max) - math.log(dt_min)) + math.log(dt_min))
     dt = dt.clamp_min(dt_floor)
-    m.dt_projs_bias.copy_(dt + torch.log(-torch.expm1(-dt)))
+    t.copy_(dt + torch.log(-torch.expm1(-dt)))
+
+
+@torch.no_grad()
+def _init_ss2d_(m, gen):
+    """SS2D and SS2Dv3 (xv): the mamba_init draws, and their convs."""
+    R = m.dt_rank
+    if isinstance(m, SS2D):
+        _trunc_normal_(m.x_proj_weight, 0.02, gen)
+        m.dt_projs_weight.copy_(torch.rand(m.dt_projs_weight.shape,
+                                           generator=gen) * (2 * R ** -0.5))
+    elif hasattr(m, "dt_projs_weight"):
+        m.dt_projs_weight.copy_((torch.rand(m.dt_projs_weight.shape,
+                                            generator=gen) * 2 - 1)
+                                * R ** -0.5)
+    _dt_bias_(m.dt_projs_bias, gen)
     n = m.A_logs.shape[-1]
     m.A_logs.copy_(torch.log(torch.arange(1, n + 1, dtype=torch.float32))
                    .expand_as(m.A_logs))
     m.Ds.fill_(1.0)
+    _init_convs_(m, gen)
+
+
+@torch.no_grad()
+def _init_ss2d_m0_(m, gen):
+    """SS2Dm0: the v2 initialisation (A = -1, Ds 1, dt bias in [0, 0.1))."""
+    _trunc_normal_(m.x_proj_weight, 0.02, gen)
+    m.A_logs.zero_()
+    m.Ds.fill_(1.0)
+    m.dt_projs_bias.copy_(torch.rand(m.dt_projs_bias.shape, generator=gen)
+                          * 0.1)
+    _init_convs_(m, gen)
+
+
+@torch.no_grad()
+def _init_convs_(m, gen):
+    for name in ("conv2d", "oconv2d", "out_norm_conv"):
+        conv = getattr(m, name, None)
+        if conv is not None:
+            _lecun_normal_(conv.weight, gen)
+            if conv.bias is not None:
+                conv.bias.zero_()
 
 
 @torch.no_grad()
 def init_xpoint_(module, gen):
     """Initialise every parameter and buffer of ``module`` in place."""
     for m in module.modules():
-        if isinstance(m, SS2D):
+        if isinstance(m, (SS2D, SS2Dv3)):
             _init_ss2d_(m, gen)
-            if hasattr(m, "conv2d"):
-                _lecun_normal_(m.conv2d.weight, gen)
-                if m.conv2d.bias is not None:
-                    m.conv2d.bias.zero_()
+        elif isinstance(m, SS2Dm0):
+            _init_ss2d_m0_(m, gen)
         elif isinstance(m, WindowAttention):
             m.logit_scale.fill_(math.log(10.0))
             _trunc_normal_(m.qkv_kernel, 0.02, gen)

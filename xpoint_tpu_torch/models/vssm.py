@@ -6,8 +6,11 @@ modes 0 cross2d, 1 unidi, 2 bidi and -1 cascade2d) with their ``_noz`` /
 bias, forward and backward. The flagship ``v05_noz`` with N = 1 runs the
 flip-free token-major bidirectional scan; ``v051d`` / ``v052d`` with N = 1
 run ``cross_scan``, the single-direction fused scan and ``cross_merge``;
-N > 1 and cascade2d run ``ops.selective_scan.selective_scan``. ``SS2Dv3``
-(xv) and ``SS2Dm0`` raise NotImplementedError (ROADMAP.md, Queue 1 item 7).
+N > 1 and cascade2d run ``ops.selective_scan.selective_scan``. The xv
+forward types (``SS2Dv3``: xv1a, xv2a, xv3a with their postfixes) scan
+through ``selective_scan`` too, so N = 1 runs the single-direction fused
+scan and N > 1 the composition around the linear-recurrence kernel; the m0
+family (``SS2Dm0``) runs the chunked SSD scan (``ops.ssd``).
 
 Submodule and parameter names follow the flax module tree, so the weight
 bridge (``compat.from_flax``) maps names one to one. Parameters are fp32;
@@ -31,8 +34,7 @@ from ..ops.cross_scan import cross_merge, cross_scan
 from ..ops.gridops import depth_to_space
 from ..ops.selective_scan import selective_scan
 from ..ops.selective_scan_cuda import scan_bidir, selective_scan_fused_bkld
-
-_ROADMAP_ITEM = "ROADMAP.md Queue 1 item 7 (other encoders and forward types)"
+from ..ops.ssd import ssd_chunked
 
 
 def layer_norm(norm, x):
@@ -268,16 +270,238 @@ class SS2D(nn.Module):
                 + ysum[:, :, 1].reshape(W, H, B, D).permute(2, 1, 0, 3))
 
 
+def _one_by_one_scan(x, H, W):
+    """cross_scan with one_by_one: (B, H, W, 4 N), direction k owning the
+    channels [k N, (k + 1) N), each laid out in its own scan order ->
+    (B, 4, L, N)."""
+    B, N = x.shape[0], x.shape[-1] // 4
+    row = lambda v: v.reshape(B, H * W, N)  # noqa: E731
+    col = lambda v: v.transpose(1, 2).reshape(B, H * W, N)  # noqa: E731
+    parts = [x[..., k * N:(k + 1) * N] for k in range(4)]
+    return torch.stack([row(parts[0]), col(parts[1]), row(parts[2]).flip(1),
+                        col(parts[3]).flip(1)], dim=1)
+
+
+def _strip(tag, v):
+    """(whether v ends with tag, v without it)."""
+    return (True, v[:-len(tag)]) if v.endswith(tag) else (False, v)
+
+
+def _depthwise(features, d_conv, bias):
+    # padding 1 whatever the kernel size, as the flax module has it
+    return nn.Conv2d(features, features, d_conv, padding=1, groups=features,
+                     bias=bias)
+
+
+def _depthwise_nhwc(conv, x):
+    """A depthwise ``nn.Conv2d`` on NHWC x in x's dtype, bias after."""
+    y = _conv_nhwc(x, conv.weight, padding=1, groups=x.shape[-1])
+    return y if conv.bias is None else y + conv.bias.to(y.dtype)
+
+
+_CONV_ACTS = {"none": lambda v: v, "silu": F.silu,
+              "gelu": lambda v: F.gelu(v, approximate="tanh")}
+
+
+class SS2Dv3(nn.Module):
+    """The xv forward types (``xpoint_tpu/models/vssm.py::SS2Dv3``):
+    ``in_proj`` emits u, dt and the per-direction B / C planes at once (no
+    ``x_proj``), with optional input / output depthwise convs.
+
+    Modes: xv1a (dt from a shared rank-R projection), xv2a (dt emitted at
+    the full width D, no projection), xv3a (per-direction rank-R
+    projections). Postfixes, stripped in the JAX module's order: the output
+    norms ``_onnone`` / ``_ondwconv3`` / ``_oncnorm`` / ``_onsoftmax`` /
+    ``_onsigmoid`` (default LayerNorm), ``_mul`` (gate by u), ``_act``
+    (GELU), then behind the mode ``_ca`` / ``_ca1`` (SiLU / GELU after the
+    convs), ``_ocov2`` / ``_ocov`` / ``_cpos`` (conv placement).
+    ``dt_projs_weight`` is held as the effective weight (no shift, unlike
+    SS2D's). The scan runs in ``selective_scan``'s layout: N = 1 through the
+    fused single-direction scan, N > 1 around the linear recurrence."""
+
+    def __init__(self, d_model, d_state=16, ssm_ratio=2.0, dt_rank="auto",
+                 d_conv=3, conv_bias=True, forward_type="xv1a"):
+        super().__init__()
+        D = int(ssm_ratio * d_model)
+        R = int(math.ceil(d_model / 16)) if dt_rank == "auto" else int(dt_rank)
+        N = int(d_state)
+        self.d_inner, self.dt_rank, self.d_state = D, R, N
+        ftype = forward_type
+        tags = {}
+        for tag in ("_onnone", "_ondwconv3", "_oncnorm", "_onsoftmax",
+                    "_onsigmoid", "_mul", "_act"):
+            tags[tag], ftype = _strip(tag, ftype)
+        mode, rest = ftype[:4], ftype[4:]
+        if mode not in ("xv1a", "xv2a", "xv3a"):
+            raise ValueError(f"unknown xv forward type {forward_type}")
+        for tag in ("_ca", "_ca1", "_ocov2", "_ocov", "_cpos"):
+            tags[tag], rest = _strip(tag, rest)
+        self.mode = mode
+        self.out_mul, self.out_gelu = tags["_mul"], tags["_act"]
+        # the first output-norm tag present, in the JAX module's elif order
+        self.out_kind = next((t for t in ("_onnone", "_oncnorm",
+                                          "_ondwconv3", "_onsoftmax",
+                                          "_onsigmoid") if tags[t]), "ln")
+        self.conv_act = ("gelu" if tags["_ca1"] else
+                         "silu" if tags["_ca"] else "none")
+        conv = d_conv > 1
+        ocov, ocov2 = tags["_ocov"] and conv, tags["_ocov2"] and conv
+        self.in_conv = ("act" if conv and not (tags["_ocov"] or tags["_ocov2"])
+                        else "residual" if tags["_cpos"] and conv else None)
+        if self.in_conv and ocov2:
+            raise ValueError(f"{forward_type}: _cpos and _ocov2 both name "
+                             f"the conv 'conv2d'")
+        self.dts_dim = {"xv1a": R, "xv2a": D, "xv3a": 4 * R}[mode]
+        d_all = D + self.dts_dim + 8 * N
+        if self.in_conv:
+            self.conv2d = _depthwise(d_model, d_conv, conv_bias)
+        self.in_proj = nn.Linear(d_model, d_all, bias=False)
+        self.out_conv2 = bool(ocov2)
+        if ocov2:
+            self.conv2d = _depthwise(d_all, d_conv, conv_bias)
+        self.A_logs = nn.Parameter(torch.empty(4 * D, N))
+        self.Ds = nn.Parameter(torch.ones(4 * D))
+        self.dt_projs_bias = nn.Parameter(torch.empty(4, D))
+        if mode != "xv2a":
+            self.dt_projs_weight = nn.Parameter(torch.empty(4, D, R))
+        if self.out_kind in ("ln", "_oncnorm"):
+            self.out_norm = _layer_norm_module(D)
+        if self.out_kind in ("_oncnorm", "_ondwconv3"):
+            self.out_norm_conv = _depthwise(D, 3, False)
+        if ocov:
+            self.oconv2d = _depthwise(D, d_conv, conv_bias)
+        self.out_proj = nn.Linear(D, d_model, bias=False)
+
+    def forward(self, x):
+        B, H, W, _ = x.shape
+        D, N, L = self.d_inner, self.d_state, H * W
+        cact = _CONV_ACTS[self.conv_act]
+        if self.in_conv == "act":
+            x = cact(_depthwise_nhwc(self.conv2d, x))
+        elif self.in_conv == "residual":
+            x = x + _depthwise_nhwc(self.conv2d, x)
+        x = F.linear(x, self.in_proj.weight.to(x.dtype))
+        if self.out_conv2:
+            x = _depthwise_nhwc(self.conv2d, x)
+        dtype = x.dtype
+        e = D + self.dts_dim
+        us, dts = x[..., :D], x[..., D:e]
+        Bs4 = _one_by_one_scan(x[..., e:e + 4 * N], H, W)      # (B, 4, L, N)
+        Cs4 = _one_by_one_scan(x[..., e + 4 * N:], H, W)
+        us4 = cross_scan(us, 0)                                 # (B, 4, L, D)
+        dts4 = (_one_by_one_scan(dts, H, W) if self.mode == "xv3a"
+                else cross_scan(dts, 0))
+        if self.mode != "xv2a":
+            dts4 = torch.einsum("bklr,kdr->bkld", dts4,
+                                self.dt_projs_weight.to(dts4.dtype))
+        cl = lambda v: v.transpose(2, 3).reshape(B, 4 * D, L)  # noqa: E731
+        ys = selective_scan(cl(us4), cl(dts4), -torch.exp(self.A_logs),
+                            Bs4.transpose(2, 3), Cs4.transpose(2, 3),
+                            self.Ds, self.dt_projs_bias.reshape(-1), True)
+        y = cross_merge(ys.reshape(B, 4, D, L).transpose(2, 3), H, W, 0)
+        if self.out_kind in ("ln", "_oncnorm"):
+            y = layer_norm(self.out_norm, y.float())
+        if self.out_kind in ("_oncnorm", "_ondwconv3"):
+            y = _depthwise_nhwc(self.out_norm_conv, y.float())
+        elif self.out_kind == "_onsoftmax":
+            # softmax over the L positions of each channel
+            y = torch.softmax(y.reshape(B, L, D).float(), dim=1).reshape(
+                B, H, W, D)
+        elif self.out_kind == "_onsigmoid":
+            y = torch.sigmoid(y)
+        y = y.to(dtype)
+        if self.out_gelu:
+            y = F.gelu(y, approximate="tanh")
+        if self.out_mul:
+            y = y * us
+        if hasattr(self, "oconv2d"):
+            y = y + cact(_depthwise_nhwc(self.oconv2d, us))
+        return F.linear(y, self.out_proj.weight.to(dtype))
+
+
+class SS2Dm0(nn.Module):
+    """The Mamba-2 (SSD) SS2D of the m0 forward types
+    (``xpoint_tpu/models/vssm.py::SS2Dm0``): 4 R scalar-A heads of width
+    D / R, GELU on the conv output and on the gate, the chunked SSD scan
+    (``ops.ssd``) in fp32, the output cast to the activation dtype before
+    ``cross_merge`` and normalised in fp32."""
+
+    def __init__(self, d_model, d_state=64, ssm_ratio=2.0, dt_rank="auto",
+                 d_conv=3, conv_bias=True, disable_z=False,
+                 disable_z_act=False, out_act=False, scan_mode=0,
+                 chunk_size=64):
+        super().__init__()
+        K = 4
+        D = int(ssm_ratio * d_model)
+        R = int(math.ceil(d_model / 16)) if dt_rank == "auto" else int(dt_rank)
+        N = int(d_state)
+        self.d_inner, self.dt_rank, self.d_state = D, R, N
+        self.head_dim = D // R
+        self.disable_z, self.disable_z_act = disable_z, disable_z_act
+        self.out_act, self.scan_mode = out_act, scan_mode
+        self.chunk_size = chunk_size
+        self.in_proj = nn.Linear(d_model, D if disable_z else 2 * D,
+                                 bias=False)
+        if d_conv > 1:
+            self.conv2d = _depthwise(D, d_conv, conv_bias)
+        self.x_proj_weight = nn.Parameter(torch.empty(K, R + 2 * N, D))
+        self.A_logs = nn.Parameter(torch.zeros(K, R))
+        self.Ds = nn.Parameter(torch.ones(K, R, self.head_dim))
+        self.dt_projs_bias = nn.Parameter(torch.empty(K, R))
+        self.out_norm = _layer_norm_module(D)
+        self.out_proj = nn.Linear(D, d_model, bias=False)
+
+    def forward(self, x):
+        B, H, W, _ = x.shape
+        K, R, N, L = 4, self.dt_rank, self.d_state, H * W
+        Dh, dtype = self.head_dim, x.dtype
+        xs, z = F.linear(x, self.in_proj.weight.to(dtype)), None
+        if not self.disable_z:
+            xs, z = xs.chunk(2, dim=-1)
+            if not self.disable_z_act:
+                z = F.gelu(z, approximate="tanh")
+        if hasattr(self, "conv2d"):
+            xs = _depthwise_nhwc(self.conv2d, xs)
+        xs = F.gelu(xs, approximate="tanh")
+        xk = cross_scan(xs, self.scan_mode)                     # (B, K, L, D)
+        x_dbl = torch.einsum("bkld,kcd->bklc", xk,
+                             self.x_proj_weight.to(xk.dtype))
+        dts, Bsp, Csp = torch.split(x_dbl, [R, N, N], dim=-1)
+        # heads (B, L, K R, Dh); groups K, B / C shared by a group's R heads
+        y, _ = ssd_chunked(
+            xk.transpose(1, 2).reshape(B, L, K * R, Dh),
+            dts.transpose(1, 2).reshape(B, L, K * R),
+            -torch.exp(self.A_logs.reshape(-1)), Bsp.transpose(1, 2),
+            Csp.transpose(1, 2), self.Ds.reshape(K * R, Dh),
+            self.dt_projs_bias.reshape(-1), chunk_size=self.chunk_size)
+        ys = y.reshape(B, L, K, R * Dh).transpose(1, 2)
+        out = cross_merge(ys.to(dtype), H, W, self.scan_mode)
+        out = layer_norm(self.out_norm, out)
+        if self.out_act:
+            out = F.gelu(out, approximate="tanh")
+        if z is not None:
+            out = out * z
+        return F.linear(out, self.out_proj.weight.to(dtype))
+
+
 class VSSBlock(nn.Module):
     def __init__(self, dim, ssm_ratio=1.0, dt_rank="auto", mlp_ratio=4.0,
                  drop_path=0.0, scan_mode=0, d_state=1, ssm_conv=3,
                  ssm_conv_bias=False, disable_z=True, disable_z_act=False,
-                 out_act=False):
+                 out_act=False, xv_type="", use_m0=False):
         super().__init__()
         self.norm = _layer_norm_module(dim)
-        self.op = SS2D(dim, d_state, ssm_ratio, dt_rank, ssm_conv,
-                       ssm_conv_bias, disable_z, disable_z_act, out_act,
-                       scan_mode)
+        if xv_type:
+            self.op = SS2Dv3(dim, d_state, ssm_ratio, dt_rank, ssm_conv,
+                             ssm_conv_bias, xv_type)
+        elif use_m0:
+            self.op = SS2Dm0(dim, d_state, ssm_ratio, dt_rank, ssm_conv,
+                             ssm_conv_bias, disable_z, disable_z_act,
+                             out_act, scan_mode)
+        else:
+            self.op = SS2D(dim, d_state, ssm_ratio, dt_rank, ssm_conv,
+                           ssm_conv_bias, disable_z, disable_z_act, out_act,
+                           scan_mode)
         self.drop_path = DropPath(drop_path)
         self.mlp_ratio = mlp_ratio
         if mlp_ratio > 0:
@@ -298,7 +522,8 @@ class VSSM(nn.Module):
                  dt_rank="auto", mlp_ratio=4.0, drop_path_rate=0.2,
                  dtype=torch.float32, scan_mode=0, **ss2d_args):
         """``ss2d_args``: VSSBlock's d_state, ssm_conv, ssm_conv_bias,
-        disable_z, disable_z_act and out_act, the same for every block."""
+        disable_z, disable_z_act, out_act, xv_type and use_m0, the same
+        for every block."""
         super().__init__()
         self.depths = tuple(depths)
         self.dtype = dtype
@@ -343,15 +568,12 @@ def build_vssm_from_config(vssm_cfg, dtype=torch.float32):
     merged in as ``DROP_PATH_RATE``), parsed as
     ``xpoint_tpu.models.vssm.build_vssm_from_config`` parses it: the
     forward type's base (v05 cross2d, v051d unidi, v052d bidi, v052dc
-    cascade2d) and its postfix tags (_noz, _nozact, _oact). The xv (SS2Dv3)
-    and m0 (SS2Dm0) forward types raise NotImplementedError."""
+    cascade2d, m* the SSD block SS2Dm0, xv* the SS2Dv3 block with the whole
+    forward type as its mode and postfixes) and the tags _noz, _nozact and
+    _oact. The state size is ``SSM_D_STATE`` (default 1) for every family."""
     get = vssm_cfg.get
     ftype = str(get("SSM_FORWARDTYPE", "v05_noz"))
     base = ftype.split("_")[0]
-    if base.startswith(("m", "xv")):
-        raise NotImplementedError(
-            f"VSSM forward type {ftype}: the xv and m0 families are not "
-            f"ported; see {_ROADMAP_ITEM}")
     dt_rank = get("SSM_DT_RANK", "auto")
     return VSSM(
         depths=tuple(get("DEPTHS", [2, 2, 2, 2])),
@@ -368,4 +590,6 @@ def build_vssm_from_config(vssm_cfg, dtype=torch.float32):
         disable_z=ftype.endswith("_noz") or "_noz_" in ftype,
         disable_z_act="_nozact" in ftype,
         out_act="_oact" in ftype,
+        xv_type=ftype if base.startswith("xv") else "",
+        use_m0=base.startswith("m"),
     )

@@ -8,6 +8,9 @@ end (port of ``tools/full_cycle.py``):
     4. pair training with descriptors                 (``cli.train``),
     5. registration evaluation          (``cli.benchmark -e``, with the
        MAGSAC estimator and again with the device one),
+    5a. with ``--classical``, the SIFT baseline over the same protocol
+       (``cli.benchmark -m none -v none -e`` with the ClassicDetectors model
+       section), written to ``<out>_classical.json``,
 
 then the metrics (repeatability / NN-mAP / M-score / h-correctness sweeps
 in the JSON of the JAX package's ``cli/benchmark.py -e``, with the device
@@ -23,8 +26,7 @@ for key, except that every file is ``.npz`` where the JAX tool's is
 both (``data/group_file.py``). ``--out`` defaults to
 ``<work>/mini_corpus_metrics.json``, not the JAX side's committed
 ``metrics/mini_corpus_metrics.json``. ``--reuse-model`` looks for
-``<work>/pair-train/latest.pt``. The SIFT baseline (``--classical``) needs
-``ClassicDetectors``, which is not ported (ROADMAP.md Queue 1 item 8).
+``<work>/pair-train/latest.pt``.
 """
 import argparse
 import json
@@ -299,6 +301,22 @@ def sh(cmd, **kw):
     subprocess.run(cmd, check=True, cwd=REPO, **kw)
 
 
+def classical_stage(benchmark_cmd, eval_yaml, outputs, out_path, dev):
+    """Stage 5a: ``cli.benchmark -m none -v none -e`` on ``eval_yaml`` (the
+    evaluation config with a ClassicDetectors model section) in a process
+    of its own, then its newest JSON copied to ``<out>_classical.json``
+    (``out_path`` with ``.json`` replaced). Returns that path."""
+    sh(benchmark_cmd + ['-y', eval_yaml, '-m', 'none', '-v', 'none', '-e',
+                        '-o', outputs] + dev)
+    outs = _newest_json(outputs)
+    assert outs, "the classical benchmark produced no JSON"
+    cls_out = out_path.replace('.json', '_classical.json')
+    os.makedirs(os.path.dirname(cls_out), exist_ok=True)
+    with open(outs[-1]) as f_in, open(cls_out, 'w') as f_out:
+        f_out.write(f_in.read())
+    return cls_out
+
+
 def _newest_json(root):
     return sorted((os.path.join(r, f) for r, _, fs in os.walk(root)
                    for f in fs if f.endswith('.json')), key=os.path.getmtime)
@@ -375,8 +393,8 @@ def parse_args(argv=None):
                     help='metrics JSON (default '
                          '{work}/mini_corpus_metrics.json)')
     ap.add_argument('--classical', action='store_true',
-                    help='also run the SIFT ClassicDetectors baseline (not '
-                         'ported: ROADMAP.md Queue 1 item 8)')
+                    help='also run the SIFT ClassicDetectors baseline '
+                         '(stage 5a) and write <out>_classical.json')
     ap.add_argument('--require-sensitive', action='store_true',
                     help='fail unless h-correctness@3 (MAGSAC, reproj th 2 '
                          'sweep, evaluation.py:368-393) lands strictly '
@@ -390,11 +408,6 @@ def parse_args(argv=None):
 def main(argv=None):
     """Runs the cycle; returns the metrics dict written to ``--out``."""
     args = parse_args(argv)
-    if args.classical:
-        raise NotImplementedError(
-            "--classical: the SIFT baseline needs ClassicDetectors and "
-            "ClassicInference, which are not ported (ROADMAP.md Queue 1 "
-            "item 8)")
     w = os.path.abspath(args.work)
     os.makedirs(w, exist_ok=True)
     out_path = os.path.abspath(args.out or f'{w}/mini_corpus_metrics.json')
@@ -484,6 +497,15 @@ def main(argv=None):
     sh(tool('cli.benchmark') + [
         '-y', cfg(EVAL_CFG, 'eval.yaml'), '-m', f'{w}/pair-train', '-e',
         '-o', f'{w}/outputs'] + dev)
+    # 5a. the classical baseline over the same protocol (test split, seed-0
+    # warp draws, prediction operating point), its model built from the
+    # config with `-v none`: anchors the learned model's numbers to SIFT's
+    if args.classical:
+        classical_out = classical_stage(
+            tool('cli.benchmark'), cfg(EVAL_CFG + CLASSICAL_MODEL_CFG,
+                                       'eval_classical.yaml'),
+            f'{w}/outputs_classical', out_path, dev)
+        print(f"classical baseline written to {classical_out}", flush=True)
     # 5b. second homography sweep with the on-device estimator
     # (prediction: h_estimator: device) — same seeded warp draws, so the
     # two curves are directly comparable; recorded under

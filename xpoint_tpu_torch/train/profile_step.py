@@ -20,10 +20,11 @@ import torch
 B, S, N_TIMED = 16, 256, 7
 
 
-def flagship_train(dev, forward_type=None):
+def flagship_train(dev, forward_type=None, d_state=None):
     """The flagship training config (VMAMBA_TRAIN_CFG: 256^2, bf16,
     DropPath 0.2, RegNet + HM loss, hard negatives; with ``forward_type``
-    in place of its SSM_FORWARDTYPE v05_noz) from seed 0, on the
+    in place of its SSM_FORWARDTYPE v05_noz and ``d_state`` in place of its
+    SSM_D_STATE 1) from seed 0, on the
     SyntheticPairs corpus (32 pairs at 320^2, 256 keypoints each, seed 0)
     made resident by load_resident_pair_data and
     batched by make_resident_batch_fn. Returns (state, step, data, meta):
@@ -37,9 +38,11 @@ def flagship_train(dev, forward_type=None):
     from . import TrainState, make_optimizer, make_train_step
 
     cfg = copy.deepcopy(VMAMBA_TRAIN_CFG)
+    vssm = cfg["model"]["use_attention"]["model_parameters"]["MODEL"]["VSSM"]
     if forward_type is not None:
-        cfg["model"]["use_attention"]["model_parameters"]["MODEL"]["VSSM"][
-            "SSM_FORWARDTYPE"] = forward_type
+        vssm["SSM_FORWARDTYPE"] = forward_type
+    if d_state is not None:
+        vssm["SSM_D_STATE"] = d_state
     module, _ = build_xpoint(cfg["model"], device=dev, seed=0)
     state = TrainState(module, make_optimizer(cfg["training"])[0])
     data, meta = load_resident_pair_data(SyntheticPairs(), device=dev)

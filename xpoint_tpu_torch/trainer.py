@@ -33,7 +33,10 @@ import numpy as np
 import torch
 
 from . import checkpoints as ckpt
-from .compat.torch_converter import load_pretrained_encoder
+from .compat.torch_converter import (convert_torch_state_dict,
+                                     is_reference_checkpoint,
+                                     load_pretrained_encoder,
+                                     unwrap_checkpoint)
 from .config import save_yaml
 from .data import DataLoader, get_dataset
 from .losses import XPointLoss
@@ -184,20 +187,32 @@ class Trainer:
 
     def load_weights(self, path):
         """Initialise training from a checkpoint file, the fine-tuning
-        entry point: a ``.pt`` of this package (a Trainer checkpoint or a
-        bare ``state_dict``). strict=False: every entry whose name and shape
-        match the model is taken from the file, everything else keeps its
-        initialisation; returns the counts used / missing / unexpected /
-        shape, as the JAX ``load_weights``. The optimiser state starts
-        fresh."""
-        if not path.endswith('.pt'):
+        entry point (reference train.py -w, torch.load +
+        load_state_dict(strict=False)). strict=False: every entry whose
+        name and shape match the model is taken from the file, everything
+        else keeps its initialisation; returns the counts used / missing /
+        unexpected / shape, as the JAX ``load_weights``. The optimiser state
+        starts fresh.
+
+        What the file is, is told by its content, not its suffix (the JAX
+        package reads every ``.pt`` as a reference checkpoint, and this
+        package writes its own ``.pt``): a dict with a ``module`` dict is a
+        Trainer checkpoint of this package; a file whose keys name the
+        reference's detector head (``detector_head_convolutions.*``, alone
+        or under 'state_dict' / 'model') is a reference checkpoint
+        (``.model`` / ``.pth`` / ``.pt``), converted by
+        ``compat.torch_converter``; anything else is a bare state_dict of
+        this package. An orbax ``.ckpt`` of the JAX package is not read."""
+        if path.endswith('.ckpt'):
             raise NotImplementedError(
-                f"{path}: only .pt checkpoints are read (reference torch "
-                f"checkpoints: ROADMAP.md Queue 1 item 8)")
+                f"{path}: orbax checkpoints of the JAX package are not read")
         loaded = torch.load(path, map_location="cpu", weights_only=True)
         if isinstance(loaded, dict) and isinstance(loaded.get('module'),
                                                    dict):
             loaded = loaded['module']
+        elif is_reference_checkpoint(loaded):
+            loaded = convert_torch_state_dict(unwrap_checkpoint(loaded),
+                                              self.module)
         init = self.module.state_dict()
         stats = {'used': 0, 'missing': 0, 'unexpected': 0, 'shape': 0}
         take = {}
