@@ -279,6 +279,40 @@ data path, in a scratch directory under build/ that is removed at the end:
      CPU; a reference-named .model of the full cycle's pair CNN (seeded
      numpy under the reference's names) read by model_io.load_model on the
      card and on the CPU to the same bits, then one pipeline call;
+ 29. multi-device: 2 ranks, one process each, through
+     xpoint_tpu_torch.parallel.launch: nccl with a card a rank where the
+     machine has two cards, else gloo with both ranks on cuda:0 (printed on
+     a line of its own; gloo stages CUDA collectives through the host, so
+     its times are no scale-out figure). In the ranks: (a) 3 data-parallel
+     flagship steps (phase 7's step with a mesh: 256^2, global B=16, 8 a
+     rank, resident data; under nccl each under
+     torch.cuda.set_sync_debug_mode("error")), 16 K1 + 16 K3 a rank a
+     step; (b) the Trainer on the resident corpus, two epochs of 4 steps,
+     e1 written by rank 0, and a second Trainer resumed from it that must
+     end bit for bit where the first ended (cuDNN deterministic); (c)
+     ring_linear_scan at L = 4096, M = 24,576 fp32 against one K6 launch
+     over the whole L (1e-5 of max |h|) and ring_selective_scan at the
+     flagship's first-stage SS2D shapes (256^2, B=16) against
+     selective_scan (1e-4 of max |y|), 2 K6 a rank each; (d) the flagship
+     serving model through make_sharded_pair_pipeline at 512^2, B=8 (4 a
+     rank), 1 K2 + 16 K1 a rank a call; (e) cli.export_keypoints' rank
+     path on 4 pairs of phase 19's corpus and checkpoint (window, num 10,
+     default batch 2: the ranks), rank 0 writing the file. In this
+     process, the one-rank runs on the same inputs: (a) the same steps,
+     step 1's loss within 1e-4 and later ones within 1e-2 relative, every
+     component of step 1 within 1e-2 relative (ratios 2e-3), the first
+     gradient (Adam's mu) within 2e-3 of its max, the running statistics
+     after step 1 within 1e-5 of their max, the parameters after 3 steps
+     within Adam's bound 2 x 3 x 1.004 lr; (d) the same 4-sample calls bit
+     for bit, and one B=8 call (bf16 at B=8 against 4: other algorithms):
+     probabilities within 2e-2, keypoint sets sharing 95% and match sets
+     80% of their union; (e) the export with --batch 2, labels
+     sharing 95% of their union, the K4 / K1 / K2 launches a rank as
+     predicted (NMS on rank 0 alone); then K1 and K3 at a rank's train
+     shapes (B=8), K1 at a rank's serving shapes (B=4), K2 on a rank's
+     heatmaps and K6 on a rank's ring block against their plain versions,
+     with times; ms a step a rank and pairs/s beside the card's name and
+     power limit;
 then a details JSON line, the per-kernel JSON line, the card line and the
 final JSON line, and the whole script's wall time.
 """
@@ -652,9 +686,11 @@ def _train_grads(g, L, Dim, dev, batch):
                   * 0.1).to(torch.bfloat16) for _ in range(2))
 
 
-def phase_train_scan(dev, stages, launches_per_stage):
-    """K1 with checkpoints and K3 at the training stage shapes, against
-    their plain versions; times of one launch per stage shape."""
+def phase_train_scan(dev, stages, launches_per_stage, batch=TRAIN_B,
+                     tails=True):
+    """K1 with checkpoints and K3 at the training stage shapes (``batch``
+    samples), against their plain versions; times of one launch per stage
+    shape; with ``tails``, the tail shapes too."""
     from xpoint_tpu_torch.ops.selective_scan_cuda import (
         selective_scan_bidir, selective_scan_bidir_bwd,
         selective_scan_bidir_bwd_plain, selective_scan_bidir_plain)
@@ -666,8 +702,8 @@ def phase_train_scan(dev, stages, launches_per_stage):
     k1_err = k3_err = 0.0
     delay = queued_delay(dev)
     for (L, Dim), n_launch in zip(stages, launches_per_stage):
-        sets = [(scan_operands(g, L, Dim, dev, batch=TRAIN_B),
-                 _train_grads(g, L, Dim, dev, TRAIN_B)) for _ in range(6)]
+        sets = [(scan_operands(g, L, Dim, dev, batch=batch),
+                 _train_grads(g, L, Dim, dev, batch)) for _ in range(6)]
         args, (g_f, g_r) = sets[0]
         out = selective_scan_bidir(*args, emit_ckpt=True)
         again = selective_scan_bidir(*args, emit_ckpt=True)
@@ -687,7 +723,7 @@ def phase_train_scan(dev, stages, launches_per_stage):
                     for a, b in zip(out[:2], ref[:2]))
         errs, abs_errs, bad = _k3_errors(bwd, bwd_ref)
         finite = all(bool(torch.isfinite(x).all()) for x in (*out, *bwd))
-        print(f"K3 L={L} Dim={Dim} B={TRAIN_B}: rel err (max|k-p|/max|p|) "
+        print(f"K3 L={L} Dim={Dim} B={batch}: rel err (max|k-p|/max|p|) "
               + " ".join(f"{n}={errs[n]:.3g}" for n in K3_NAMES)
               + " abs err " + " ".join(f"{n}={abs_errs[n]:.3g}"
                                        for n in K3_NAMES)
@@ -711,7 +747,7 @@ def phase_train_scan(dev, stages, launches_per_stage):
             *a, emit_ckpt=True), [(sets[1][0],)])
         k3_plain = cuda_ms(selective_scan_bidir_bwd_plain,
                            [(*sets[1][0], *ckpts[1], *sets[1][1])])
-        M, G = TRAIN_B * 2 * Dim, TRAIN_B * 2
+        M, G = batch * 2 * Dim, batch * 2
         nc = -(-L // 256)
         # K1: u, dt_f, dt_r in, y_f, y_r out (bf16), compact B/C, fp32
         # checkpoints out; K3: u, dt_f, dt_r, g_f, g_r, compact B/C and the
@@ -745,6 +781,8 @@ def phase_train_scan(dev, stages, launches_per_stage):
         k1_err = max(k1_err, y_err)
         k3_err = max(k3_err, max(abs_errs.values()))
         del sets, ckpts, k3_sets
+    if not tails:
+        return rows, tot, k1_err, k3_err, None, None
     tails = scan_tail_checks(g, dev, emit_ckpt=True)
     k3_tails = bwd_tail_checks(g, dev)
     return (rows, tot, max(k1_err, tails["max_abs_err"]),
@@ -3521,6 +3559,505 @@ def phase_baselines(dev, workdir):
     return res
 
 
+# ---- 29: multi-device ------------------------------------------------------
+
+MD_RANKS, MD_STEPS = 2, 3        # ranks; data-parallel flagship steps
+MD_TRAINER_STEPS = 4             # the Trainer's steps an epoch (2 epochs)
+MD_RING = (4096, 24576)          # ring_linear_scan's (L, M), fp32
+MD_EXPORT_PAIRS = 4
+MD_EXPORT_HA = {"num": 10, "aggregation": "window", "min_count": 2,
+                "erosion_radius": 5, "mask_border": True}
+
+
+def md_placement():
+    """Two ranks: nccl with a card each where the machine has two, else
+    gloo with both ranks on cuda:0 (nccl refuses two ranks on one card)."""
+    if torch.cuda.device_count() >= MD_RANKS:
+        return [f"cuda:{r}" for r in range(MD_RANKS)], "nccl"
+    return ["cuda:0"] * MD_RANKS, "gloo"
+
+
+def _md_indices():
+    """The global batches of the data-parallel steps: TRAIN_B of the 32
+    resident pairs each, from a seed."""
+    rng = np.random.default_rng(29)
+    return [rng.permutation(32)[:TRAIN_B] for _ in range(MD_STEPS)]
+
+
+def _md_steps(dev, mesh=None, sync_check=False):
+    """MD_STEPS flagship train steps (phase 7's step, on ``mesh`` when
+    given) on the global batches of _md_indices: components, ms, launches
+    of each step (counts zeroed just before, read just after) and the
+    final module state."""
+    from xpoint_tpu_torch.train.profile_step import flagship_train
+    state, step, data, meta = flagship_train(dev, mesh=mesh)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    comps, ms, launches, first = [], [], [], None
+    for idx in _md_indices():
+        idx = torch.from_numpy(idx).to(dev)
+        torch.cuda.synchronize(dev)
+        read = _zero_counts()
+        t0 = time.perf_counter()
+        if sync_check:
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            c = step(state, {"data": data, "idx": idx}, gen)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize(dev)
+        ms.append((time.perf_counter() - t0) * 1e3)
+        launches.append(read())
+        comps.append({k: float(v) for k, v in c.items()})
+        if first is None:            # Adam's mu after one step: 0.1 g
+            first = {"mu": state.optimizer.mu.float().cpu(),
+                     "buffers": {k: v.float().cpu() for k, v in
+                                 state.module.named_buffers()}}
+    return {"comps": comps, "ms": ms, "launches": launches, "first": first,
+            "module": {k: v.detach().float().cpu()
+                       for k, v in state.module.state_dict().items()},
+            "lr": float(state.optimizer.lr)}
+
+
+def _md_trainer(dev, mesh, workdir):
+    """(b): the Trainer on the resident corpus, two epochs of
+    MD_TRAINER_STEPS steps with e1 written by rank 0, then a second Trainer
+    resumed from e1: does it end bit for bit where the first ended?"""
+    from xpoint_tpu_torch.data.synthetic_pairs import SyntheticPairs
+    from xpoint_tpu_torch.models import VMAMBA_TRAIN_CFG
+    from xpoint_tpu_torch.parallel.mesh import all_reduce, barrier
+    from xpoint_tpu_torch.trainer import Trainer
+    cfg = copy.deepcopy(VMAMBA_TRAIN_CFG)
+    cfg["training"].update(n_epochs=2, save_every_n_epoch=1, use_writer=False,
+                           device_data=True, validation={})
+    ds = SyntheticPairs(n_pairs=TRAIN_B * MD_TRAINER_STEPS,
+                        config=cfg["dataset"])
+    root = f"{workdir}/md_trainer"
+    torch.backends.cudnn.deterministic = True
+    try:
+        t0 = time.perf_counter()
+        straight = Trainer(cfg, f"{root}/straight", seed=0, device=str(dev),
+                           dataset=ds)
+        straight.train(max_steps_per_epoch=MD_TRAINER_STEPS)
+        torch.cuda.synchronize(dev)
+        train_s = time.perf_counter() - t0
+        if mesh.rank == 0:
+            os.makedirs(f"{root}/resumed")
+            shutil.copy(f"{root}/straight/e1.pt", f"{root}/resumed/e1.pt")
+        barrier(mesh)
+        resumed = Trainer(cfg, f"{root}/resumed", seed=0, device=str(dev),
+                          dataset=ds)
+        start = resumed.resume("e1")
+        resumed.train(max_steps_per_epoch=MD_TRAINER_STEPS)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    a, b = (torch.cat([t.reshape(-1).float() for t in (
+        *tr.module.state_dict().values(), tr.state.optimizer.mu,
+        tr.state.optimizer.nu)]) for tr in (straight, resumed))
+    equal = torch.equal(a, b)
+    both = all_reduce(torch.tensor([float(equal)], device=dev), mesh)
+    return {"start_epoch": start, "resume_bit_equal": float(both) == 2.0,
+            "steps": int(straight.state.step), "train_s": train_s,
+            "files": sorted(os.listdir(f"{root}/straight"))
+            if mesh.rank == 0 else None}
+
+
+def _md_ring(dev, mesh):
+    """(c): ring_linear_scan at MD_RING against one K6 launch over the
+    whole L, and ring_selective_scan at the flagship's first-stage SS2D
+    shapes (256^2, B=16: L 4096, K*D 384, N 1) against selective_scan."""
+    from xpoint_tpu_torch.ops.linear_scan import linear_scan_launch
+    from xpoint_tpu_torch.ops.selective_scan import selective_scan
+    from xpoint_tpu_torch.parallel import ring_linear_scan, ring_selective_scan
+    g = torch.Generator(device=dev).manual_seed(29)
+    L, M = MD_RING
+    a, b = recurrence_operands(g, (L, M), dev)
+    res = {}
+    for i in range(2):                              # a warm-up, then timed
+        torch.cuda.synchronize(dev)
+        read = _zero_counts()
+        t0 = time.perf_counter()
+        h = ring_linear_scan(a, b, mesh)
+        torch.cuda.synchronize(dev)
+        res["linear_ms"] = (time.perf_counter() - t0) * 1e3
+        res["linear_launches"] = read()["linear_scan"]
+    one = linear_scan_launch(a, b)
+    res["linear_max_abs_err"] = float((h - one).abs().max())
+    res["linear_max_abs"] = float(one.abs().max())
+    del a, b, h, one
+    Bn, KC, K, Ls = TRAIN_B, 4 * 96, 4, (TRAIN_S // 4) ** 2
+    u = torch.randn(Bn, KC, Ls, generator=g, device=dev) * 0.5
+    delta = torch.randn(Bn, KC, Ls, generator=g, device=dev) * 0.5
+    A = -torch.exp(torch.randn(KC, 1, generator=g, device=dev) * 0.5)
+    Bm = torch.randn(Bn, K, 1, Ls, generator=g, device=dev)
+    Cm = torch.randn(Bn, K, 1, Ls, generator=g, device=dev)
+    D = torch.randn(KC, generator=g, device=dev)
+    bias = torch.randn(KC, generator=g, device=dev) * 0.1
+    torch.cuda.synchronize(dev)
+    read = _zero_counts()
+    t0 = time.perf_counter()
+    y = ring_selective_scan(u, delta, A, Bm, Cm, D, bias, mesh=mesh)
+    torch.cuda.synchronize(dev)
+    res["selective_ms"] = (time.perf_counter() - t0) * 1e3
+    res["selective_launches"] = read()["linear_scan"]
+    y1 = selective_scan(u, delta, A, Bm, Cm, D, bias)
+    res["selective_max_abs_err"] = float((y - y1).abs().max())
+    res["selective_max_abs"] = float(y1.abs().max())
+    return res
+
+
+def _md_serve_images(dev):
+    g = torch.Generator(device=dev).manual_seed(290)
+    return [(torch.rand(B, H, W, 1, generator=g, device=dev),
+             torch.rand(B, H, W, 1, generator=g, device=dev))
+            for _ in range(N_CALLS + 1)]
+
+
+def _md_serve(dev, mesh):
+    """(d): the flagship serving model (seed 0, bf16) through
+    make_sharded_pair_pipeline at 512^2, B=8 over the ranks: a warm-up
+    call, then N_CALLS timed ones, launches counted over them; the last
+    call's outputs (gathered)."""
+    from xpoint_tpu_torch.eval import make_sharded_pair_pipeline
+    from xpoint_tpu_torch.models import VMAMBA_MODEL_CFG, build_xpoint
+    module, _ = build_xpoint(VMAMBA_MODEL_CFG, device=dev, seed=0)
+    run = make_sharded_pair_pipeline(module, (H, W), mesh, k=1024,
+                                     nms_size=8, detection_threshold=0.015)
+    images = _md_serve_images(dev)
+    run(*images[0])
+    torch.cuda.synchronize(dev)
+    read = _zero_counts()
+    lat = []
+    for img_o, img_t in images[1:]:
+        t0 = time.perf_counter()
+        out = run(img_o, img_t)
+        torch.cuda.synchronize(dev)
+        lat.append((time.perf_counter() - t0) * 1e3)
+    return {"latency_ms": sorted(lat)[len(lat) // 2], "latency_all_ms": lat,
+            "launches": read(),
+            "out": {k: v.cpu() for k, v in out.items()}}
+
+
+def _md_export_argv(workdir, out, dev):
+    return ["-y", f"{workdir}/md_export.yaml", "-o", out, "-m",
+            f"{workdir}/flagship", "--device", dev, "--max-samples",
+            str(MD_EXPORT_PAIRS), "-s", "0"]
+
+
+def _md_export(dev, mesh, workdir):
+    """(e): cli.export_keypoints' rank path (default batch: the ranks) on
+    phase 19's corpus and checkpoint; rank 0 writes the file."""
+    from xpoint_tpu_torch.cli import export_keypoints as cli
+    read = _zero_counts()
+    t0 = time.perf_counter()
+    n = cli._export(cli.parse_args(_md_export_argv(
+        workdir, f"{workdir}/md_export_2.npz", dev.type)))
+    torch.cuda.synchronize(dev)
+    return {"pairs": n, "s": time.perf_counter() - t0, "launches": read()}
+
+
+def _md_per_rank(values, mesh, dev):
+    """Each rank's flat dict of numbers, as a list over the ranks."""
+    from xpoint_tpu_torch.parallel.mesh import all_gather
+    keys = sorted(values)
+    g = all_gather(torch.tensor([float(values[k]) for k in keys],
+                                dtype=torch.float64, device=dev), mesh)
+    return [dict(zip(keys, row.tolist())) for row in g.cpu()]
+
+
+def md_rank(job):
+    """The body of each rank of phase 29 (runs in a process of its own)."""
+    from xpoint_tpu_torch.parallel import make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh(MD_RANKS)
+    dev = mesh.device
+    out = {"device": str(dev), "card": torch.cuda.get_device_name(dev)}
+    t0 = time.perf_counter()
+    out["train"] = _md_steps(dev, mesh, job["sync_check"])
+    out["trainer"] = _md_trainer(dev, mesh, job["workdir"])
+    out["ring"] = _md_ring(dev, mesh)
+    out["serve"] = _md_serve(dev, mesh)
+    out["export"] = _md_export(dev, mesh, job["workdir"])
+    out["rank_s"] = time.perf_counter() - t0
+    flat = {"rank_s": out["rank_s"],
+            "serve_ms": out["serve"]["latency_ms"],
+            "export_s": out["export"]["s"],
+            "ring_linear_ms": out["ring"]["linear_ms"],
+            "ring_selective_ms": out["ring"]["selective_ms"],
+            "ring_linear_k6": out["ring"]["linear_launches"],
+            "ring_selective_k6": out["ring"]["selective_launches"]}
+    for i, ms in enumerate(out["train"]["ms"]):
+        flat[f"step{i}_ms"] = ms
+    for tag, counts in ([(f"step{i}", c) for i, c in
+                         enumerate(out["train"]["launches"])]
+                        + [("serve", out["serve"]["launches"]),
+                           ("export", out["export"]["launches"])]):
+        for k, v in counts.items():
+            flat[f"{tag}:{k}"] = v
+    out["per_rank"] = _md_per_rank(flat, mesh, dev)
+    return out
+
+
+def _keypoint_sets(out, b, side):
+    return {tuple(p) for p, ok in zip(out[f"keypoints_{side}"][b].tolist(),
+                                      out[f"mask_{side}"][b].tolist()) if ok}
+
+
+def _match_set(out, b):
+    ko, kt = out["keypoints_optical"][b], out["keypoints_thermal"][b]
+    return {(tuple(ko[i].tolist()), tuple(kt[j].tolist()))
+            for i, (j, m) in enumerate(zip(out["match_idx"][b].tolist(),
+                                           out["matched"][b].tolist())) if m}
+
+
+def phase_multidevice(dev, workdir, serve_module, card):
+    """29: the multi-device paths on 2 ranks through the launcher, each
+    held against its one-rank run in this process (see the module
+    docstring)."""
+    from xpoint_tpu_torch.cli import export_keypoints as cli
+    from xpoint_tpu_torch.config import load_yaml, save_yaml
+    from xpoint_tpu_torch.data.group_file import open_group_file
+    from xpoint_tpu_torch.eval import make_pair_pipeline
+    from xpoint_tpu_torch.parallel import launch
+    devices, backend = md_placement()
+    sync_check = backend == "nccl"
+    print(f"multi-device: {MD_RANKS} ranks, backend {backend}, devices "
+          f"{devices}", flush=True)
+    cfg = load_yaml(f"{workdir}/eval_magsac.yaml")
+    cfg["dataset"].update(height=-1, width=-1)      # the PNGs' 512^2
+    cfg["homographic_adaptation"] = MD_EXPORT_HA
+    save_yaml(cfg, f"{workdir}/md_export.yaml")
+
+    t0 = time.perf_counter()
+    got = launch(md_rank, MD_RANKS, args=({"workdir": workdir,
+                                           "sync_check": sync_check},),
+                 devices=devices, backend=backend, timeout=900)
+    launch_s = time.perf_counter() - t0
+
+    # one rank, in this process, on the same inputs
+    ref = _md_steps(dev)
+    images = _md_serve_images(dev)
+    one = make_pair_pipeline(serve_module, (H, W), k=1024, nms_size=8,
+                             detection_threshold=0.015)(*images[-1])
+    one = {k: v.cpu() for k, v in one.items()}
+    n_one = cli.main(_md_export_argv(workdir, f"{workdir}/md_export_1.npz",
+                                     dev.type) + ["--batch", "2", "--ranks",
+                                                  "1"])
+    res = {"backend": backend, "devices": devices, "launch_s": launch_s,
+           "card": card, "rank_card": got["card"],
+           "per_rank": got["per_rank"], "trainer": got["trainer"],
+           "ring": got["ring"]}
+    fail = []
+
+    # (a) the data-parallel steps against the one-rank steps on the same
+    # global batches: step 1 from the same parameters, then 2 more
+    lr = ref["lr"]
+    dp, one_c = got["train"]["comps"], ref["comps"]
+    loss_err = [abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                for a, b in zip(dp, one_c)]
+    comp_err = {k: abs(dp[0][k] - one_c[0][k]) for k in one_c[0]}
+    mu_a, mu_b = got["train"]["first"]["mu"], ref["first"]["mu"]
+    grad_err = float((mu_a - mu_b).abs().max() / mu_b.abs().max())
+    bufs_a, bufs_b = got["train"]["first"]["buffers"], ref["first"]["buffers"]
+    stat_err = (max(float((bufs_a[k] - v).abs().max())
+                    for k, v in bufs_b.items())
+                / max(float(v.abs().max()) for v in bufs_b.values()))
+    param_err = max(float((got["train"]["module"][k] - v).abs().max())
+                    for k, v in ref["module"].items() if k not in bufs_b)
+    # Adam moves an element by at most 1.004 lr a step in its first three
+    # steps (|mu_hat| / sqrt(nu_hat), Cauchy-Schwarz), either way on
+    # either side
+    param_bound = 2 * MD_STEPS * 1.004 * lr
+    res["train"] = {"loss_rel_err": loss_err, "component_abs_err": comp_err,
+                    "grad_rel_err": grad_err, "stat_rel_err": stat_err,
+                    "param_max_abs_err": param_err,
+                    "param_bound": param_bound, "dp_comps": dp,
+                    "one_rank_comps": one_c, "one_rank_ms": ref["ms"],
+                    "sync_checked": sync_check}
+    if (loss_err[0] > 1e-4 or max(loss_err) > 1e-2 or grad_err > 2e-3
+            or stat_err > 1e-5 or param_err > param_bound
+            or any(comp_err[k] > (2e-3 if "ratio" in k
+                                  else 1e-2 * abs(one_c[0][k]) + 1e-4)
+                   for k in comp_err)
+            or any(c["skipped_nonfinite"] for c in dp)):
+        fail.append("(a) the data-parallel steps")
+    for r, pr in enumerate(got["per_rank"]):
+        for i in range(MD_STEPS):
+            if (pr[f"step{i}:selective_scan_bidir"],
+                    pr[f"step{i}:selective_scan_bidir_bwd"]) != (16, 16):
+                fail.append(f"(a) rank {r} step {i + 1} launches")
+    # (b) the Trainer's resume on 2 ranks
+    tr = got["trainer"]
+    if not (tr["resume_bit_equal"] and tr["start_epoch"] == 1
+            and tr["steps"] == 2 * MD_TRAINER_STEPS
+            and tr["files"] == ["e1.pt", "e2.pt", "latest.pt",
+                                "params.yaml"]):
+        fail.append("(b) the Trainer's resume")
+    # (c) the ring against one device
+    ring = got["ring"]
+    if (ring["linear_max_abs_err"] > 1e-5 * ring["linear_max_abs"]
+            or ring["selective_max_abs_err"] > 1e-4 * ring["selective_max_abs"]
+            or any((pr["ring_linear_k6"], pr["ring_selective_k6"]) != (2, 2)
+                   for pr in got["per_rank"])):
+        fail.append("(c) the ring scans")
+    # (d) sharded serving: against the same 4-sample calls on one rank bit
+    # for bit, and against one B=8 call
+    out = got["serve"]["out"]
+    half = B // MD_RANKS
+    run_one = make_pair_pipeline(serve_module, (H, W), k=1024, nms_size=8,
+                                 detection_threshold=0.015)
+    rows = [run_one(images[-1][0][r * half:(r + 1) * half],
+                    images[-1][1][r * half:(r + 1) * half])
+            for r in range(MD_RANKS)]
+    same_shape_equal = all(
+        torch.equal(out[k], torch.cat([x[k] for x in rows]).cpu())
+        for k in out)
+    jacc_kp = [len(_keypoint_sets(out, b, s) & _keypoint_sets(one, b, s))
+               / max(len(_keypoint_sets(out, b, s)
+                         | _keypoint_sets(one, b, s)), 1)
+               for b in range(B) for s in ("optical", "thermal")]
+    jacc_m = [len(_match_set(out, b) & _match_set(one, b))
+              / max(len(_match_set(out, b) | _match_set(one, b)), 1)
+              for b in range(B)]
+    prob_err = max(float((out[f"prob_{s}"] - one[f"prob_{s}"]).abs().max())
+                   for s in ("optical", "thermal"))
+    res["serve"] = {"equal_to_one_rank_at_b4": same_shape_equal,
+                    "keypoint_jaccard_vs_b8": jacc_kp,
+                    "match_jaccard_vs_b8": jacc_m,
+                    "prob_max_abs_err_vs_b8": prob_err,
+                    "latency_ms": got["serve"]["latency_ms"],
+                    "pairs_per_s": B / got["serve"]["latency_ms"] * 1e3}
+    if (not same_shape_equal or prob_err > 2e-2 or min(jacc_kp) < 0.95
+            or min(jacc_m) < 0.8
+            or any((pr["serve:nms_sweep"], pr["serve:selective_scan_bidir"])
+                   != (N_CALLS, 16 * N_CALLS) for pr in got["per_rank"])):
+        fail.append("(d) sharded serving")
+    # (e) the export on 2 ranks against 1 rank with --batch 2
+    jacc = []
+    with open_group_file(f"{workdir}/md_export_2.npz") as f2, \
+            open_group_file(f"{workdir}/md_export_1.npz") as f1:
+        names = (f2.keys(), f1.keys())
+        for name in f1.keys():
+            for k in ("keypoints_optical", "keypoints_thermal"):
+                a = {tuple(p) for p in np.asarray(f2[name][k]).tolist()}
+                b = {tuple(p) for p in np.asarray(f1[name][k]).tolist()}
+                jacc.append(len(a & b) / max(len(a | b), 1))
+    chunks = -(-(MD_EXPORT_HA["num"] - 1) // HA_WB)
+    calls = MD_EXPORT_PAIRS // MD_RANKS          # HA calls a rank, B=1
+    expect = {"warp_projective": 3 * chunks * calls,
+              "selective_scan_bidir": 16 * (1 + chunks) * calls}
+    res["export"] = {"pairs": got["export"]["pairs"], "one_rank_pairs": n_one,
+                     "same_names": names[0] == names[1],
+                     "keypoint_jaccard": jacc, "s": got["export"]["s"],
+                     "launches_expected_a_rank": expect}
+    if (got["export"]["pairs"] != MD_EXPORT_PAIRS or n_one != MD_EXPORT_PAIRS
+            or names[0] != names[1] or min(jacc) < 0.95
+            or any(pr[f"export:{k}"] != v for pr in got["per_rank"]
+                   for k, v in expect.items())
+            or [pr["export:nms_sweep"] for pr in got["per_rank"]]
+            != [2 * MD_EXPORT_PAIRS // MD_RANKS] + [0] * (MD_RANKS - 1)):
+        fail.append("(e) the export")
+
+    # the kernels at the shapes a rank gives them
+    train_stages = [((TRAIN_S // 4 >> i) ** 2, 96 << i) for i in range(4)]
+    serve_stages = [((H // 4 >> i) * (W // 4 >> i), 96 << i)
+                    for i in range(4)]
+    _, res["k1k3_per_step"], res["k1_train_err"], res["k3_err"], _, _ = \
+        phase_train_scan(dev, train_stages, [4] * 4,
+                         batch=TRAIN_B // MD_RANKS, tails=False)
+    _, res["k1_per_call"], res["k1_serve_err"], _ = phase_scan(
+        dev, serve_stages, [4] * 4, batch=half, tails=False)
+    local = torch.cat([out["prob_optical"][:half],
+                       out["prob_thermal"][:half]]).to(dev)
+    res["k2"] = k2_on(local, 8, 0.015, "multi-device serving, a rank's")
+    L, M = MD_RING
+    k6_rows, _, res["k6_err"] = phase_linear_scan(
+        dev, None, None, cases=[((L // MD_RANKS, M), 0, 1,
+                                 "ring block a rank")], n_sets=4)
+    res["k6"] = k6_rows[0]
+    print("multi-device: " + json.dumps(res, default=str), flush=True)
+    for r, pr in enumerate(got["per_rank"]):
+        print(f"multi-device rank {r}: flagship DP step ms "
+              f"{[pr[f'step{i}_ms'] for i in range(MD_STEPS)]} "
+              f"(one rank {ref['ms']}), serving {pr['serve_ms']} ms a call "
+              f"of {B} pairs ({B / pr['serve_ms'] * 1e3} pairs/s), "
+              f"export {pr['export_s']} s for {MD_EXPORT_PAIRS} pairs; "
+              f"{card}" + ("; two ranks share one card over gloo, which "
+                           "stages every collective through the host: "
+                           "not a scale-out figure" if backend == "gloo"
+                           else ""), flush=True)
+    if not sync_check:
+        print("multi-device: the sync check of the data-parallel steps was "
+              "not made (gloo stages CUDA collectives through the host)",
+              flush=True)
+    if fail:
+        raise SystemExit(f"multi-device: {fail} failed their checks")
+    return res
+
+
+def md_kernel_rows(md, warp_rows, k1):
+    """The kernels line's rows of phase 29: rank 0's launches, each kernel
+    timed at the shapes a rank gives it."""
+    pr = md["per_rank"][0]
+
+    def total(name, tags):
+        return int(sum(pr[f"{t}:{name}"] for t in tags))
+    steps = [f"step{i}" for i in range(MD_STEPS)]
+    t, c = md["k1k3_per_step"], md["k1_per_call"]
+    k6 = md["k6"]
+    return [
+        {"name": "selective_scan_bidir",
+         "path": "multi-device DP train, a rank (emit_ckpt, B=8)", **k1,
+         "launches": total("selective_scan_bidir", steps),
+         "max_abs_err": md["k1_train_err"], "ms": t["k1_ms"],
+         "ms_with_host_launch": t["k1_ms_with_host_launch"],
+         "plain_ms": t["k1_plain_ms"], "bound_ms": t["k1_bound_ms"]},
+        {"name": "selective_scan_bidir_bwd",
+         "path": "multi-device DP train, a rank (B=8)", "route": "cuda",
+         "source": "xpoint_tpu_torch/csrc/selective_scan_bidir_bwd.cu",
+         "replaces": "xpoint_tpu/ops/selective_scan_pallas.py:530",
+         "launches": total("selective_scan_bidir_bwd", steps),
+         "max_abs_err": md["k3_err"], "ms": t["k3_ms"],
+         "ms_with_host_launch": t["k3_ms_with_host_launch"],
+         "plain_ms": t["k3_plain_ms"], "bound_ms": t["k3_bound_ms"],
+         "bound_by": "bytes", "library_ms": None},
+        {"name": "selective_scan_bidir",
+         "path": "multi-device sharded serving, a rank (512^2, B=4)", **k1,
+         "launches": total("selective_scan_bidir", ["serve"]),
+         "max_abs_err": md["k1_serve_err"], "ms": c["ms"],
+         "ms_with_host_launch": c["ms_with_host_launch"],
+         "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"]},
+        {"name": "nms_sweep",
+         "path": "multi-device sharded serving, a rank (8 planes 512^2)",
+         "route": "cuda", "source": "xpoint_tpu_torch/csrc/nms_sweep.cu",
+         "replaces": "xpoint_tpu/ops/nms.py:36",
+         "launches": total("nms_sweep", ["serve"]), "max_abs_err": 0.0,
+         "ms": md["k2"]["ms"], "plain_ms": md["k2"]["plain_ms"],
+         "bound_ms": md["k2"]["bound_ms"], "bound_by": md["k2"]["bound_by"],
+         "library_ms": None},
+        {"name": "linear_scan",
+         "path": "multi-device ring_linear_scan, a rank's block "
+                 f"({k6['L']}, {k6['M']})", "route": "cuda",
+         "source": "xpoint_tpu_torch/csrc/linear_scan.cu",
+         "replaces": "xpoint_tpu/ops/selective_scan_pallas.py:34",
+         "launches": int(pr["ring_linear_k6"]),
+         "max_abs_err": md["k6_err"], "ms": k6["fwd_ms"],
+         "plain_ms": k6["fwd_plain_ms"], "bound_ms": k6["bound_ms"],
+         "bound_by": k6["bound_by"], "library_ms": None},
+        *[{"name": "warp_projective",
+           "path": f"multi-device export, a rank ({r['call']}, 8 warps at "
+                   "512^2)", "route": "cuda",
+           "source": "xpoint_tpu_torch/csrc/warp_projective.cu",
+           "replaces": "xpoint_tpu/ops/warp_tiled.py:129",
+           "launches": total("warp_projective", ["export"]) // 3,
+           "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+           "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+           "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+          for r in warp_rows if r["call"] in (
+              "image warp", "mask unwarp", "prob unwarp, 2 maps")],
+    ]
+
+
 def host_modules():
     """Which of the host data path's modules (and tqdm, which the JAX
     package's evaluation imports and the port does not) import here."""
@@ -3622,6 +4159,7 @@ def main():
         xv_serve = phase_xv_m0_serve(dev, stages)
         xv_train = phase_xv_m0_train(dev, train_stages, depths)
         base = phase_baselines(dev, workdir)
+        md = phase_multidevice(dev, workdir, serve_module, card)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -3897,7 +4435,7 @@ def main():
               ("SuperPoint serve (16 planes 512^2, size 8)",
                base["superpoint"]["launches"]["nms_sweep"],
                base["superpoint"]["k2"]))],
-    ]
+    ] + md_kernel_rows(md, warp_rows, k1)
     print("details: " + json.dumps(
         {"card": card, "build_s": build_s, "k1_stages": scan_rows,
          "k1_tails": scan_tails, "k1_ckpt_tails": tscan_tails,
@@ -3918,7 +4456,7 @@ def main():
          "cycle": cycle_res, "clis": clis_res, "swin_serve": swin_serve,
          "swin_train": swin_train, "swin_export": swin_export,
          "xv_m0_serve": xv_serve, "xv_m0_train": xv_train,
-         "baselines": base}, default=str),
+         "baselines": base, "multi_device": md}, default=str),
         flush=True)
     print("serve: K1 ms/plain_ms/bound_ms are per pipeline call (sum over "
           "stage shapes x launches), K2's per call (one launch runs every "
@@ -3961,7 +4499,14 @@ def main():
           "those of phase 14 (the same shapes); train (xv1a, N=16): K6 per "
           "step over the (L, B K C N) time-major planes of each stage (4 "
           "forward and 4 reversed launches a stage); K2 rows of phases 26 "
-          "and 28 timed on the heatmaps or the masked plane of that path",
+          "and 28 timed on the heatmaps or the masked plane of that path; "
+          "multi-device (phase 29): launches are rank 0's over the whole "
+          "phase (3 DP train steps, 5 sharded serving calls, one ring scan, "
+          "the export of 4 pairs), times at a rank's shapes (K1 and K3 per "
+          "DP step at 256^2, B=8; K1 per sharded call at 512^2, B=4; K2 on "
+          "a rank's 8 heatmap planes; K6 one launch on a rank's (2048, "
+          "24576) block; K4 rows the HA-step calls of phase 9, the export's "
+          "shapes)",
           flush=True)
     print(f"chip_smoke wall time: {time.time() - t_start:.1f} s "
           f"({card})", flush=True)

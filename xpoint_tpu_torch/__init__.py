@@ -10,7 +10,10 @@ descriptor loss),
 the Trainer with its checkpoints, ``model_io`` and config files, the host
 data path, and evaluation (the metrics, the metric sweep and timing
 harness, and the ``benchmark`` entry point, ``python -m
-xpoint_tpu_torch.cli.benchmark``), with hand-written Hopper kernels for the
+xpoint_tpu_torch.cli.benchmark``), and their multi-device paths over
+``torch.distributed`` (``parallel``: one process a rank; data-parallel
+training through the Trainer, sharded serving and HA export, the
+sequence-parallel ring scan), with hand-written Hopper kernels for the
 TPU kernels on those paths:
 
   * ``ops.selective_scan_cuda`` / ``csrc/selective_scan_bidir.cu`` replaces

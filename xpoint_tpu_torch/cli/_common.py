@@ -28,6 +28,17 @@ KERNEL_COUNTERS = {
 }
 
 
+def rank_count(args):
+    """The ranks an entry point runs on: ``--ranks``, else every visible GPU
+    under a CUDA ``--device`` (one process and card each), else 1."""
+    if getattr(args, "ranks", None):
+        return int(args.ranks)
+    if str(args.device) == "cuda":
+        import torch
+        return max(1, torch.cuda.device_count())
+    return 1
+
+
 def set_seeds(seed):
     random.seed(seed)
     np.random.seed(seed)

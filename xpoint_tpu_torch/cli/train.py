@@ -2,7 +2,7 @@
 reference train.py CLI).
 
     python -m xpoint_tpu_torch.cli.train -y CONFIG.yaml [-o DIR] [-e N]
-        [--max-steps N] [--resume] [-w WEIGHTS] [--device cuda]
+        [--max-steps N] [--resume] [-w WEIGHTS] [--device cuda] [--ranks N]
 
 The ``Trainer`` writes ``params.yaml``, ``e{N}.pt`` every
 ``save_every_n_epoch`` epochs and ``latest.pt`` at the end into the output
@@ -10,11 +10,15 @@ directory. ``-w`` initialises the weights (strict=False) from a ``.pt`` of
 this package or a reference checkpoint (``.model`` / ``.pth`` / ``.pt``,
 told apart by their keys: ``Trainer.load_weights``); orbax ``.ckpt``
 directories of the JAX package are not read. Runs on the card unless
-``--device`` says otherwise.
+``--device`` says otherwise, data parallel over every visible GPU, one rank
+each, as the JAX CLI uses every chip (``--ranks`` sets the number; on the
+CPU the ranks join over gloo); ``training: batchsize`` is the global batch.
+With one rank it is the one-device trainer.
 """
 import argparse
 
-from ._common import report_at_exit
+from ..parallel.launch import launch
+from ._common import rank_count, report_at_exit
 
 
 def parse_args(argv=None):
@@ -35,12 +39,27 @@ def parse_args(argv=None):
                              'strict=False semantics)')
     parser.add_argument('--device', default='cuda',
                         help='torch device of the model (default: cuda)')
+    parser.add_argument('--ranks', default=None, type=int,
+                        help='Ranks, one process and device each (default: '
+                             'every visible GPU under --device cuda, 1 on '
+                             'the CPU)')
     return parser.parse_args(argv)
 
 
 def main(argv=None):
-    """Trains; returns the Trainer."""
+    """Trains; returns the Trainer (None where several ranks ran)."""
     args = parse_args(argv)
+    n = rank_count(args)
+    if n > 1:
+        launch(_train, n, args=(args, False),
+               devices=None if args.device == 'cuda' else [args.device] * n)
+        return None
+    return _train(args)
+
+
+def _train(args, keep=True):
+    """Training on this rank (the only one, or one of the launched);
+    returns the Trainer when ``keep``."""
     report_at_exit('train')
 
     from ..config import load_yaml
@@ -54,9 +73,10 @@ def main(argv=None):
         trainer.load_weights(args.weight_file)
     if args.resume:
         epoch = trainer.resume()
-        print(f"resumed from epoch {epoch}")
+        if trainer.main:
+            print(f"resumed from epoch {epoch}")
     trainer.train(n_epochs=args.n_epochs, max_steps_per_epoch=args.max_steps)
-    return trainer
+    return trainer if keep else None
 
 
 if __name__ == '__main__':

@@ -201,14 +201,18 @@ def prep_hm_input_device(optical, thermal, h_optical, h_thermal, top_left,
 
 def make_pair_augment(image_shape, params, border_reflect=True,
                       valid_border_margin=0, mask_border=True,
-                      hm_input=False):
+                      hm_input=False, mesh=None):
     """Batched augmentation fn(gen, batch) -> batch for the pair train path
     (the host ImagePairDataset homographic branch): per sample ONE side
     (coin flip) is warped by a fresh random homography, the other keeps the
     identity. Keypoint maps come from the padded coords in the batch
     ('keypoint_coords' / 'keypoint_valid' per side), valid masks are
     analytic, and with ``hm_input`` the RegNet inputs 'hm_input' /
-    'hfour_points' are prepared too."""
+    'hfour_points' are prepared too. With ``mesh``, the batch is this
+    rank's rows of the global batch: the homographies and coin flips are
+    drawn for the global batch and this rank's rows kept, so only its own
+    samples are warped."""
+    rows = mesh.rows if mesh is not None else (lambda t: t)
     Hh, Ww = image_shape
     pad_mode = "reflection" if border_reflect else "zeros"
     # the host's centred 128^2 patch, clamped to smaller images
@@ -217,9 +221,10 @@ def make_pair_augment(image_shape, params, border_reflect=True,
 
     def augment(gen, batch):
         B = batch['optical']['image'].shape[0]
+        G = B * (mesh.size if mesh is not None else 1)     # global batch
         dev = batch['optical']['image'].device
-        hs = sample_homography_device(gen, B, image_shape, **params)
-        warp_optical = torch.rand(B, generator=gen, device=dev) < 0.5
+        hs = rows(sample_homography_device(gen, G, image_shape, **params))
+        warp_optical = rows(torch.rand(G, generator=gen, device=dev)) < 0.5
         eye = torch.eye(3, device=dev).expand(B, 3, 3)
         sel = warp_optical[:, None, None]
         h_o = torch.where(sel, hs, eye)

@@ -7,8 +7,11 @@ RegNet input) runs there in the train step (``data/device_augment.py``),
 so the host only launches work. Semantics follow the host path per op,
 including its quirk that random_pairs does not swap the keypoints
 (image_pair.py:224-233). Draws come from the ``torch.Generator`` passed in.
-Sharding over several devices (the JAX ``mesh``) is not ported (ROADMAP.md
-Queue 1 item 9).
+Over a data-parallel mesh (the JAX ``mesh``) every rank holds the whole
+corpus and gets the global batch's indices; the crops, flips and
+augmentation parameters are drawn for the global batch and sliced, and
+each rank gathers, crops and warps only its own rows, so the ranks'
+batches, concatenated, are the one-device batch.
 """
 import numpy as np
 import torch
@@ -59,10 +62,13 @@ def load_resident_pair_data(dataset, device="cuda"):
     return data, {'n': n, 'shape': (H0, W0), 'k': K}
 
 
-def make_resident_batch_fn(dataset_cfg, meta, hm_input=False):
+def make_resident_batch_fn(dataset_cfg, meta, hm_input=False, mesh=None):
     """batch_fn(gen, {'data', 'idx'}) -> the standard pair batch, for
     ``make_train_step(batch_fn=...)``. Crops are (height, width) rounded
-    down to multiples of 32 (the whole image where <= 0)."""
+    down to multiples of 32 (the whole image where <= 0). With ``mesh``,
+    'idx' is the global batch and the batch returned this rank's rows of
+    it (see the module docstring)."""
+    mine = mesh.rows if mesh is not None else (lambda t: t)
     H0, W0 = meta['shape']
     h = (dataset_cfg['height'] // 32 * 32 if dataset_cfg['height'] > 0
          else H0)
@@ -82,18 +88,22 @@ def make_resident_batch_fn(dataset_cfg, meta, hm_input=False):
         border_reflect=bool(hom.get('border_reflect', True)),
         valid_border_margin=int(hom.get('valid_border_margin', 0) or 0),
         mask_border=bool(hom.get('mask_border', True)),
-        hm_input=hm_input) if hom.get('enable') else None)
+        hm_input=hm_input, mesh=mesh) if hom.get('enable') else None)
 
     def batch_fn(gen, payload):
         data, idx = payload['data'], payload['idx']
-        B = idx.shape[0]
+        G = idx.shape[0]                                   # global batch
         dev = data['optical'].device
-        opt = data['optical'][idx]                         # (B, H0, W0)
-        th = data['thermal'][idx]
 
         # random crop (host _crop, image_pair.py:143-173)
-        ih = torch.randint(0, H0 - h + 1, (B,), generator=gen, device=dev)
-        iw = torch.randint(0, W0 - w + 1, (B,), generator=gen, device=dev)
+        ih = mine(torch.randint(0, H0 - h + 1, (G,), generator=gen,
+                                device=dev))
+        iw = mine(torch.randint(0, W0 - w + 1, (G,), generator=gen,
+                                device=dev))
+        idx = mine(idx)
+        B = idx.shape[0]
+        opt = data['optical'][idx]                         # (B, H0, W0)
+        th = data['thermal'][idx]
         rows = (ih[:, None] + torch.arange(h, device=dev))[:, :, None]
         cols = (iw[:, None] + torch.arange(w, device=dev))[:, None, :]
         bi = torch.arange(B, device=dev)[:, None, None]
@@ -115,8 +125,8 @@ def make_resident_batch_fn(dataset_cfg, meta, hm_input=False):
         opt_is_optical = torch.ones(B, dtype=torch.bool, device=dev)
         th_is_optical = torch.zeros(B, dtype=torch.bool, device=dev)
         if random_pairs:
-            b1 = torch.rand(B, generator=gen, device=dev) < 0.5
-            b2 = torch.rand(B, generator=gen, device=dev) < 0.5
+            b1 = mine(torch.rand(G, generator=gen, device=dev)) < 0.5
+            b2 = mine(torch.rand(G, generator=gen, device=dev)) < 0.5
             opt, th = (torch.where(b1[:, None, None], th, opt),
                        torch.where(b2[:, None, None], opt, th))
             opt_is_optical, th_is_optical = ~b1, b2

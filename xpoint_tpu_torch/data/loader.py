@@ -12,6 +12,11 @@ the host datasets draw every sample from generators of its own
 either (a dataset that drew from a shared RNG would interleave its draws
 across threads in no fixed order). Worker failures propagate to the
 consumer at the failing batch.
+
+With a data-parallel ``mesh`` the batches are still cut from the whole
+shuffled index list (the same on every rank, from the same seed), and each
+rank loads and yields only its rows of each global batch, as
+``parallel.shard_batch`` would slice it.
 """
 import queue
 import threading
@@ -36,9 +41,14 @@ def collate(samples):
 
 class DataLoader:
     def __init__(self, dataset, batch_size=1, shuffle=False, seed=0,
-                 drop_last=True, prefetch=2, workers=1):
+                 drop_last=True, prefetch=2, workers=1, mesh=None):
         self.dataset = dataset
         self.batch_size = batch_size
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        if self.mesh is not None and (batch_size % mesh.size
+                                      or not drop_last):
+            raise ValueError(f"a global batch of {batch_size} does not "
+                             f"split over {mesh.size} ranks")
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.prefetch = prefetch
@@ -66,6 +76,8 @@ class DataLoader:
                    for i in range(0, len(idx), self.batch_size)]
         if self.drop_last:
             batches = [b for b in batches if len(b) == self.batch_size]
+        if self.mesh is not None:
+            batches = [self.mesh.rows(b) for b in batches]
 
         if self.prefetch <= 0:
             for b in batches:

@@ -7,6 +7,11 @@ depth-to-space -> box-NMS (both spectra in one call) -> top-k keypoints ->
 bilinear descriptor sampling -> mutual-NN matching -> optionally the
 homography by RANSAC on the device (``geometry.ransac``). The JAX
 per-sample vmap is a batch dimension here.
+
+``make_sharded_pair_pipeline`` is the data-parallel serving of
+``xpoint_tpu/eval/pipeline.py:95-151``: each rank of a mesh runs the same
+pipeline on its rows of the global batch, with no collective inside it,
+and the outputs are gathered over the ranks at the end.
 """
 import torch
 
@@ -15,13 +20,14 @@ from ..ops.descriptor import interpolate_descriptors
 from ..ops.detector import prob_from_logits
 from ..ops.matching import mnn_match
 from ..ops.nms import box_nms_extract
+from ..parallel.mesh import gather_rows
 
 
 def make_pair_pipeline(module, image_shape, k=1024, nms_size=8,
                        detection_threshold=0.015, iou=0.1,
                        match_threshold=None, cross_check=True, ratio=8,
                        estimate_homography=False, ransac_iters=512,
-                       ransac_threshold=3.0):
+                       ransac_threshold=3.0, mesh=None):
     """Returns fn(img_o, img_t, generator=None) -> dict of tensors on the
     module's device.
 
@@ -33,7 +39,10 @@ def make_pair_pipeline(module, image_shape, k=1024, nms_size=8,
     the output gains H_est (B, 3, 3), ransac_inliers, ransac_score and
     ransac_n_inliers. Each sample's RANSAC noise is drawn from
     ``generator`` (default: a generator on the device seeded with 0), where
-    the JAX pipeline splits one key a sample.
+    the JAX pipeline splits one key a sample. With ``mesh``, the images are
+    this rank's rows of a global batch and the noise is the global batch's
+    draw, this rank's rows kept (the JAX keys split over the global batch
+    and sharded).
     """
     H, W = image_shape
 
@@ -60,8 +69,11 @@ def make_pair_pipeline(module, image_shape, k=1024, nms_size=8,
             p2 = torch.gather(kps_t.float(), 1,
                               idx2.long()[..., None].expand(-1, -1, 2)
                               ).flip(-1)
-            g = gumbel_noise((B, ransac_iters, kps_o.shape[1]), generator,
-                             dev)
+            n_ranks = mesh.size if mesh is not None else 1
+            g = gumbel_noise((B * n_ranks, ransac_iters, kps_o.shape[1]),
+                             generator, dev)
+            if mesh is not None:
+                g = mesh.rows(g)
             r = ransac_homography(p1, p2, matched, g,
                                   threshold=ransac_threshold, quality=dist)
             extra = {"H_est": r["H"], "ransac_inliers": r["inliers"],
@@ -77,4 +89,26 @@ def make_pair_pipeline(module, image_shape, k=1024, nms_size=8,
             "match_idx": idx2, "match_dist": dist, "matched": matched,
         }
 
+    return run
+
+
+def make_sharded_pair_pipeline(module, image_shape, mesh, **kw):
+    """Data-parallel serving over the ranks of ``mesh`` (port of the JAX
+    ``make_sharded_pair_pipeline``). Returns fn(img_o, img_t,
+    generator=None): every rank passes the same global batch (its size a
+    multiple of the mesh size), runs :func:`make_pair_pipeline`'s program
+    on its rows (``fn.base``; no collective inside it), and the outputs are
+    gathered over the ranks (one all-reduce a key, bit for bit), so every
+    rank returns the global batch's outputs. RANSAC noise is the global
+    batch's draw, so per-sample outputs are those of one device on the
+    global batch."""
+    base = make_pair_pipeline(module, image_shape, mesh=mesh, **kw)
+
+    def run(img_o, img_t, generator=None):
+        dev = next(module.parameters()).device
+        out = base(mesh.rows(img_o).to(dev), mesh.rows(img_t).to(dev),
+                   generator)
+        return {k: gather_rows(v, mesh) for k, v in out.items()}
+
+    run.base = base
     return run

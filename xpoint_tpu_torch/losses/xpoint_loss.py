@@ -18,6 +18,12 @@ the ``torch.Generator`` passed in; in soft-assignment mode the tiebreak
 only feeds the diagnostics. The JAX package draws the sparse cells with
 ``jax.random.randint``, which torch cannot reproduce: the same cells can be
 handed to :func:`descriptor_loss` instead.
+
+Inside a data-parallel step (``parallel.data_parallel``) every term is this
+rank's share of the global batch's: the per-sample normalised terms and
+the diagnostic ratios are means over equal shards, which the step averages
+over the ranks; the blended loss's keypoint ratio is all-reduced here, and
+the tiebreak draws the global batch's noise and keeps this rank's rows.
 """
 import copy
 
@@ -26,6 +32,7 @@ import torch.nn.functional as F
 
 from ..geometry.homography import warp_points
 from ..ops.gridops import device_constant, space_to_depth
+from ..parallel.mesh import global_mean, rand_rows
 from ..utils import dict_update
 
 DEFAULT_CONFIG = {
@@ -85,7 +92,7 @@ def detector_loss(logits, keypoint_map, valid_mask, config, gen=None):
     # ratios whatever the training assignment
     if gen is None:
         gen = torch.Generator(device=dev).manual_seed(0)
-    noise = torch.rand(labels.shape, generator=gen, device=dev)
+    noise = rand_rows(labels.shape, gen, dev)
     hard = torch.cat([3.0 * labels + noise,
                       torch.full(labels.shape[:-1] + (1,), 2.0, device=dev)],
                      dim=-1)
@@ -110,7 +117,9 @@ def detector_loss(logits, keypoint_map, valid_mask, config, gen=None):
         loss_values = _focal(logits, target, fl['alpha'], fl['gamma'])
     elif fn == 'cross_entropy_focal_blended':
         probs = torch.softmax(logits, dim=-1)
-        kp_ratio = (probs[..., :-1].sum(-1) > probs[..., -1]).float().mean()
+        # the global batch's ratio inside a data-parallel step
+        kp_pred = (probs[..., :-1].sum(-1) > probs[..., -1]).float()
+        kp_ratio = global_mean(kp_pred, tuple(range(kp_pred.ndim)))
         threshold = 0.0015
         blend = ((threshold - kp_ratio) / threshold).clamp(0.0, 1.0)
         loss_values = ((1 - blend) * _weighted_ce(logits, target, weights)

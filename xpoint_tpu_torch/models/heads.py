@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import active_mesh, batch_moments, global_mean
 from .vssm import _conv_nhwc
 
 BN_MOMENTUM, BN_EPS = 0.9, 1e-5  # every flax BatchNorm of the model
@@ -27,7 +28,11 @@ class BatchNorm(nn.Module):
     Eval mode normalises with the running statistics. Train mode normalises
     with the batch statistics of the fp32 input over every axis but the
     last: the mean and the BIASED variance, in flax's form
-    max(0, E[x^2] - E[x]^2). It then updates, in place,
+    max(0, E[x^2] - E[x]^2); inside a data-parallel step
+    (``parallel.data_parallel``) both moments are the global batch's, their
+    sums and counts all-reduced in fp32 with autograd through the
+    reduction, so every rank normalises and updates alike. It then
+    updates, in place,
     running <- 0.9 * running + 0.1 * batch (BN_MOMENTUM), with that same
     biased variance (``torch.nn.BatchNorm2d`` would use the unbiased one and
     momentum 0.1 in the other sense). A caller that must undo a step
@@ -46,8 +51,8 @@ class BatchNorm(nn.Module):
         x = x.float()
         if self.training:
             dims = tuple(range(x.ndim - 1))
-            mean = x.mean(dims)
-            var = ((x * x).mean(dims) - mean * mean).clamp_min(0.0)
+            mean, mean_sq = batch_moments(x, dims)
+            var = (mean_sq - mean * mean).clamp_min(0.0)
             with torch.no_grad():
                 m = BN_MOMENTUM
                 self.running_mean.copy_(m * self.running_mean
@@ -66,7 +71,8 @@ class SpectralBatchNorm(nn.Module):
 
     Train mode normalises with the batch mean and the variance
     mean((x - mean)^2) of the fp32 input (``x32.var()`` in JAX, not the
-    E[x^2] - E[x]^2 form of :class:`BatchNorm`), then updates, in place,
+    E[x^2] - E[x]^2 form of :class:`BatchNorm`; in a data-parallel step two
+    all-reduced passes over the global batch), then updates, in place,
     the slot of ``spectrum``, or both slots for ``"mixed"``, with momentum
     0.9. Eval mode normalises a single spectrum with its own slot and
     ``"mixed"`` with the statistics of the 50/50 mixture: mean
@@ -85,8 +91,12 @@ class SpectralBatchNorm(nn.Module):
         x = x.float()
         if self.training:
             dims = tuple(range(x.ndim - 1))
-            mean = x.mean(dims)
-            var = x.var(dims, unbiased=False)
+            if active_mesh() is None:
+                mean = x.mean(dims)
+                var = x.var(dims, unbiased=False)
+            else:
+                mean = global_mean(x, dims)
+                var = global_mean((x - mean) ** 2, dims)
             slots = SPECTRA if spectrum == "mixed" else (spectrum,)
             with torch.no_grad():
                 m = BN_MOMENTUM

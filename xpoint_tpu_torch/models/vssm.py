@@ -32,6 +32,7 @@ from torch import nn
 
 from ..ops.cross_scan import cross_merge, cross_scan
 from ..ops.gridops import depth_to_space
+from ..parallel.mesh import rand_rows
 from ..ops.selective_scan import selective_scan
 from ..ops.selective_scan_cuda import scan_bidir, selective_scan_fused_bkld
 from ..ops.ssd import ssd_chunked
@@ -75,12 +76,15 @@ class StridedConv3x3(nn.Module):
 def _drop(x, rate, mask_shape, gen):
     """Keep with probability 1 - rate (jax.random.bernoulli: uniform <
     keep, a mask of ``mask_shape`` broadcast over x) and scale by 1 / keep.
-    ``gen`` is required: the port draws from explicit generators only."""
+    ``gen`` is required: the port draws from explicit generators only.
+    ``mask_shape`` leads with the batch: in a data-parallel step the global
+    batch's mask is drawn and this rank's rows kept
+    (``parallel.mesh.rand_rows``)."""
     if gen is None:
         raise ValueError("a stochastic layer in train mode needs the "
                          "torch.Generator passed to forward")
     keep = 1.0 - rate
-    mask = torch.rand(mask_shape, generator=gen, device=x.device) < keep
+    mask = rand_rows(mask_shape, gen, x.device) < keep
     return torch.where(mask, x / keep,
                        torch.zeros((), dtype=x.dtype, device=x.device))
 
@@ -132,15 +136,20 @@ class SS2D(nn.Module):
     With N = 1, mode 0 runs the token-major bidirectional scan and modes 1
     and 2 the single-direction fused scan in (B, K, L, D) layout; N > 1 and
     cascade2d go through ``ops.selective_scan.selective_scan`` in the
-    reference layout."""
+    reference layout. With ``scan_backend="ring"`` every scan takes that
+    canonical-layout route with ``selective_scan``'s sequence-parallel
+    backend (L sharded over the ranks of ``parallel.ring_mesh``), never the
+    bidirectional or single-direction fused kernels."""
 
     def __init__(self, d_model, d_state=1, ssm_ratio=1.0, dt_rank="auto",
                  d_conv=3, conv_bias=False, disable_z=True,
-                 disable_z_act=False, out_act=False, scan_mode=0):
+                 disable_z_act=False, out_act=False, scan_mode=0,
+                 scan_backend=None):
         super().__init__()
         if scan_mode not in (-1, 0, 1, 2):
             raise ValueError(f"unknown SS2D scan mode {scan_mode}")
         self.scan_mode = scan_mode
+        self.scan_backend = scan_backend
         self.disable_z, self.disable_z_act = disable_z, disable_z_act
         self.out_act = out_act
         D = int(ssm_ratio * d_model)
@@ -181,7 +190,7 @@ class SS2D(nn.Module):
         dt_w = (self.dt_projs_weight - R ** -0.5).to(dtype)
         if self.scan_mode == -1:
             y = self._cascade2d(xs, dt_w)
-        elif self.scan_mode == 0 and N == 1:
+        elif self.scan_mode == 0 and N == 1 and self.scan_backend is None:
             y = self._cross2d(xs, -torch.exp(self.A_logs.reshape(-1)), dt_w)
         else:
             # token-wise projections per direction k on the expanded
@@ -191,7 +200,7 @@ class SS2D(nn.Module):
                                  self.x_proj_weight.to(dtype))
             dts, Bs, Cs = torch.split(x_dbl, [R, N, N], dim=-1)
             dts = torch.einsum("bklr,kdr->bkld", dts, dt_w)
-            if N == 1:
+            if N == 1 and self.scan_backend is None:
                 ys = selective_scan_fused_bkld(
                     xk.contiguous(), dts.contiguous(),
                     -torch.exp(self.A_logs.reshape(-1)), Bs.contiguous(),
@@ -216,7 +225,7 @@ class SS2D(nn.Module):
         ys = selective_scan(
             cl(xk), cl(dts), A, Bs.transpose(2, 3), Cs.transpose(2, 3),
             self.Ds.reshape(4, D)[ks].reshape(-1),
-            self.dt_projs_bias[ks].reshape(-1), True)
+            self.dt_projs_bias[ks].reshape(-1), True, self.scan_backend)
         return ys.reshape(B, k, D, L).transpose(2, 3)
 
     def _cascade2d(self, xs, dt_w):
@@ -317,11 +326,15 @@ class SS2Dv3(nn.Module):
     convs), ``_ocov2`` / ``_ocov`` / ``_cpos`` (conv placement).
     ``dt_projs_weight`` is held as the effective weight (no shift, unlike
     SS2D's). The scan runs in ``selective_scan``'s layout: N = 1 through the
-    fused single-direction scan, N > 1 around the linear recurrence."""
+    fused single-direction scan, N > 1 around the linear recurrence;
+    ``scan_backend="ring"`` selects ``selective_scan``'s sequence-parallel
+    backend."""
 
     def __init__(self, d_model, d_state=16, ssm_ratio=2.0, dt_rank="auto",
-                 d_conv=3, conv_bias=True, forward_type="xv1a"):
+                 d_conv=3, conv_bias=True, forward_type="xv1a",
+                 scan_backend=None):
         super().__init__()
+        self.scan_backend = scan_backend
         D = int(ssm_ratio * d_model)
         R = int(math.ceil(d_model / 16)) if dt_rank == "auto" else int(dt_rank)
         N = int(d_state)
@@ -397,7 +410,8 @@ class SS2Dv3(nn.Module):
         cl = lambda v: v.transpose(2, 3).reshape(B, 4 * D, L)  # noqa: E731
         ys = selective_scan(cl(us4), cl(dts4), -torch.exp(self.A_logs),
                             Bs4.transpose(2, 3), Cs4.transpose(2, 3),
-                            self.Ds, self.dt_projs_bias.reshape(-1), True)
+                            self.Ds, self.dt_projs_bias.reshape(-1), True,
+                            self.scan_backend)
         y = cross_merge(ys.reshape(B, 4, D, L).transpose(2, 3), H, W, 0)
         if self.out_kind in ("ln", "_oncnorm"):
             y = layer_norm(self.out_norm, y.float())
@@ -488,12 +502,12 @@ class VSSBlock(nn.Module):
     def __init__(self, dim, ssm_ratio=1.0, dt_rank="auto", mlp_ratio=4.0,
                  drop_path=0.0, scan_mode=0, d_state=1, ssm_conv=3,
                  ssm_conv_bias=False, disable_z=True, disable_z_act=False,
-                 out_act=False, xv_type="", use_m0=False):
+                 out_act=False, xv_type="", use_m0=False, scan_backend=None):
         super().__init__()
         self.norm = _layer_norm_module(dim)
         if xv_type:
             self.op = SS2Dv3(dim, d_state, ssm_ratio, dt_rank, ssm_conv,
-                             ssm_conv_bias, xv_type)
+                             ssm_conv_bias, xv_type, scan_backend)
         elif use_m0:
             self.op = SS2Dm0(dim, d_state, ssm_ratio, dt_rank, ssm_conv,
                              ssm_conv_bias, disable_z, disable_z_act,
@@ -501,7 +515,7 @@ class VSSBlock(nn.Module):
         else:
             self.op = SS2D(dim, d_state, ssm_ratio, dt_rank, ssm_conv,
                            ssm_conv_bias, disable_z, disable_z_act, out_act,
-                           scan_mode)
+                           scan_mode, scan_backend)
         self.drop_path = DropPath(drop_path)
         self.mlp_ratio = mlp_ratio
         if mlp_ratio > 0:
@@ -522,8 +536,8 @@ class VSSM(nn.Module):
                  dt_rank="auto", mlp_ratio=4.0, drop_path_rate=0.2,
                  dtype=torch.float32, scan_mode=0, **ss2d_args):
         """``ss2d_args``: VSSBlock's d_state, ssm_conv, ssm_conv_bias,
-        disable_z, disable_z_act, out_act, xv_type and use_m0, the same
-        for every block."""
+        disable_z, disable_z_act, out_act, xv_type, use_m0 and
+        scan_backend, the same for every block."""
         super().__init__()
         self.depths = tuple(depths)
         self.dtype = dtype
@@ -563,14 +577,16 @@ class VSSM(nn.Module):
         return depth_to_space(x, 4)
 
 
-def build_vssm_from_config(vssm_cfg, dtype=torch.float32):
+def build_vssm_from_config(vssm_cfg, dtype=torch.float32, scan_backend=None):
     """VSSM from the reference MODEL.VSSM dict (with MODEL.DROP_PATH_RATE
     merged in as ``DROP_PATH_RATE``), parsed as
     ``xpoint_tpu.models.vssm.build_vssm_from_config`` parses it: the
     forward type's base (v05 cross2d, v051d unidi, v052d bidi, v052dc
     cascade2d, m* the SSD block SS2Dm0, xv* the SS2Dv3 block with the whole
     forward type as its mode and postfixes) and the tags _noz, _nozact and
-    _oact. The state size is ``SSM_D_STATE`` (default 1) for every family."""
+    _oact. The state size is ``SSM_D_STATE`` (default 1) for every family.
+    ``scan_backend``: None, or ``"ring"`` (``selective_scan``'s
+    sequence-parallel backend in every SS2D / SS2Dv3 block)."""
     get = vssm_cfg.get
     ftype = str(get("SSM_FORWARDTYPE", "v05_noz"))
     base = ftype.split("_")[0]
@@ -592,4 +608,5 @@ def build_vssm_from_config(vssm_cfg, dtype=torch.float32):
         out_act="_oact" in ftype,
         xv_type=ftype if base.startswith("xv") else "",
         use_m0=base.startswith("m"),
+        scan_backend=scan_backend,
     )

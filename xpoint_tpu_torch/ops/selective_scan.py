@@ -13,9 +13,11 @@ any state size N (port of ``xpoint_tpu/ops/selective_scan.py`` and of
 :func:`selective_scan` dispatches as the JAX ``'pallas'`` backend does: N = 1
 with softplus goes to the fused single-direction kernel
 (``selective_scan_fused_bkld``), everything else to the composition around
-the linear-recurrence kernel (``linear_scan``) with M = B*K*C*N lanes. There
-is no backend switch: JAX's ``'assoc'`` is XLA's route to the same function,
-and the sequence-parallel ``'ring'`` exists only across devices.
+the linear-recurrence kernel (``linear_scan``) with M = B*K*C*N lanes. JAX's
+``'assoc'`` is XLA's route to the same function and has no counterpart;
+``backend="ring"`` is the sequence-parallel scan
+(``parallel.ring_scan.ring_selective_scan``: L sharded over the ranks of
+the mesh selected with ``parallel.ring_mesh``).
 :func:`selective_scan_ref` is the step-by-step oracle.
 """
 import torch
@@ -109,8 +111,15 @@ def selective_scan_fused(u, delta, A, Bmat, Cmat, D=None, delta_bias=None):
 
 
 def selective_scan(u, delta, A, Bmat, Cmat, D=None, delta_bias=None,
-                   delta_softplus=True):
-    """Dispatching entry point (see the module docstring)."""
+                   delta_softplus=True, backend=None):
+    """Dispatching entry point (see the module docstring). ``backend``:
+    None, or ``"ring"`` for the sequence-parallel scan."""
+    if backend == "ring":
+        from ..parallel.ring_scan import ring_selective_scan
+        return ring_selective_scan(u, delta, A, Bmat, Cmat, D, delta_bias,
+                                   delta_softplus)
+    if backend is not None:
+        raise ValueError(f"unknown selective_scan backend {backend!r}")
     if Bmat.shape[2] == 1 and delta_softplus:
         return selective_scan_fused(u, delta, A, Bmat, Cmat, D, delta_bias)
     return _selective_scan_unfused(u, delta, A, Bmat, Cmat, D, delta_bias,

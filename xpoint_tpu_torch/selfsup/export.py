@@ -5,7 +5,10 @@ For every dataset pair: run the HA warp -> forward -> unwarp -> aggregate
 program, NMS + threshold, and write the keypoint coordinates to a sink keyed
 by sample name (``keypoints``, or ``keypoints_optical`` /
 ``keypoints_thermal`` in window aggregation). Resume skips the names the
-sink already holds; a backup is taken every ``frequency`` steps. The
+sink already holds; a backup is taken every ``frequency`` steps. Over a
+data-parallel mesh every chunk of a multiple of the mesh size runs the
+sharded HA program (``make_sharded_ha_fn``), the remainder chunk runs
+unsharded on rank 0, and rank 0 alone holds the sink and writes. The
 entry point over a model directory and a dataset config is
 ``python -m xpoint_tpu_torch.cli.export_keypoints``.
 """
@@ -18,7 +21,9 @@ import torch
 from ..data.group_file import NpzGroupFile, is_hdf5, write_npz_groups
 from ..eval.infer import XPointInference
 from ..ops.detector import prob_from_logits
-from .homographic_adaptation import make_ha_fn, sample_ha_homographies
+from ..parallel.mesh import broadcast
+from .homographic_adaptation import (make_ha_fn, make_sharded_ha_fn,
+                                     sample_ha_homographies)
 
 
 class NumpySink:
@@ -109,33 +114,68 @@ def make_prob_fn(module):
     return prob_fn
 
 
+def _pending_on_every_rank(pending, mesh):
+    """Rank 0's list of pending sample indices, on every rank."""
+    n = torch.tensor([len(pending)], dtype=torch.int64, device=mesh.device)
+    broadcast([n], mesh)
+    idx = torch.tensor(pending if mesh.rank == 0 else [0] * int(n),
+                       dtype=torch.int64, device=mesh.device)
+    broadcast([idx], mesh)
+    return idx.tolist()
+
+
 def export_keypoints(module, dataset, sink, ha_config=None,
                      prediction_config=None, seed=0, batch=1,
-                     max_samples=None, frequency=1, log=None):
+                     max_samples=None, frequency=1, log=None, mesh=None):
     """Run the label export over ``dataset`` into ``sink``.
 
     dataset: ``__len__``, ``__getitem__`` -> {'optical': {'image' (H,W,1)},
     'thermal': {'image'}} and ``get_name``. One homography stack is sampled
     per chunk of ``batch`` samples from ``np.random.default_rng(seed)``.
     Samples whose name the sink already holds are skipped. Returns the
-    number of samples exported; the sink is flushed but left open."""
+    number of samples exported; the sink is flushed but left open.
+
+    With ``mesh`` (more than one rank), every rank calls this with the same
+    arguments but ``sink``, which rank 0 alone holds (None elsewhere);
+    chunks of ``batch`` samples, a multiple of the mesh size, run sharded
+    and the remainder unsharded on rank 0 (the JAX export's rule)."""
     infer = XPointInference(module, prediction_config)
     run_ha, cfg = make_ha_fn(make_prob_fn(module), ha_config)
+    sharded = mesh is not None and mesh.size > 1
+    main = not sharded or mesh.rank == 0
+    if sharded:
+        if batch % mesh.size:
+            raise ValueError(f"batch {batch} is no multiple of the "
+                             f"{mesh.size} ranks")
+        run_sharded, _ = make_sharded_ha_fn(make_prob_fn(module), ha_config,
+                                            mesh)
     window_mode = cfg['aggregation'] == 'window'
     rng = np.random.default_rng(seed)
     n = len(dataset) if max_samples is None else min(max_samples,
                                                      len(dataset))
-    done = sink.names()
-    pending = [i for i in range(n) if dataset.get_name(i) not in done]
+    pending = []
+    if main:
+        done = sink.names()
+        pending = [i for i in range(n) if dataset.get_name(i) not in done]
+    if sharded:
+        pending = _pending_on_every_rank(pending, mesh)
     n_done = 0
     for step, pos in enumerate(range(0, len(pending), batch), start=1):
         chunk = pending[pos:pos + batch]
+        whole = len(chunk) == batch
+        if not (main or whole):
+            break                      # the remainder runs on rank 0
         samples = [dataset[i] for i in chunk]
         img_o, img_t = (torch.from_numpy(np.stack(
             [np.asarray(s[side]['image'], np.float32) for s in samples])
         ).to(infer.device) for side in ('optical', 'thermal'))
-        Hs = sample_ha_homographies(cfg, img_o.shape[1:3], rng)
-        out = run_ha(img_o, img_t, torch.from_numpy(Hs).to(infer.device))
+        Hs = torch.from_numpy(sample_ha_homographies(
+            cfg, img_o.shape[1:3], rng)).to(infer.device)
+        out = (run_sharded if sharded and whole else run_ha)(img_o, img_t,
+                                                              Hs)
+        n_done += len(chunk)
+        if not main:
+            continue
 
         def extract_all(prob):
             p = infer.nms(prob)
@@ -150,7 +190,6 @@ def export_keypoints(module, dataset, sink, ha_config=None,
         for b, i in enumerate(chunk):
             sink.write(dataset.get_name(i), {k: v[b] for k, v in kps.items()})
         sink.flush()
-        n_done += len(chunk)
         if frequency and step % max(frequency, 1) == 0:
             if log:
                 log(f"[{n_done}/{len(pending)}] exported through "

@@ -1,5 +1,5 @@
 """Homographic adaptation: self-supervised pseudo-ground-truth keypoints
-(port of ``xpoint_tpu/selfsup/homographic_adaptation.py``, single device).
+(port of ``xpoint_tpu/selfsup/homographic_adaptation.py``).
 
   * run the detector on the original optical/thermal pair, aggregate the two
     probability maps (prod / sum / window),
@@ -14,8 +14,10 @@ Homographies are sampled on the host up front (numpy); the warp -> forward
 homographies per step, under ``torch.no_grad()``; its warps go through
 ``ops/warp_projective.py`` (the projective-warp kernel on the card, the
 plain gather on the CPU, at any image size). Images and probability
-maps are channels-last / (B, H, W), as on the JAX side. The mesh-sharded
-variant (``make_sharded_ha_fn``) is not ported (ROADMAP.md Queue 1 item 9).
+maps are channels-last / (B, H, W), as on the JAX side.
+``make_sharded_ha_fn`` runs the program over the ranks of a mesh: each
+rank its rows of the sample batch, the homography stack replicated, no
+collective inside; the outputs are gathered over the ranks.
 """
 import copy
 from math import pi
@@ -27,6 +29,7 @@ import torch.nn.functional as F
 from ..geometry.homography import (compute_valid_mask_device,
                                    sample_homography)
 from ..ops import warp_projective as wp
+from ..parallel.mesh import gather_rows
 from ..utils import dict_update
 
 
@@ -146,6 +149,29 @@ def make_ha_fn(prob_fn, config=None, warp_batch=8):
         return _ha_run_impl(prob_fn, cfg, warp_batch, img_o, img_t,
                             homographies, valid_masks)
 
+    return run, cfg
+
+
+def make_sharded_ha_fn(prob_fn, config, mesh, warp_batch=8):
+    """Mesh-sharded HA program for multi-device label export (port of the
+    JAX ``make_sharded_ha_fn``; its ``make_prob_fn(variables)`` is
+    ``prob_fn`` here, the module being the replicated variables). Every
+    rank passes the same global sample batch (its size a multiple of the
+    mesh size) and homography stack; each runs the program of
+    :func:`make_ha_fn` on its rows, with no collective, and the outputs
+    are gathered over the ranks (one all-reduce an output, bit for bit).
+    Per-sample outputs are those of one device: every per-sample
+    computation is independent.
+
+    Returns (run(img_o, img_t, homographies) -> dict, merged config)."""
+    run_local, cfg = make_ha_fn(prob_fn, config, warp_batch)
+
+    def run(img_o, img_t, homographies):
+        out = run_local(mesh.rows(img_o), mesh.rows(img_t), homographies)
+        return {k: None if v is None else gather_rows(v, mesh)
+                for k, v in out.items()}
+
+    run.local = run_local
     return run, cfg
 
 

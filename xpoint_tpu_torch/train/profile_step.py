@@ -20,7 +20,7 @@ import torch
 B, S, N_TIMED = 16, 256, 7
 
 
-def flagship_train(dev, forward_type=None, d_state=None):
+def flagship_train(dev, forward_type=None, d_state=None, mesh=None):
     """The flagship training config (VMAMBA_TRAIN_CFG: 256^2, bf16,
     DropPath 0.2, RegNet + HM loss, hard negatives; with ``forward_type``
     in place of its SSM_FORWARDTYPE v05_noz and ``d_state`` in place of its
@@ -29,7 +29,8 @@ def flagship_train(dev, forward_type=None, d_state=None):
     made resident by load_resident_pair_data and
     batched by make_resident_batch_fn. Returns (state, step, data, meta):
     ``step(state, {"data": data, "idx": idx}, gen)`` runs one train step
-    on the samples ``idx``."""
+    on the samples ``idx``; with ``mesh``, the data-parallel step, each
+    rank on its rows of ``idx``."""
     from ..data.device_dataset import (load_resident_pair_data,
                                        make_resident_batch_fn)
     from ..data.synthetic_pairs import SyntheticPairs
@@ -48,7 +49,8 @@ def flagship_train(dev, forward_type=None, d_state=None):
     data, meta = load_resident_pair_data(SyntheticPairs(), device=dev)
     step = make_train_step(
         module, XPointLoss(dict(cfg["loss"], space_to_depth_ratio=8)),
-        batch_fn=make_resident_batch_fn(cfg["dataset"], meta, hm_input=True))
+        batch_fn=make_resident_batch_fn(cfg["dataset"], meta, hm_input=True,
+                                        mesh=mesh), mesh=mesh)
     return state, step, data, meta
 
 

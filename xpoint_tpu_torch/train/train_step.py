@@ -14,10 +14,21 @@ is a select on the device (``torch.where(finite, new, old)``, the JAX
 step's ``jax.tree.map(jnp.where ...)``): nothing inside a step reads a
 value back to the host, and the step count, the Adam count and
 ``skipped_nonfinite`` stay device tensors.
+
+Data parallel (``mesh`` of n ranks, one process each): every rank runs the
+step on its rows of the global batch inside ``parallel.data_parallel``, so
+BatchNorm normalises with the global batch's statistics and the
+batch-shaped draws are the global batch's rows. One all-reduce of the flat
+gradient buffer, with the loss and its components packed behind it, gives
+every rank the mean over the ranks: the gradient and the loss of the global
+batch. The non-finite skip then decides on those, so every rank skips
+together, and the parameters stay equal on every rank.
 """
 import functools
 
 import torch
+
+from ..parallel.mesh import data_parallel, mean_over_ranks
 
 
 class Adam:
@@ -187,7 +198,22 @@ def _forward_loss(module, loss_fn, batch, takes_pair, gen):
     return loss_fn(batch, pred, None, None, gen)
 
 
-def make_train_step(module, loss_fn, takes_pair=True, batch_fn=None):
+def _global(g, loss, comps, mesh):
+    """The flat gradient, the loss and the components as the mean over the
+    ranks, through one all-reduce of one buffer."""
+    if mesh is None or mesh.size == 1:
+        return g, loss, comps
+    keys = list(comps)
+    packed = torch.cat([g, loss.reshape(1).float()]
+                       + [comps[k].reshape(1).float() for k in keys])
+    packed = mean_over_ranks(packed, mesh)
+    n = g.numel()
+    return (packed[:n], packed[n],
+            {k: packed[n + 1 + i] for i, k in enumerate(keys)})
+
+
+def make_train_step(module, loss_fn, takes_pair=True, batch_fn=None,
+                    mesh=None):
     """The train step: ``step(state, batch, gen) -> components``.
 
     Pair batch (takes_pair): batch['optical'|'thermal'] with image
@@ -201,11 +227,20 @@ def make_train_step(module, loss_fn, takes_pair=True, batch_fn=None):
     device-resident data path). ``gen`` (a ``torch.Generator`` on the
     module's device) then drives DropPath, Dropout and the loss's
     tiebreak, in that order: the counterpart of the JAX step's rng split.
+    With ``mesh`` (``parallel.make_mesh``), ``batch`` is this rank's slice
+    of the global batch (or, with ``batch_fn``, the payload every rank
+    shares, which ``batch_fn`` slices) and the step is the data-parallel
+    one of the module docstring; ``gen`` must be in the same state on every
+    rank.
     Returns the loss components with 'loss' and 'skipped_nonfinite' (0-d
     device tensors; nothing is read back to the host).
     """
 
     def step(state, batch, gen):
+        with data_parallel(mesh):
+            return _step(state, batch, gen)
+
+    def _step(state, batch, gen):
         if batch_fn is not None:
             batch = batch_fn(gen, batch)
         module.train()
@@ -213,7 +248,8 @@ def make_train_step(module, loss_fn, takes_pair=True, batch_fn=None):
         old = torch.cat([b.reshape(-1) for b in stats])
         loss, comps = _forward_loss(module, loss_fn, batch, takes_pair, gen)
         grads = torch.autograd.grad(loss, state.params, allow_unused=True)
-        g = state.optimizer.flat_grads(grads)
+        g, loss, comps = _global(state.optimizer.flat_grads(grads),
+                                 loss.detach(), comps, mesh)
         finite = torch.isfinite(loss) & torch.isfinite(g).all()
         state.apply_gradients(g, finite)
         with torch.no_grad():
@@ -229,15 +265,23 @@ def make_train_step(module, loss_fn, takes_pair=True, batch_fn=None):
     return step
 
 
-def make_eval_step(module, loss_fn, takes_pair=True):
+def make_eval_step(module, loss_fn, takes_pair=True, mesh=None):
     """Loss-only evaluation step ``eval(state, batch) -> (loss,
     components)``: eval-mode forward (running BatchNorm statistics, no
     DropPath or Dropout), no gradient, the batch routed as in the train
-    step."""
+    step. With ``mesh``, ``batch`` is this rank's slice and the loss and
+    components are the global batch's (the mean over the ranks)."""
 
     @torch.no_grad()
     def eval_step(state, batch):
         module.eval()
-        return _forward_loss(module, loss_fn, batch, takes_pair, None)
+        with data_parallel(mesh):
+            loss, comps = _forward_loss(module, loss_fn, batch, takes_pair,
+                                        None)
+        if mesh is None or mesh.size == 1:
+            return loss, comps
+        zero = torch.zeros(0, device=loss.device)
+        _, loss, comps = _global(zero, loss, comps, mesh)
+        return loss, comps
 
     return eval_step

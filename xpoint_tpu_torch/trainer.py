@@ -24,7 +24,18 @@ Where it differs:
     batches and draws a straight run sees and ends bit for bit where the
     straight run ends (the JAX ``Trainer`` restarts its streams from the
     seed on resume).
-  * One device; the mesh of the JAX trainer is not ported (Queue 1 item 9).
+  * Devices: the JAX ``Trainer`` shards every batch over a mesh of every
+    device in one program; here ``n_devices`` ranks run one process each
+    (``parallel.launch``), and the Trainer built in each of them takes the
+    mesh of the process group (``parallel.make_mesh``; one rank and no
+    group is the one-device trainer). ``training: batchsize`` is the global
+    batch: each rank loads its rows of it (the host loader) or slices it
+    on its device (the resident data), and the train and eval steps are
+    the data-parallel ones (``train.make_train_step(mesh=...)``), so n
+    ranks compute what one device computes on the global batch. Every rank
+    draws the same shuffles and generator states; rank 0 alone writes
+    ``params.yaml``, the checkpoints, TensorBoard and the log lines, and
+    every rank reads a checkpoint on resume.
 """
 import os
 import time
@@ -42,6 +53,7 @@ from .data import DataLoader, get_dataset
 from .losses import XPointLoss
 from .models import build_xpoint
 from .ops.gridops import device_constant
+from .parallel.mesh import barrier, make_mesh, replicate
 from .train import TrainState, make_eval_step, make_optimizer  # noqa: F401
 from .train import make_train_step
 
@@ -77,14 +89,18 @@ def batch_to_device_single(batch, device):
 
 
 class Trainer:
-    def __init__(self, config, output_dir, seed=0, device="cuda",
-                 dataset=None, val_dataset=None):
+    def __init__(self, config, output_dir, n_devices=None, seed=0,
+                 device="cuda", dataset=None, val_dataset=None):
         self.config = config
         self.output_dir = output_dir
         self.seed = seed
-        self.device = torch.device(device)
-        os.makedirs(output_dir, exist_ok=True)
-        save_yaml(config, os.path.join(output_dir, 'params.yaml'))
+        self.mesh = make_mesh(n_devices, device=device)
+        self.device = self.mesh.device
+        self.main = self.mesh.rank == 0
+        mesh = self.mesh if self.mesh.size > 1 else None
+        if self.main:
+            os.makedirs(output_dir, exist_ok=True)
+            save_yaml(config, os.path.join(output_dir, 'params.yaml'))
 
         self.dataset = (dataset if dataset is not None
                         else get_dataset(config['dataset']))
@@ -92,7 +108,7 @@ class Trainer:
         self.batch_size = int(tcfg.get('batchsize', 1))
         workers = int(tcfg.get('num_worker', 1) or 1)
         self.loader = DataLoader(self.dataset, self.batch_size, shuffle=True,
-                                 seed=seed, workers=workers)
+                                 seed=seed, workers=workers, mesh=mesh)
         self.takes_pair = self.dataset.returns_pair()
 
         self.val_loader = None
@@ -110,7 +126,7 @@ class Trainer:
                 val_dataset.set_epoch(0, seed)
             self.val_loader = DataLoader(val_dataset, self.batch_size,
                                          shuffle=False, seed=seed,
-                                         workers=workers)
+                                         workers=workers, mesh=mesh)
 
         self.module, self.model_cfg = build_xpoint(config['model'],
                                                    device=self.device,
@@ -137,22 +153,28 @@ class Trainer:
             hm_check = bool((config['model'].get(
                 'homography_regression_head') or {}).get('check'))
             batch_fn = make_resident_batch_fn(self.dataset.config, meta,
-                                              hm_input=hm_check)
+                                              hm_input=hm_check, mesh=mesh)
             self.data_rng = np.random.default_rng(seed)
 
         self.train_step = make_train_step(self.module, self.loss_fn,
                                           takes_pair=self.takes_pair,
-                                          batch_fn=batch_fn)
+                                          batch_fn=batch_fn, mesh=mesh)
         self.eval_step = make_eval_step(self.module, self.loss_fn,
-                                        takes_pair=self.takes_pair)
+                                        takes_pair=self.takes_pair,
+                                        mesh=mesh)
 
         self.writer = None
-        if tcfg.get('use_writer'):
+        if tcfg.get('use_writer') and self.main:
             try:
                 from torch.utils.tensorboard import SummaryWriter
                 self.writer = SummaryWriter(os.path.join(output_dir, 'tb'))
             except ImportError:
                 pass
+
+    def _log(self, *args, **kw):
+        """print, on rank 0 only."""
+        if self.main:
+            print(*args, **kw)
 
     def _fresh_state(self):
         return TrainState(self.module, self.tx,
@@ -167,13 +189,13 @@ class Trainer:
             return
         type_dir = pre.get('type_dir')
         if not type_dir or not os.path.isdir(type_dir):
-            print(f"pretrained encoder dir not found ({type_dir}); "
+            self._log(f"pretrained encoder dir not found ({type_dir}); "
                   f"training from scratch", flush=True)
             return
         ckpts = [f for f in os.listdir(type_dir)
                  if f.endswith(('.pth', '.model', '.ckpt', '.pt'))]
         if not ckpts:
-            print(f"no pretrained encoder checkpoint in {type_dir}; "
+            self._log(f"no pretrained encoder checkpoint in {type_dir}; "
                   f"training from scratch", flush=True)
             return
         path = os.path.join(type_dir, sorted(ckpts)[0])
@@ -183,7 +205,7 @@ class Trainer:
                 sd = sd[key]
                 break
         load_pretrained_encoder(self.module, sd)
-        print(f"loaded pretrained encoder weights from {path}", flush=True)
+        self._log(f"loaded pretrained encoder weights from {path}", flush=True)
 
     def load_weights(self, path):
         """Initialise training from a checkpoint file, the fine-tuning
@@ -221,7 +243,7 @@ class Trainer:
                 stats['missing'] += 1
             elif tuple(loaded[k].shape) != tuple(v.shape):
                 stats['shape'] += 1
-                print(f"  shape mismatch at {k}: {tuple(loaded[k].shape)} "
+                self._log(f"  shape mismatch at {k}: {tuple(loaded[k].shape)} "
                       f"vs {tuple(v.shape)} (kept init)", flush=True)
             else:
                 stats['used'] += 1
@@ -229,7 +251,7 @@ class Trainer:
         stats['unexpected'] = sum(1 for k in loaded if k not in init)
         self.module.load_state_dict(take, strict=False)
         self.state = self._fresh_state()
-        print(f"initialized weights from {path}: {stats['used']} tensors "
+        self._log(f"initialized weights from {path}: {stats['used']} tensors "
               f"loaded, {stats['missing']} missing (kept init), "
               f"{stats['unexpected']} unexpected (ignored), "
               f"{stats['shape']} shape mismatches", flush=True)
@@ -278,6 +300,11 @@ class Trainer:
         tcfg = self.config.get('training', {})
         n_epochs = n_epochs or int(tcfg.get('n_epochs', 1))
         save_every = int(tcfg.get('save_every_n_epoch', 0) or 0)
+        if self.mesh.size > 1:
+            opt = self.state.optimizer
+            replicate([self.state.params, list(self.module.buffers()),
+                       opt.mu, opt.nu, opt.count, self.state.step],
+                      self.mesh)
         step = 0
         for epoch in range(self.start_epoch, n_epochs):
             self._start_epoch(epoch)
@@ -311,7 +338,7 @@ class Trainer:
                 mean_loss = (float(host_losses[taken].mean())
                              if taken.any() else float('nan'))
                 if n_skipped:
-                    print(f"epoch {epoch}: skipped {n_skipped} non-finite "
+                    self._log(f"epoch {epoch}: skipped {n_skipped} non-finite "
                           f"batch(es)", flush=True)
             else:
                 mean_loss = float('nan')
@@ -328,13 +355,18 @@ class Trainer:
                             if val_losses else float('nan'))
                 if self.writer:
                     self.writer.add_scalar('validation_loss', val_mean, epoch)
-                print(f"epoch {epoch}: validation loss {val_mean:.4f}",
+                self._log(f"epoch {epoch}: validation loss {val_mean:.4f}",
                       flush=True)
-            print(f"epoch {epoch}: loss {mean_loss:.4f} "
+            self._log(f"epoch {epoch}: loss {mean_loss:.4f} "
                   f"({time.time() - t_epoch:.1f}s)", flush=True)
 
             if save_every and (epoch + 1) % save_every == 0:
-                ckpt.save(self.output_dir, self.state, f'e{epoch + 1}',
-                          epoch + 1)
-        ckpt.save(self.output_dir, self.state, 'latest', n_epochs)
+                self._save(f'e{epoch + 1}', epoch + 1)
+        self._save('latest', n_epochs)
         return self.state
+
+    def _save(self, name, epoch):
+        """Rank 0 writes the checkpoint; every rank waits for it."""
+        if self.main:
+            ckpt.save(self.output_dir, self.state, name, epoch)
+        barrier(self.mesh)
