@@ -34,6 +34,10 @@ from test_torch_models import _jax_tiny_model, _perturb, tiny_cfg
 
 T = torch.from_numpy
 CPU2 = ["cpu", "cpu"]
+# a launch's deadline (the launch of ``ranked`` takes ~15 s alone, several
+# times that beside the rest of the suite); a hung collective raises after
+# the launcher's own 60 s a collective
+LAUNCH_S = 300
 PIPE_KW = dict(k=64, nms_size=4, detection_threshold=1e-4)
 HA_CFG = {"num": 4, "aggregation": "prod", "min_count": 1,
           "erosion_radius": 2}
@@ -115,7 +119,7 @@ def ranked(inputs):
     send = {k: v for k, v in inputs.items()
             if k not in ("jm", "v", "tm", "ss2d_v")}
     return launch(ranks.parallel_cases, 2, args=(send,), devices=CPU2,
-                  timeout=600, threads=2)
+                  timeout=LAUNCH_S, threads=2)
 
 
 def test_ranks_form_one_mesh(ranked):
@@ -164,12 +168,23 @@ def test_default_backend_has_no_fallback(devices, want):
 
 def test_launcher_fails_fast_when_a_rank_raises():
     """Rank 1 raises while rank 0 waits in an all-reduce: the launch
-    raises with rank 1's traceback well before its 300 s deadline, and no
-    rank is left running."""
+    raises with rank 1's traceback well before its deadline, and no rank
+    is left running."""
     t0 = time.monotonic()
     with pytest.raises(RuntimeError, match="rank 1 fails on purpose"):
         launch(ranks.failing_rank, 2, args=("raise",), devices=CPU2,
-               timeout=300, threads=1)
+               timeout=LAUNCH_S, threads=1)
+    assert time.monotonic() - t0 < 120
+
+
+def test_launcher_raises_on_a_hung_collective():
+    """Rank 1 never reaches the all-reduce that rank 0 waits in: rank 0's
+    collective times out after its 15 s, and the launch raises with rank
+    0's traceback long before its deadline, killing rank 1."""
+    t0 = time.monotonic()
+    with pytest.raises(RuntimeError, match=r"rank\(s\) \[0\] failed"):
+        launch(ranks.failing_rank, 2, args=("hang",), devices=CPU2,
+               timeout=LAUNCH_S, collective_timeout=15, threads=1)
     assert time.monotonic() - t0 < 120
 
 
@@ -398,10 +413,12 @@ def test_sharded_export_equals_one_device(inputs, ranked):
 
 
 def test_export_entry_point_defaults_to_a_batch_of_the_ranks(tmp_path):
-    """cli.export_keypoints with --ranks 2 on the CPU (gloo) and no
-    --batch: batches of 2, sharded, rank 0 writing the file; the labels
-    equal the one-rank run with --batch 2."""
+    """cli.export_keypoints' rank path (``_export``, what ``main`` runs on
+    each of several GPUs) launched on 2 CPU ranks (gloo) with no --batch:
+    batches of 2, sharded, rank 0 writing the file; the labels equal the
+    one-rank run with --batch 2. On the CPU ``main`` runs one rank."""
     from xpoint_tpu_torch.cli import export_keypoints as cli
+    from xpoint_tpu_torch.cli._common import rank_count
     from xpoint_tpu_torch.config import save_yaml
     from xpoint_tpu_torch.data.group_file import open_group_file
     from xpoint_tpu_torch.tools import make_mini_corpus as corpus
@@ -421,9 +438,11 @@ def test_export_entry_point_defaults_to_a_batch_of_the_ranks(tmp_path):
     yaml_path = str(tmp_path / "export.yaml")
     save_yaml(cfg, yaml_path)
     argv = ["-y", yaml_path, "-m", model_dir, "--device", "cpu", "-s", "3"]
-    assert cli.parse_args(argv + ["-o", "x"]).ranks is None
-    assert cli.main(argv + ["-o", str(tmp_path / "two.npz"), "--ranks",
-                            "2"]) == 2
+    assert cli.parse_args(argv + ["-o", "x"]).batch is None
+    assert rank_count(cli.parse_args(argv + ["-o", "x"])) == 1
+    assert launch(cli._export, 2, args=(cli.parse_args(
+        argv + ["-o", str(tmp_path / "two.npz")]),), devices=CPU2,
+        timeout=LAUNCH_S, threads=2) == 2
     assert cli.main(argv + ["-o", str(tmp_path / "one.npz"), "--batch",
                             "2"]) == 2
     with open_group_file(str(tmp_path / "two.npz")) as a, \

@@ -40,6 +40,10 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 T = torch.from_numpy
 CPU2 = ["cpu", "cpu"]
+# a launch's deadline (``ranked`` takes ~30 s alone, several times that
+# beside the rest of the suite); a hung collective raises after the
+# launcher's own 60 s a collective
+LAUNCH_S = 400
 FLAGSHIP_LOSS = dict(VMAMBA_TRAIN_CFG["loss"], space_to_depth_ratio=8)
 BLENDED_LOSS = dict(FLAGSHIP_LOSS,
                     detector_loss_function="cross_entropy_focal_blended",
@@ -187,7 +191,7 @@ def ranked(cases, resident_inputs, trainer_init, tmp_path_factory):
            "trainer": {"cfg": cfg, "sd": sd,
                        "root": str(tmp_path_factory.mktemp("dp_trainer"))}}
     return launch(ranks.train_cases, 2, args=(inp,), devices=CPU2,
-                  timeout=900, threads=2)
+                  timeout=LAUNCH_S, threads=2)
 
 
 _ONE_DEVICE = {}
@@ -208,14 +212,14 @@ def _one_device_run(case):
     step = make_train_step(tm, XPointLoss(case["loss"]),
                            takes_pair=case["pair"])
     gen = torch.Generator().manual_seed(case["gen_seed"])
-    comps, first = [], None
+    comps, mus, buffers = [], [], None
     for b in case["batches"]:
         comps.append({k: float(v) for k, v in step(
             state, ranks._torch_tree(b), gen).items()})
-        if first is None:
-            first = {"mu": state.optimizer.mu.clone(),
-                     "buffers": {k: v.clone() for k, v in tm.named_buffers()}}
-    return comps, ranks._state(state), first
+        mus.append(state.optimizer.mu.clone())
+        if buffers is None:
+            buffers = {k: v.clone() for k, v in tm.named_buffers()}
+    return comps, ranks._state(state), mus, buffers
 
 
 def _trees(case, state):
@@ -228,6 +232,26 @@ def _trees(case, state):
     mu = {n: t.view_as(p) for n, t, (_, p) in zip(
         names, state["mu"].split(sizes), tm.named_parameters())}
     return to_flax(tm), state_dict_to_flax(mu)["params"]
+
+
+def _grads(case, state, mus):
+    """Each step's gradient as a flax tree, from Adam's mu after it
+    (mu_t = 0.9 mu_(t-1) + 0.1 g_t)."""
+    out, prev = [], torch.zeros_like(mus[0])
+    for mu in mus:
+        out.append(_trees(case, dict(state, mu=(mu - 0.9 * prev) / 0.1))[1])
+        prev = mu
+    return out
+
+
+def _norm_ratio(a, b, c=None):
+    """|a - b| / |b - c| over all leaves of the flat dicts (c: zero)."""
+    num = sum(float(np.sum((np.asarray(a[k]) - np.asarray(b[k])) ** 2))
+              for k in b)
+    den = sum(float(np.sum((np.asarray(b[k]) - (0 if c is None
+                                                 else np.asarray(c[k])))
+                           ** 2)) for k in b)
+    return (num / den) ** 0.5
 
 
 def _ratio_tol(batch, pair):
@@ -251,10 +275,13 @@ def test_dp_step_matches_jax_two_devices(name, cases, ranked):
     and the
     BatchNorm statistics (both kinds: the E[x^2] - E[x]^2 and the
     two-pass form, over the global batch) within 1e-5 of their leaf's max
-    + 1e-6; after step 2 the parameters within 4 lr absolute (Adam moves
-    an element whose gradient is roundoff-sized by up to lr a step,
-    either sign, on either side) and the statistics within 1e-3 of their
-    leaf's max + 4 lr. The state is equal on both ranks."""
+    + 1e-6; step 2's gradient (from mu: mu_2 - 0.9 mu_1 = 0.1 g_2) within
+    1e-2 of its leaf's max + 5e-7 of the largest (the parameters it is
+    taken at differ by up to 2 lr on the elements whose step-1 gradient
+    was roundoff, which Adam moves by lr either way); the update of the
+    2 steps within 0.1 of its norm (|dtheta_port - dtheta_jax| /
+    |dtheta_jax|, the same elements), and the statistics within 1e-3 of
+    their leaf's max + 4 lr. The state is equal on both ranks."""
     from xpoint_tpu.losses.xpoint_loss import XPointLoss as JxXPointLoss
     from xpoint_tpu.parallel import make_mesh, replicate, shard_batch
     from xpoint_tpu.parallel.train_step import TrainState as JxTrainState
@@ -271,11 +298,14 @@ def test_dp_step_matches_jax_two_devices(name, cases, ranked):
     got = ranked["dp"][name]
     assert got["same_on_every_rank"]
     lr = case["lr"]
+    grads = _grads(case, got["state"], got["mus"])
+    jmu = []
     for i, batch in enumerate(case["batches"][:2]):
         with mesh:
             jstate, jc = jstep(jstate, shard_batch(
                 jax.tree.map(jnp.asarray, batch), mesh),
                 jax.random.PRNGKey(i))
+        jmu.append(jax.device_get(jstate.opt_state[0].mu))
         tc = got["comps"][i]
         assert tc["skipped_nonfinite"] == 0.0
         if i == 0:
@@ -284,9 +314,9 @@ def test_dp_step_matches_jax_two_devices(name, cases, ranked):
                 tol = (_ratio_tol(batch, case["pair"]) if "ratio" in k
                        else 1e-5 * abs(float(jc[k])) + 1e-6)
                 assert abs(tc[k] - float(jc[k])) <= tol, k
-            _, mu = _trees(case, dict(got["state"], mu=got["mu_first"]))
-            _assert_trees_close(mu, jax.device_get(jstate.opt_state[0].mu),
-                                3e-4, "gradients (mu / 0.1)", floor=5e-7)
+            _assert_trees_close(grads[0], jax.tree.map(
+                lambda m: m / 0.1, jmu[0]), 3e-4, "step 1's gradient",
+                floor=5e-7)
             stats = jax.device_get(jstate.batch_stats)
             if stats:
                 tm = build_xpoint(case["cfg"], device="cpu")[0]
@@ -295,13 +325,15 @@ def test_dp_step_matches_jax_two_devices(name, cases, ranked):
                 _assert_trees_close(to_flax(tm)["batch_stats"], stats, 1e-5,
                                     "batch_stats after step 1",
                                     floor=1e-6 / top)
+    _assert_trees_close(grads[1], jax.tree.map(
+        lambda m2, m1: (m2 - 0.9 * m1) / 0.1, jmu[1], jmu[0]), 1e-2,
+        "step 2's gradient", floor=5e-7)
     variables, _ = _trees(case, got["state"])
     a = {"/".join(k): x for k, x in _flat(variables["params"])}
     b = {"/".join(k): np.asarray(x) for k, x in _flat(jstate.params)}
+    b0 = {"/".join(k): np.asarray(x) for k, x in _flat(v["params"])}
     assert set(a) == set(b)
-    for k in b:
-        np.testing.assert_allclose(a[k], b[k], rtol=0, atol=4 * lr,
-                                   err_msg=k)
+    assert _norm_ratio(a, b, b0) <= 0.1
     stats = jax.device_get(jstate.batch_stats)
     if stats:
         top = max(float(np.abs(x).max()) for _, x in _flat(stats))
@@ -333,12 +365,16 @@ def test_dp_matches_one_device(name, cases, ranked):
     1e-5 of its largest + 1e-7. With DropPath 0.2 and RegNet's two
     Dropout(0.5) this holds only if every rank keeps its rows of the
     global batch's masks. After step 2: the components within 1e-4
-    relative, the parameters within 4 lr (Adam moves an element whose
-    gradient is roundoff-sized, a bias before a train-mode BatchNorm, by
-    up to lr a step either way on either side) and the statistics within
-    1e-4 of their largest + 4 lr; the Adam count equal."""
+    relative; step 2's gradient (from mu) within 0.1 of its norm, as one
+    vector (the parameters it is taken at differ by up to 2 lr on the
+    elements whose step-1 gradient was roundoff, a bias before a
+    train-mode BatchNorm, which Adam moves by lr either way; through a
+    ReLU or a near-tied argmax that moves the plain-BN CNN's by 1.8%);
+    the update of the 2 steps within 0.1 of its norm (|dtheta_dp -
+    dtheta_one| / |dtheta_one|) and the statistics within 1e-4 of their
+    largest + 4 lr; the Adam count equal."""
     case, _ = cases[name]
-    comps, state, first = _one_device(case)
+    comps, state, mus, buffers = _one_device(case)
     got = ranked["dp"][name]
     for i, (tc, oc) in enumerate(zip(got["comps"], comps)):
         assert set(tc) == set(oc)
@@ -350,22 +386,26 @@ def test_dp_matches_one_device(name, cases, ranked):
                    if "ratio" in k
                    else (1e-5 if i == 0 else 1e-4) * abs(oc[k]) + 1e-6)
             assert abs(tc[k] - oc[k]) <= tol, (i, k)
-    _, mu_got = _trees(case, dict(got["state"], mu=got["mu_first"]))
-    _, mu_one = _trees(case, dict(state, mu=first["mu"]))
-    _assert_trees_close(mu_got, mu_one, 3e-5, "gradients (mu / 0.1)",
+    g_got = _grads(case, got["state"], got["mus"])
+    g_one = _grads(case, state, mus)
+    _assert_trees_close(g_got[0], g_one[0], 3e-5, "step 1's gradient",
                         floor=5e-7)
-    for k, t in first["buffers"].items():
+    assert _norm_ratio(dict(_flat(g_got[1])), dict(_flat(g_one[1]))) <= 0.1
+    for k, t in buffers.items():
         np.testing.assert_allclose(
             got["buffers_first"][k].numpy(), t.numpy(), rtol=0,
             atol=1e-5 * float(t.abs().max()) + 1e-7, err_msg=k)
     lr = case["lr"]
     params = dict(build_xpoint(case["cfg"], device="cpu")[0]
                   .named_parameters())
+    assert _norm_ratio({k: got["state"]["module"][k].numpy() for k in params},
+                       {k: state["module"][k].numpy() for k in params},
+                       {k: case["sd"][k].numpy() for k in params}) <= 0.1
     for k, t in state["module"].items():
-        atol = 4 * lr + (1e-6 if k in params
-                         else 1e-4 * float(t.abs().max()))
-        np.testing.assert_allclose(got["state"]["module"][k].numpy(),
-                                   t.numpy(), rtol=0, atol=atol, err_msg=k)
+        if k not in params:
+            np.testing.assert_allclose(
+                got["state"]["module"][k].numpy(), t.numpy(), rtol=0,
+                atol=4 * lr + 1e-4 * float(t.abs().max()), err_msg=k)
     assert got["state"]["count"] == state["count"]
 
 
@@ -389,7 +429,7 @@ def test_dp_blended_ratio_is_global(cases, ranked):
     straddle the threshold; the diagnostic ratios are the global batch's
     (one cell)."""
     case, _ = cases["cnn_blended"]
-    comps, _, _ = _one_device(case)
+    comps = _one_device(case)[0]
     got = ranked["dp"]["cnn_blended"]["comps"]
     for i in range(2):
         assert abs(got[i]["loss"] - comps[i]["loss"]) <= \
@@ -461,10 +501,14 @@ def test_trainer_two_ranks_matches_jax_two_devices(trainer_init, ranked,
     """The Trainer on 2 ranks against the JAX Trainer with n_devices=2
     (two epochs of 2 steps, batch 4 of 8 samples, a validation pass over
     4): the first step's loss within 1e-5 relative, every later step's
-    and each validation loss within 1e-4 relative, parameters within 4
-    steps x lr and BatchNorm statistics within 1e-4 of their leaf's max +
-    4 lr (test_torch_trainer.py's tolerances); rank 0 alone wrote the
-    files; the state is equal on both ranks."""
+    and each validation loss within 1e-4 relative, Adam's mu after the 4
+    steps (every step's gradient, weighed 0.1, 0.09, 0.081, 0.073) within
+    1e-3 of its norm as one vector, the update of the 4 steps within 0.1
+    of its norm (|dtheta_port - dtheta_jax| / |dtheta_jax|: Adam moves
+    the roundoff-sized elements by lr either way) and BatchNorm
+    statistics within 1e-4 of their leaf's max + 4 lr
+    (test_torch_trainer.py's tolerances); rank 0 alone wrote the files;
+    the state is equal on both ranks."""
     import xpoint_tpu.trainer as jx_trainer
     jt, _, cfg = trainer_init
     losses = {"train": [], "val": []}
@@ -480,6 +524,7 @@ def test_trainer_two_ranks_matches_jax_two_devices(trainer_init, ranked,
         losses["val"].append(float(out[0]))
         return out
     jt.train_step, jt.eval_step = rec_t, rec_v
+    b0 = dict(_flat(jax.device_get(jt.state.params)))
     jstate = jt.train()
     got = ranked["trainer"]
     assert len(got["losses"]["train"]) == len(losses["train"]) == 4
@@ -497,9 +542,10 @@ def test_trainer_two_ranks_matches_jax_two_devices(trainer_init, ranked,
     a = dict(_flat(mine["params"]))
     b = dict(_flat(jax.device_get(jstate.params)))
     assert set(a) == set(b)
-    for k in b:
-        np.testing.assert_allclose(a[k], b[k], rtol=0, atol=4 * LR,
-                                   err_msg=str(k))
+    assert _norm_ratio(a, b, b0) <= 0.1
+    _, mu = _trees({"cfg": cfg["model"]}, got["state"])
+    assert _norm_ratio(dict(_flat(mu)), dict(_flat(jax.device_get(
+        jstate.opt_state[0].mu)))) <= 1e-3
     a = dict(_flat(mine["batch_stats"]))
     b = dict(_flat(jax.device_get(jstate.batch_stats)))
     for k in b:
@@ -520,30 +566,49 @@ def test_trainer_two_ranks_resume_is_bit_equal(ranked):
 
 
 def test_train_entry_point_on_two_ranks(tmp_path):
-    """cli.train with --ranks 2 on the CPU (gloo): the full cycle's
+    """cli.train's rank path (``_train``, what ``main`` runs on each of
+    several GPUs) launched on 2 CPU ranks (gloo): the full cycle's
     synthetic-pretrain config (two CNN encoders, per-spectrum statistics,
-    global batch 4), two epochs. Rank 0 alone wrote params.yaml and
-    latest.pt (epoch 2, step 4); against one rank, every parameter within
-    Adam's bound 2 x 4 x 1.004 lr (an element whose gradient is
-    roundoff-sized moves by up to 1.004 lr a step in Adam's first steps,
-    either way, on either side; the bit-equal resume on 2 ranks is
-    test_trainer_two_ranks_resume_is_bit_equal's)."""
+    global batch 4) for two epochs of one step, saving every epoch. Rank 0
+    alone wrote the files; latest.pt is epoch 2, step 2. Against one rank
+    (``main`` on the CPU), e1.pt's Adam moments, which are the first
+    step's gradient (mu = 0.1 g, nu = 0.001 g^2), within 1e-4 of their
+    leaf's max + 1e-6 of the largest: a rank that kept its own half-batch
+    gradient is off by a large part of the leaf. latest.pt's mu (0.09 g_1
+    + 0.1 g_2) within 0.1 of its norm, as one vector: in this config two
+    one-rank runs whose sums differ only in order (another thread count)
+    drift apart within a few steps, Adam moving each roundoff-sized
+    element by lr either way, so step 2 is held loosely; the later steps'
+    agreement is the Trainer tests' (per-step losses within 1e-4)."""
     from test_torch_cli import _train_setup
     from xpoint_tpu_torch.cli import train
-    from xpoint_tpu_torch.config import load_yaml
+    from xpoint_tpu_torch.cli._common import rank_count
     cfg = _train_setup(tmp_path)
+    with open(cfg) as f:
+        body = f.read()
+    assert "save_every_n_epoch: 0" in body
+    with open(cfg, "w") as f:
+        f.write(body.replace("save_every_n_epoch: 0", "save_every_n_epoch: 1"))
     two, one = str(tmp_path / "two"), str(tmp_path / "one")
-    assert train.main(["-y", cfg, "-o", two, "--device", "cpu",
-                       "--ranks", "2"]) is None
-    assert sorted(os.listdir(two)) == ["latest.pt", "params.yaml"]
-    trainer = train.main(["-y", cfg, "-o", one, "--device", "cpu"])
-    a = torch.load(os.path.join(two, "latest.pt"), weights_only=True)
-    b = torch.load(os.path.join(one, "latest.pt"), weights_only=True)
-    assert a["epoch"] == b["epoch"] == 2 and int(a["step"]) == 4
-    lr = float(load_yaml(cfg)["training"]["learningrate"])
-    params = dict(trainer.module.named_parameters())
-    assert set(a["module"]) == set(b["module"])
-    for k in params:
-        np.testing.assert_allclose(a["module"][k].numpy(),
-                                   b["module"][k].numpy(), rtol=0,
-                                   atol=2 * 4 * 1.004 * lr, err_msg=k)
+    argv = ["-y", cfg, "--device", "cpu", "--max-steps", "1"]
+    assert rank_count(train.parse_args(argv)) == 1
+    assert launch(train._train, 2, args=(train.parse_args(argv + ["-o", two]),
+                                         False),
+                  devices=CPU2, timeout=LAUNCH_S, threads=2) is None
+    assert sorted(os.listdir(two)) == ["e1.pt", "e2.pt", "latest.pt",
+                                       "params.yaml"]
+    train.main(argv + ["-o", one])
+    last = torch.load(os.path.join(two, "latest.pt"), weights_only=True)
+    last_one = torch.load(os.path.join(one, "latest.pt"), weights_only=True)
+    assert last["epoch"] == 2 and int(last["step"]) == 2
+    assert _norm_ratio(last["opt_state"]["mu"],
+                       last_one["opt_state"]["mu"]) <= 0.1
+    a = torch.load(os.path.join(two, "e1.pt"), weights_only=True)
+    b = torch.load(os.path.join(one, "e1.pt"), weights_only=True)
+    assert a["epoch"] == b["epoch"] == 1 and int(a["step"]) == 1
+    assert int(a["opt_state"]["count"]) == int(b["opt_state"]["count"]) == 1
+    for moment in ("mu", "nu"):
+        _assert_trees_close(
+            {k: v.numpy() for k, v in a["opt_state"][moment].items()},
+            {k: v.numpy() for k, v in b["opt_state"][moment].items()},
+            1e-4, f"Adam's {moment} after step 1", floor=1e-6)

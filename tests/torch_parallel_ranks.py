@@ -164,23 +164,24 @@ def _state(state):
 
 def dp_steps(case, mesh):
     """``case``'s global batches through make_train_step on ``mesh`` (this
-    rank's rows of each): the components of every step and the state."""
+    rank's rows of each): the components and Adam's mu of every step, and
+    the state."""
     tm, _ = build_xpoint(case["cfg"], device=mesh.device)
     tm.load_state_dict(case["sd"])
     state = TrainState(tm, make_optimizer({"learningrate": case["lr"]})[0])
     step = make_train_step(tm, XPointLoss(case["loss"]),
                            takes_pair=case["pair"], mesh=mesh)
     gen = torch.Generator().manual_seed(case["gen_seed"])
-    comps, mu_first = [], None
+    comps, mus = [], []
     for batch in case["batches"]:
         c = step(state, shard_batch(_torch_tree(batch), mesh), gen)
         comps.append({k: float(v) for k, v in c.items()})
-        if mu_first is None:
-            mu_first = state.optimizer.mu.clone()
+        mus.append(state.optimizer.mu.clone())
+        if len(mus) == 1:
             buffers_first = {k: v.clone() for k, v in tm.named_buffers()}
     flat = torch.cat([p.detach().reshape(-1) for p in state.params]
                      + [b.reshape(-1) for b in tm.buffers()])
-    return {"comps": comps, "state": _state(state), "mu_first": mu_first,
+    return {"comps": comps, "state": _state(state), "mus": mus,
             "buffers_first": buffers_first,
             "same_on_every_rank": same_on_every_rank(flat, mesh)}
 

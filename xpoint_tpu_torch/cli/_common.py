@@ -28,11 +28,15 @@ KERNEL_COUNTERS = {
 }
 
 
+# an entry point's ranks: no whole-run deadline (training runs for
+# hours), a wait of at most this long in one collective
+CLI_COLLECTIVE_TIMEOUT_S = 600.0
+
+
 def rank_count(args):
-    """The ranks an entry point runs on: ``--ranks``, else every visible GPU
-    under a CUDA ``--device`` (one process and card each), else 1."""
-    if getattr(args, "ranks", None):
-        return int(args.ranks)
+    """The ranks an entry point runs on: every visible GPU under a CUDA
+    ``--device`` (one process and card each; ``CUDA_VISIBLE_DEVICES`` picks
+    them), else 1."""
     if str(args.device) == "cuda":
         import torch
         return max(1, torch.cuda.device_count())

@@ -3,7 +3,7 @@
 
     python -m xpoint_tpu_torch.cli.export_keypoints -y CONFIG.yaml \\
         -o LABELS.npz -m MODEL_DIR [-v latest] [-skip] [-f N] [-s SEED] \\
-        [--max-samples N] [--batch N] [--device cuda] [--ranks N]
+        [--max-samples N] [--batch N] [--device cuda]
 
 For every pair of the config's dataset: the HA warp -> forward -> unwarp ->
 aggregate program, NMS + threshold, and the keypoint coordinates written
@@ -15,18 +15,18 @@ the samples already in the file are not exported again; ``-f N`` copies the
 file to ``<file>.bak`` every N batches. One homography stack is drawn per
 batch from ``np.random.default_rng(seed)``. Runs on the card unless
 ``--device`` says otherwise, on every visible GPU, one rank each (as the
-JAX CLI shards over every chip; ``--ranks`` sets the number, and on the
-CPU the ranks join over gloo): batches of ``--batch`` samples (default
+JAX CLI shards over every chip): batches of ``--batch`` samples (default
 the number of ranks, rounded down to a multiple of it) run sharded over
 the ranks, the remainder batch unsharded, and rank 0 alone writes the
-file. With one rank it is the one-device export.
+file. With one GPU, or on the CPU, it is the one-device export.
 """
 import argparse
 import os
 
 from ..parallel.launch import launch
 from ..parallel.mesh import make_mesh
-from ._common import load_eval_setup, rank_count, report_at_exit, set_seeds
+from ._common import (CLI_COLLECTIVE_TIMEOUT_S, load_eval_setup,
+                      rank_count, report_at_exit, set_seeds)
 
 
 def parse_args(argv=None):
@@ -51,10 +51,6 @@ def parse_args(argv=None):
                              'ranks)')
     parser.add_argument('--device', default='cuda',
                         help='torch device of the model (default: cuda)')
-    parser.add_argument('--ranks', default=None, type=int,
-                        help='Ranks, one process and device each (default: '
-                             'every visible GPU under --device cuda, 1 on '
-                             'the CPU)')
     return parser.parse_args(argv)
 
 
@@ -64,9 +60,8 @@ def main(argv=None):
     args = parse_args(argv)
     n = rank_count(args)
     if n > 1:
-        return launch(_export, n, args=(args,),
-                      devices=None if args.device == 'cuda'
-                      else [args.device] * n)
+        return launch(_export, n, args=(args,), timeout=None,
+                      collective_timeout=CLI_COLLECTIVE_TIMEOUT_S)
     return _export(args)
 
 

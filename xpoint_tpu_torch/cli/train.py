@@ -2,7 +2,7 @@
 reference train.py CLI).
 
     python -m xpoint_tpu_torch.cli.train -y CONFIG.yaml [-o DIR] [-e N]
-        [--max-steps N] [--resume] [-w WEIGHTS] [--device cuda] [--ranks N]
+        [--max-steps N] [--resume] [-w WEIGHTS] [--device cuda]
 
 The ``Trainer`` writes ``params.yaml``, ``e{N}.pt`` every
 ``save_every_n_epoch`` epochs and ``latest.pt`` at the end into the output
@@ -11,14 +11,13 @@ this package or a reference checkpoint (``.model`` / ``.pth`` / ``.pt``,
 told apart by their keys: ``Trainer.load_weights``); orbax ``.ckpt``
 directories of the JAX package are not read. Runs on the card unless
 ``--device`` says otherwise, data parallel over every visible GPU, one rank
-each, as the JAX CLI uses every chip (``--ranks`` sets the number; on the
-CPU the ranks join over gloo); ``training: batchsize`` is the global batch.
-With one rank it is the one-device trainer.
+each, as the JAX CLI uses every chip; ``training: batchsize`` is the global
+batch. With one GPU, or on the CPU, it is the one-device trainer.
 """
 import argparse
 
 from ..parallel.launch import launch
-from ._common import rank_count, report_at_exit
+from ._common import CLI_COLLECTIVE_TIMEOUT_S, rank_count, report_at_exit
 
 
 def parse_args(argv=None):
@@ -39,10 +38,6 @@ def parse_args(argv=None):
                              'strict=False semantics)')
     parser.add_argument('--device', default='cuda',
                         help='torch device of the model (default: cuda)')
-    parser.add_argument('--ranks', default=None, type=int,
-                        help='Ranks, one process and device each (default: '
-                             'every visible GPU under --device cuda, 1 on '
-                             'the CPU)')
     return parser.parse_args(argv)
 
 
@@ -51,8 +46,8 @@ def main(argv=None):
     args = parse_args(argv)
     n = rank_count(args)
     if n > 1:
-        launch(_train, n, args=(args, False),
-               devices=None if args.device == 'cuda' else [args.device] * n)
+        launch(_train, n, args=(args, False), timeout=None,
+               collective_timeout=CLI_COLLECTIVE_TIMEOUT_S)
         return None
     return _train(args)
 

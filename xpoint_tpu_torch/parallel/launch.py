@@ -19,10 +19,12 @@ choice: default ``nccl`` when every rank has a CUDA device of its own,
 one card) must name its backend, and a backend is never switched on
 failure.
 
-A launch fails, it never hangs: the process group gets ``timeout``, the
-ranks are joined against a deadline of ``timeout`` seconds, and when one
-rank dies (or the deadline passes) the others are killed and the error is
-raised with the dead rank's traceback.
+A launch fails, it never hangs: each collective (and the group's
+rendezvous) raises after ``collective_timeout`` seconds, so a rank waiting
+on a peer that never comes dies quickly; the ranks are joined against a
+deadline of ``timeout`` seconds for the whole run; and when one rank dies
+(or the deadline passes) the others are killed and the error is raised
+with the dead rank's traceback.
 """
 import datetime
 import multiprocessing as mp
@@ -61,8 +63,8 @@ def _to_cpu(tree):
     return tree
 
 
-def _rank_main(rank, n, workdir, backend, devices, timeout, threads, fn,
-               args):
+def _rank_main(rank, n, workdir, backend, devices, collective_timeout,
+               threads, fn, args):
     try:
         torch.set_num_threads(threads)
         dev = torch.device(devices[rank])
@@ -70,7 +72,8 @@ def _rank_main(rank, n, workdir, backend, devices, timeout, threads, fn,
             torch.cuda.set_device(dev)
         dist.init_process_group(
             backend, init_method=f"file://{workdir}/store", rank=rank,
-            world_size=n, timeout=datetime.timedelta(seconds=timeout))
+            world_size=n,
+            timeout=datetime.timedelta(seconds=collective_timeout))
         _mesh._set_rank_devices(devices)
         out = fn(*args)
         if rank == 0:
@@ -84,11 +87,14 @@ def _rank_main(rank, n, workdir, backend, devices, timeout, threads, fn,
 
 
 def launch(fn, n, args=(), devices=None, backend=None, timeout=600.0,
-           threads=None):
+           collective_timeout=60.0, threads=None):
     """Run ``fn(*args)`` on ``n`` ranks; return rank 0's result (tensors
     moved to the CPU). ``devices``: one device a rank, default
-    ``cuda:0..n-1`` (raises if fewer CUDA devices exist). ``threads``: CPU
-    threads a rank (default: the host's cores shared out)."""
+    ``cuda:0..n-1`` (raises if fewer CUDA devices exist). ``timeout``: the
+    seconds the whole run may take (None: no deadline, for a run as long
+    as training); ``collective_timeout``: the seconds a rank may wait in
+    one collective. ``threads``: CPU threads a rank
+    (default: the host's cores shared out)."""
     if devices is None:
         have = torch.cuda.device_count() if torch.cuda.is_available() else 0
         if have < n:
@@ -103,12 +109,14 @@ def launch(fn, n, args=(), devices=None, backend=None, timeout=600.0,
     workdir = tempfile.mkdtemp(prefix="xpoint_launch_")
     ctx = mp.get_context("spawn")
     procs = [ctx.Process(target=_rank_main, args=(
-        r, n, workdir, backend, devices, timeout, threads, fn, args))
+        r, n, workdir, backend, devices, collective_timeout, threads, fn,
+        args))
         for r in range(n)]
     try:
         for p in procs:
             p.start()
-        deadline = time.monotonic() + timeout
+        deadline = time.monotonic() + (float("inf") if timeout is None
+                                        else timeout)
         while True:
             codes = [p.exitcode for p in procs]
             dead = [r for r, c in enumerate(codes) if c not in (None, 0)]
