@@ -158,7 +158,8 @@ data path, in a scratch directory under build/ that is removed at the end:
      device, the host's ms a sample in a
      worker, os.cpu_count(), samples/s, peak memory, idle share against
      one profiled step and against the loop; then a straight run and one
-     resumed from its e1, cuDNN deterministic, bit for bit;
+     resumed from its e1, cuDNN deterministic, bit for bit; the host's
+     homographic augmentation runs the native engine (the default path);
  20. evaluation at full width: cv2's version (USAC_MAGSAC must exist);
      phase 19's flagship, loaded from its directory by model_io.load_model
      (-v latest, the hm head dropped by configs/cipdp.yaml's
@@ -315,7 +316,41 @@ data path, in a scratch directory under build/ that is removed at the end:
      shapes (B=8), K1 at a rank's serving shapes (B=4), K2 on a rank's
      heatmaps and K6 on a rank's ring block against their plain versions,
      with times; ms a step a rank and pairs/s beside the card's name and
-     power limit;
+     power limit; (a) also one data-parallel step in fp32: step 1's
+     gradient within MD_FP32_GRAD_TOL of one rank's as one vector, and
+     leaf by leaf within MD_FP32_LEAF_TOL of one rank computing with the
+     ranks' rounding and no collective (_RankArithmetic: convolutions,
+     products and BatchNorm sums on the ranks' slices of the batch), the
+     worst leaves of each comparison named; (g) Trainer(n_devices=1) on
+     every rank of the launch: rank 0 trains MD_SUB_STEPS steps and ends
+     bit for bit where the one-rank Trainer in this process ends (cuDNN
+     deterministic), rank 1 takes no step and issues no collective;
+ 30. the measuring tools and the last CLIs at full width (the flagship,
+     512^2, B=8): (a) eval.benchmark.model_cost of one pair forward, FLOPs
+     and bytes a pair, its K1 terms equal to the bound's formulas at the
+     serving shapes (and to phase 2's bound); (b) tools.roofline: a row a
+     stage of one encoder pass (patch embed, each stage's blocks and one
+     block's SS2D, downsamples, heads) with its bound from the H100's
+     peaks and an exp rate calibrated here, no stage above 105% of its
+     bound; (c) tools.stage_table: host-staged at B=1 and on the device at
+     B=8, the on-device stages summing to phase 3's call time (measured
+     again just before: the host's speed drifts over a run) within 25%;
+     (d) a torch.profiler trace of 3 pipeline calls through
+     tools.parse_trace: 16 K1 and 1 K2 launches a call by kernel name,
+     equal to the wrappers' counts; (e) tools.op_sweep on phase 20's
+     config, model and 32 pairs at two operating points, its processes
+     python -m xpoint_tpu_torch.cli.benchmark: the first (phase 20's)
+     gives phase 20's MAGSAC metrics; (f) the native augmentation engine
+     built with g++ on this host: homographic_augmentation through it and
+     through cv2 (XPOINT_NO_NATIVE=1) on 512^2 corpus images: the engine
+     within 2e-3 of float64 bilinear sampling with BORDER_REFLECT_101 on
+     every pixel; where the pixels sample inside the image, within cv2's
+     1/32-pixel rounding of cv2 (OpenCV's version printed); the masks
+     within 1% of cv2's; ms a sample each; one
+     epoch of phase 19's Trainer on each path, alternated, its loop's ms a
+     step beside its step's; (h) the show_* CLIs on phase 19's corpus and
+     labels (an .npz of groups) and SyntheticShapes, and
+     tools.make_multipoint_fixture as an .npz;
 then a details JSON line, the per-kernel JSON line, the card line and the
 final JSON line, and the whole script's wall time.
 """
@@ -333,8 +368,6 @@ import time
 import numpy as np
 import torch
 
-HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
-FP32_FLOP_PER_S = 67e12        # H100 SXM, fp32 outside the tensor cores
 B, H, W = 8, 512, 512
 N_CALLS = 5
 TRAIN_B, TRAIN_S = 16, 256     # the flagship training batch and crop
@@ -385,10 +418,13 @@ def queued_delay(dev):
     return lambda: [torch.mm(big, big) for _ in range(8)]
 
 
-def bound(nbytes, nflops):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nflops / FP32_FLOP_PER_S * 1e3
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+def bound(work):
+    """(ms, "bytes" or "operations"): the least time the card could take
+    for a kernel's ``work`` (xpoint_tpu_torch/kernels/cost.py counts it
+    from the shapes, for these bounds and for eval.benchmark.model_cost):
+    its bytes at the memory rate or its operations at the fp32 rate."""
+    from xpoint_tpu_torch.kernels import cost
+    return cost.bound_ms(work)
 
 
 def scan_operands(g, L, Dim, dev, batch=B):
@@ -410,6 +446,7 @@ def scan_operands(g, L, Dim, dev, batch=B):
 
 
 def phase_scan(dev, stages, blocks_per_stage, batch=B, tails=True):
+    from xpoint_tpu_torch.kernels import cost
     from xpoint_tpu_torch.ops.selective_scan_cuda import (
         selective_scan_bidir, selective_scan_bidir_plain)
     g = torch.Generator(device=dev).manual_seed(1)
@@ -440,8 +477,7 @@ def phase_scan(dev, stages, blocks_per_stage, batch=B, tails=True):
         launch_ms = cuda_ms(selective_scan_bidir, inputs[1:])
         plain_ms = cuda_ms(selective_scan_bidir_plain, inputs[1:3])
         M, G = batch * 2 * Dim, batch * 2
-        nbytes = 2 * (5 * L * M + 4 * L * G) + 3 * 4 * 4 * Dim
-        b_ms, b_by = bound(nbytes, 2 * 14 * L * M)
+        b_ms, b_by = bound(cost.scan_bidir(L, M, G, Dim))
         rows.append({"L": L, "Dim": Dim, "M": M, "max_abs_err": err,
                      "max_rel_err": rel, "finite": finite, "ms": ms,
                      "ms_with_host_launch": launch_ms, "plain_ms": plain_ms,
@@ -561,9 +597,9 @@ def phase_main_path(dev):
 
 
 def phase_nms(probs):
+    from xpoint_tpu_torch.kernels import cost
     from xpoint_tpu_torch.ops.nms import (_grid_nms_keep_cuda, box_nms_extract,
-                                          grid_nms_keep, grid_nms_keep_plain,
-                                          overlap_widths)
+                                          grid_nms_keep, grid_nms_keep_plain)
     valid = probs > 0.015
     before = grid_nms_keep.launches
     keep, sweeps = grid_nms_keep(probs, valid, 8, 0.1)
@@ -608,12 +644,9 @@ def phase_nms(probs):
     launch_ms = cuda_ms(_grid_nms_keep_cuda, args)
     plain_ms = cuda_ms(grid_nms_keep_plain, args[:3])
     n_px = probs.shape[0] * H * W
-    widths = overlap_widths(8, 0.1)
-    # comparisons a pixel a sweep: the running maxima over |dx| <= max_w, the
-    # combine over the rows with a strip, the test against p
-    compares = 2 * max(widths) + 2 * sum(w >= 0 for w in widths) - 1
-    b_ms, b_by = bound(n_px * (4 + 1 + 1), sweeps * n_px * compares)
-    sweep_bytes_ms = sweeps * n_px * (4 + 1 + 1) / HBM_BYTES_PER_S * 1e3
+    compares = cost.nms_compares(8, 0.1)
+    b_ms, b_by = bound(cost.nms(n_px, sweeps, 8, 0.1))
+    sweep_bytes_ms = sweeps * n_px * (4 + 1 + 1) / cost.HBM_BYTES_PER_S * 1e3
     res = {"planes": probs.shape[0], "sweeps": sweeps,
            "ramp_sweeps": ramp_sweeps, "valid_px": int(valid.sum()),
            "kept_px": int(keep.sum()), "ms": ms,
@@ -694,6 +727,7 @@ def phase_train_scan(dev, stages, launches_per_stage, batch=TRAIN_B,
     """K1 with checkpoints and K3 at the training stage shapes (``batch``
     samples), against their plain versions; times of one launch per stage
     shape; with ``tails``, the tail shapes too."""
+    from xpoint_tpu_torch.kernels import cost
     from xpoint_tpu_torch.ops.selective_scan_cuda import (
         selective_scan_bidir, selective_scan_bidir_bwd,
         selective_scan_bidir_bwd_plain, selective_scan_bidir_plain)
@@ -751,14 +785,8 @@ def phase_train_scan(dev, stages, launches_per_stage, batch=TRAIN_B,
         k3_plain = cuda_ms(selective_scan_bidir_bwd_plain,
                            [(*sets[1][0], *ckpts[1], *sets[1][1])])
         M, G = batch * 2 * Dim, batch * 2
-        nc = -(-L // 256)
-        # K1: u, dt_f, dt_r in, y_f, y_r out (bf16), compact B/C, fp32
-        # checkpoints out; K3: u, dt_f, dt_r, g_f, g_r, compact B/C and the
-        # checkpoints in, du, ddt_f, ddt_r and compact dB/dC out (bf16)
-        k1_b, k1_by = bound(2 * (5 * L * M + 4 * L * G) + 4 * 2 * nc * M,
-                            2 * 14 * L * M)
-        k3_b, k3_by = bound(2 * (8 * L * M + 8 * L * G) + 4 * 2 * nc * M,
-                            2 * 40 * L * M)
+        k1_b, k1_by = bound(cost.scan_bidir(L, M, G, Dim, emit_ckpt=True))
+        k3_b, k3_by = bound(cost.scan_bidir_bwd(L, M, G))
         rows.append({"L": L, "Dim": Dim, "M": M, "k3_rel_err": errs,
                      "k3_abs_err": abs_errs, "k3_bit_equal_repeat": same,
                      "k1_ckpt_rel_err": ck_err,
@@ -1074,6 +1102,7 @@ def phase_warp(dev, S=HA_S, n=HA_WB, calls=K4_CALLS, odd_size=True):
     import torch.nn.functional as F
     from xpoint_tpu_torch.geometry.homography import (
         compute_valid_mask_device)
+    from xpoint_tpu_torch.kernels import cost
     from xpoint_tpu_torch.ops.warp import (_source_coords_from_inverse,
                                            inverse_homographies,
                                            multi_source, warp_from_inverse)
@@ -1149,8 +1178,7 @@ def phase_warp(dev, S=HA_S, n=HA_WB, calls=K4_CALLS, odd_size=True):
             [(i[0], torch.linalg.inv(hs)) for i, hs in
              zip(inputs[1:], h_sets[1:])])
         n_src = inputs[0][0].numel()
-        b_ms, b_by = bound(4 * (n_src + out.numel() + 9 * n),
-                           out.numel() * 8 + n * S * S * 30)
+        b_ms, b_by = bound(cost.warp(n_src, out.numel(), n, S, S))
         rows.append({"call": name, "multi": multi, "mode": mode,
                      "padding": padding, "src": list(inputs[0][0].shape),
                      "out": list(out.shape), "max_abs_err": err,
@@ -1334,6 +1362,7 @@ def phase_fused_scan(dev, stages, blocks_per_stage, batch=B):
     """K5 against its plain version at the stage shapes of one path: limit
     2e-2 (one bf16 ulp), a second run on the same inputs bit for bit; device
     time behind queued work (``ms``) and with the host's launch path."""
+    from xpoint_tpu_torch.kernels import cost
     from xpoint_tpu_torch.ops.selective_scan_cuda import (
         selective_scan_fused_bkld, selective_scan_fused_bkld_plain)
     g = torch.Generator(device=dev).manual_seed(5)
@@ -1355,8 +1384,7 @@ def phase_fused_scan(dev, stages, blocks_per_stage, batch=B):
             launch_ms = cuda_ms(selective_scan_fused_bkld, inputs[1:])
             plain_ms = cuda_ms(selective_scan_fused_bkld_plain, inputs[1:3])
             M, G = batch * 4 * Dim, batch * 4
-            b_ms, b_by = bound(2 * (3 * L * M + 2 * L * G) + 3 * 4 * 4 * Dim,
-                               14 * L * M)
+            b_ms, b_by = bound(cost.scan_fused(L, M, G, Dim))
             rows.append({"L": L, "Dim": Dim, "M": M, "max_abs_err": err,
                          "bit_equal_repeat": same, "ms": ms,
                          "ms_with_host_launch": launch_ms,
@@ -1423,6 +1451,7 @@ def phase_linear_scan(dev, stages, blocks_per_stage, cases=None, n_sets=6):
     of the general (N > 1) scan; or at ``cases`` ((shape, scanned dim,
     launches a step in each direction, name)), with ``n_sets`` input sets
     (the first checked, the rest timed)."""
+    from xpoint_tpu_torch.kernels import cost
     from xpoint_tpu_torch.ops.linear_scan import (linear_scan_launch,
                                                   linear_scan_plain)
     g = torch.Generator(device=dev).manual_seed(7)
@@ -1441,7 +1470,7 @@ def phase_linear_scan(dev, stages, blocks_per_stage, cases=None, n_sets=6):
     for shape, dim, n_launch, name in cases:
         inputs = [recurrence_operands(g, shape, dev) for _ in range(n_sets)]
         L, M = shape[dim], math.prod(shape) // shape[dim]
-        b_ms, b_by = bound(12 * L * M, 2 * L * M)
+        b_ms, b_by = bound(cost.linear_scan(L, M))
         row = {"case": name, "shape": list(shape), "dim": dim, "L": L,
                "M": M, "bound_ms": b_ms, "bound_by": b_by,
                "launches_per_train_step": 2 * n_launch}
@@ -1901,9 +1930,9 @@ def k2_on(probs, size, min_prob, tag):
     the plain version (exact), then its device time behind queued work,
     the plain version's time and the bound, as phase 4 measures them. These
     launches are not the path's: its counts are read before."""
+    from xpoint_tpu_torch.kernels import cost
     from xpoint_tpu_torch.ops.nms import (_grid_nms_keep_cuda, grid_nms_keep,
-                                          grid_nms_keep_plain,
-                                          overlap_widths)
+                                          grid_nms_keep_plain)
     valid = probs > min_prob
     before = grid_nms_keep.launches
     keep, sweeps = grid_nms_keep(probs, valid, size, 0.1)
@@ -1918,10 +1947,7 @@ def k2_on(probs, size, min_prob, tag):
     args = [(probs, valid, size, 0.1)] * 5
     ms = cuda_ms_queued(_grid_nms_keep_cuda, args, queued_delay(probs.device))
     plain_ms = cuda_ms(grid_nms_keep_plain, args[:3])
-    n_px = probs.numel()
-    widths = overlap_widths(size, 0.1)
-    compares = 2 * max(widths) + 2 * sum(w >= 0 for w in widths) - 1
-    b_ms, b_by = bound(n_px * (4 + 1 + 1), sweeps * n_px * compares)
+    b_ms, b_by = bound(cost.nms(probs.numel(), sweeps, size, 0.1))
     res = {"planes": probs.shape[0], "shape": list(probs.shape),
            "size": size, "sweeps": sweeps, "launches": launches,
            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
@@ -3583,6 +3609,17 @@ MD_UPDATE_TOL = 0.2
 MD_MATCH_JACCARD = 0.8
 MD_EXPORT_HA = {"num": 10, "aggregation": "window", "min_count": 2,
                 "erosion_radius": 5, "mask_border": True}
+# (a) in fp32, step 1's gradient. Against one rank as one vector: over
+# five global batches on an NVIDIA H100 80GB HBM3 at 700 W it read 4.1e-6
+# to 1.1e-4; a rank's own half-batch gradient reads 0.65. By leaf it read
+# up to 7.1e-3 against one rank (RegNet's conv1), and so did one rank
+# computing with the ranks' rounding (_RankArithmetic: 7.1e-3 on the same
+# leaves, from its convolutions and products at the ranks' shapes alone;
+# its BatchNorm sums alone move them 1.3e-5). Against that computation,
+# leaf by leaf: 5.4e-6 on the phase's batch.
+MD_FP32_GRAD_TOL = 1e-3
+MD_FP32_LEAF_TOL = 2e-3
+MD_SUB_STEPS = 2                 # (g): Trainer(n_devices=1)'s steps
 
 
 def md_placement():
@@ -3600,22 +3637,27 @@ def _md_indices():
     return [rng.permutation(32)[:TRAIN_B] for _ in range(MD_STEPS)]
 
 
-def _md_steps(dev, mesh=None, sync_check=False):
-    """MD_STEPS flagship train steps (phase 7's step, on ``mesh`` when
-    given) on the global batches of _md_indices: components, ms, launches
-    (counts zeroed just before, read just after) and the gradient of each
-    step (from Adam's mu: mu_t = 0.9 mu_(t-1) + 0.1 g_t), the running
-    statistics after step 1, and the parameters before and after."""
+def _md_steps(dev, mesh=None, sync_check=False, fp32=False,
+              n_steps=MD_STEPS, indices=None):
+    """``n_steps`` flagship train steps (phase 7's step, on ``mesh`` when
+    given; with ``fp32`` its mixed precision off) on the global batches
+    ``indices`` (default _md_indices): components, ms, launches (counts
+    zeroed just before, read just after) and the gradient of each step
+    (from Adam's mu: mu_t = 0.9 mu_(t-1) + 0.1 g_t), the running
+    statistics after step 1, and the parameters before and after. ``dev``
+    may be the CPU (the fences are then no-ops)."""
+    fence = ((lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda"
+             else (lambda: None))
     from xpoint_tpu_torch.train.profile_step import flagship_train
-    state, step, data, meta = flagship_train(dev, mesh=mesh)
+    state, step, data, meta = flagship_train(dev, mesh=mesh, fp32=fp32)
     opt = state.optimizer
     gen = torch.Generator(device=dev).manual_seed(0)
     theta0 = torch.cat([p.detach().reshape(-1) for p in opt.params]).cpu()
     comps, ms, launches, grads, buffers = [], [], [], [], None
     mu_prev = torch.zeros_like(opt.mu)
-    for idx in _md_indices():
+    for idx in (_md_indices() if indices is None else indices)[:n_steps]:
         idx = torch.from_numpy(idx).to(dev)
-        torch.cuda.synchronize(dev)
+        fence()
         read = _zero_counts()
         t0 = time.perf_counter()
         if sync_check:
@@ -3623,8 +3665,9 @@ def _md_steps(dev, mesh=None, sync_check=False):
         try:
             c = step(state, {"data": data, "idx": idx}, gen)
         finally:
-            torch.cuda.set_sync_debug_mode(0)
-        torch.cuda.synchronize(dev)
+            if sync_check:
+                torch.cuda.set_sync_debug_mode(0)
+        fence()
         ms.append((time.perf_counter() - t0) * 1e3)
         launches.append(read())
         comps.append({k: float(v) for k, v in c.items()})
@@ -3639,6 +3682,87 @@ def _md_steps(dev, mesh=None, sync_check=False):
             "sizes": list(opt.sizes), "names": list(state.names)}
 
 
+class _RankArithmetic:
+    """A context in which one process computes as the MD_RANKS ranks of a
+    data-parallel step do, with no collective: every convolution, dense
+    layer, einsum over a leading batch axis and batched product runs on
+    MD_RANKS equal slices of its leading axis, and every BatchNorm moment
+    and the loss's global means are the sum of the slices' sums (the
+    ranks' all-reduce) over the whole count. The mathematics is the
+    one-rank step's; only the rounding is that of the ranks' shapes."""
+
+    def __init__(self, n=MD_RANKS):
+        self.n, self._saved = n, []
+
+    def _split(self, x):
+        return (torch.is_tensor(x) and x.dim() >= 2
+                and x.shape[0] >= self.n and x.shape[0] % self.n == 0)
+
+    def __enter__(self):
+        import torch.nn.functional as F
+        from xpoint_tpu_torch.losses import xpoint_loss
+        from xpoint_tpu_torch.models import heads
+        n, split = self.n, self._split
+        conv2d, linear = F.conv2d, F.linear
+        einsum, bmm = torch.einsum, torch.bmm
+
+        def by_rows(fn):
+            def run(x, *a, **k):
+                if not split(x):
+                    return fn(x, *a, **k)
+                return torch.cat([fn(c, *a, **k) for c in x.chunk(n)])
+            return run
+
+        def einsum_rows(eq, *ops):
+            # only "b...,...->b..." with b in no other operand
+            ins, _, out = eq.replace(" ", "").partition("->")
+            first = ins.split(",")
+            lead = first[0][:1]
+            if (lead and out[:1] == lead and split(ops[0])
+                    and all(lead not in f for f in first[1:])):
+                return torch.cat([einsum(eq, c, *ops[1:])
+                                  for c in ops[0].chunk(n)])
+            return einsum(eq, *ops)
+
+        def bmm_rows(a, b):
+            if not (split(a) and b.shape[0] == a.shape[0]):
+                return bmm(a, b)
+            return torch.cat([bmm(x, y) for x, y in zip(a.chunk(n),
+                                                        b.chunk(n))])
+
+        def sums(x, dims, fn):
+            if 0 not in dims or not split(x):
+                return fn(x)
+            s = None
+            for c in x.chunk(n):
+                s = fn(c) if s is None else s + fn(c)
+            return s
+
+        def batch_moments(x, dims):
+            count = math.prod(x.shape[d] for d in dims)
+            s = sums(x, dims, lambda c: torch.stack([c.sum(dims),
+                                                     (c * c).sum(dims)]))
+            return s[0] / count, s[1] / count
+
+        def global_mean(x, dims):
+            return (sums(x, dims, lambda c: c.sum(dims))
+                    / math.prod(x.shape[d] for d in dims))
+
+        for obj, name, fn in (
+                (F, "conv2d", by_rows(conv2d)), (F, "linear", by_rows(linear)),
+                (torch, "einsum", einsum_rows), (torch, "bmm", bmm_rows),
+                (heads, "batch_moments", batch_moments),
+                (xpoint_loss, "global_mean", global_mean)):
+            self._saved.append((obj, name, getattr(obj, name)))
+            setattr(obj, name, fn)
+        return self
+
+    def __exit__(self, *exc):
+        for obj, name, fn in reversed(self._saved):
+            setattr(obj, name, fn)
+        self._saved = []
+
+
 def _md_half_batch_grad(dev):
     """What a rank that kept its own gradient would step with: one rank's
     first-step gradient on the first half of the first global batch."""
@@ -3650,16 +3774,101 @@ def _md_half_batch_grad(dev):
     return (state.optimizer.mu / (1 - state.optimizer.b1)).cpu()
 
 
-def _md_grad_err(a, b, sizes):
-    """Two distances of gradient ``a`` from ``b``: |a - b| / |b| over the
-    whole vector, and leaf by leaf max |a - b| over (the leaf's max |b| +
-    MD_GRAD_FLOOR of the largest |b|), the worst leaf's with its index."""
+def _leaf_errs(a, b, sizes):
+    """Leaf by leaf, max |a - b| over (the leaf's max |b| + MD_GRAD_FLOOR
+    of the largest |b|)."""
     top = float(b.abs().max())
-    leaf = [float((x - y).abs().max())
+    return [float((x - y).abs().max())
             / (float(y.abs().max()) + MD_GRAD_FLOOR * top)
             for x, y in zip(a.split(sizes), b.split(sizes))]
+
+
+def _md_grad_err(a, b, sizes):
+    """Two distances of gradient ``a`` from ``b``: |a - b| / |b| over the
+    whole vector, and by leaf (_leaf_errs), the worst leaf's with its
+    index."""
+    leaf = _leaf_errs(a, b, sizes)
     worst = max(range(len(leaf)), key=leaf.__getitem__)
     return float((a - b).norm() / b.norm()), leaf[worst], worst
+
+
+def _md_fp32(dev, dp):
+    """(a) in fp32: the data-parallel step 1 ``dp`` (a rank's _md_steps
+    with fp32) against one rank's step 1 on the same global batch, and
+    against one rank computing with the ranks' rounding (_RankArithmetic,
+    no collective); each pair as one vector and by leaf, the worst leaves
+    named, and the leaves of ``dp`` over MD_FP32_LEAF_TOL from the
+    latter. Returns (the row, whether all three started from the same
+    parameters)."""
+    one = _md_steps(dev, fp32=True, n_steps=1)
+    with _RankArithmetic():
+        wit = _md_steps(dev, fp32=True, n_steps=1)
+    sizes, names = one["sizes"], one["names"]
+    g_dp, g_one, g_wit = dp["grads"][0], one["grads"][0], wit["grads"][0]
+
+    def cmp(a, b):
+        leaf = _leaf_errs(a, b, sizes)
+        worst = sorted(range(len(leaf)), key=leaf.__getitem__,
+                       reverse=True)[:3]
+        return leaf, {"vector": float((a - b).norm() / b.norm()),
+                      "leaf": leaf[worst[0]],
+                      "worst_leaves": [[names[i], leaf[i]] for i in worst]}
+
+    leaf, row = cmp(g_dp, g_wit)
+    row = {"dp_vs_one_rank": cmp(g_dp, g_one)[1],
+           "ranks_rounding_vs_one_rank": cmp(g_wit, g_one)[1],
+           "dp_vs_ranks_rounding": row,
+           "leaves_over_limit": [[n, e] for n, e in zip(names, leaf)
+                                 if e > MD_FP32_LEAF_TOL],
+           "vector_limit": MD_FP32_GRAD_TOL, "leaf_limit": MD_FP32_LEAF_TOL}
+    same_start = (torch.equal(dp["theta0"], one["theta0"])
+                  and torch.equal(wit["theta0"], one["theta0"]))
+    return row, same_start
+
+
+def _digest(tensors):
+    """A sha256 of the tensors' bytes, in order (bit-equality of two
+    states without moving them between processes)."""
+    import hashlib
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().reshape(-1).contiguous().view(torch.uint8)
+                 .cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _md_subgroup(dev, workdir, tag):
+    """(g): ``Trainer(n_devices=1)`` on the resident corpus, MD_SUB_STEPS
+    steps (cuDNN deterministic): in the launch every rank builds it, rank 0
+    trains as one device and the others take no step; in this process the
+    same Trainer without a process group. Returns whether this rank is in
+    the mesh, its steps, whether train() returned a state, and the digest
+    of the state it ended in."""
+    from xpoint_tpu_torch.data.synthetic_pairs import SyntheticPairs
+    from xpoint_tpu_torch.models import VMAMBA_TRAIN_CFG
+    from xpoint_tpu_torch.trainer import Trainer
+    cfg = copy.deepcopy(VMAMBA_TRAIN_CFG)
+    cfg["training"].update(n_epochs=1, save_every_n_epoch=0, use_writer=False,
+                           device_data=True, validation={})
+    ds = SyntheticPairs(n_pairs=TRAIN_B * MD_SUB_STEPS, config=cfg["dataset"])
+    steps = [0]
+    torch.backends.cudnn.deterministic = True
+    try:
+        t = Trainer(cfg, f"{workdir}/md_sub_{tag}", n_devices=1, seed=0,
+                    device=str(dev), dataset=ds)
+        if t.mesh.member:
+            inner = t.train_step
+
+            def counted(*args):
+                steps[0] += 1
+                return inner(*args)
+            t.train_step = counted
+        state = t.train()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    return {"member": t.mesh.member, "steps": steps[0],
+            "returned": state is not None,
+            "digest": _digest(_trainer_state(t)) if t.mesh.member else None}
 
 
 def _md_trainer(dev, mesh, workdir):
@@ -3822,6 +4031,8 @@ def md_rank(job):
     out["ring"] = _md_ring(dev, mesh)
     out["serve"] = _md_serve(dev, mesh)
     out["export"] = _md_export(dev, mesh, job["workdir"])
+    out["train_fp32"] = _md_steps(dev, mesh, fp32=True, n_steps=1)
+    out["subgroup"] = _md_subgroup(dev, job["workdir"], "two")
     out["rank_s"] = time.perf_counter() - t0
     flat = {"rank_s": out["rank_s"],
             "serve_ms": out["serve"]["latency_ms"],
@@ -3829,7 +4040,10 @@ def md_rank(job):
             "ring_linear_ms": out["ring"]["linear_ms"],
             "ring_selective_ms": out["ring"]["selective_ms"],
             "ring_linear_k6": out["ring"]["linear_launches"],
-            "ring_selective_k6": out["ring"]["selective_launches"]}
+            "ring_selective_k6": out["ring"]["selective_launches"],
+            "sub_member": out["subgroup"]["member"],
+            "sub_steps": out["subgroup"]["steps"],
+            "sub_returned": out["subgroup"]["returned"]}
     for i, ms in enumerate(out["train"]["ms"]):
         flat[f"step{i}_ms"] = ms
     for tag, counts in ([(f"step{i}", c) for i, c in
@@ -3937,6 +4151,28 @@ def phase_multidevice(dev, workdir, serve_module, card):
             if (pr[f"step{i}:selective_scan_bidir"],
                     pr[f"step{i}:selective_scan_bidir_bwd"]) != (16, 16):
                 fail.append(f"(a) rank {r} step {i + 1} launches")
+    # (a) in fp32: step 1's gradient against one rank as one vector, and
+    # leaf by leaf against one rank computing with the ranks' rounding
+    row32, same_start = _md_fp32(dev, got["train_fp32"])
+    res["train"]["fp32"] = row32
+    print("multi-device (a) in fp32: " + json.dumps(row32), flush=True)
+    if (not same_start or row32["leaves_over_limit"]
+            or row32["dp_vs_one_rank"]["vector"] > MD_FP32_GRAD_TOL):
+        fail.append("(a) the data-parallel step in fp32")
+    # (g) Trainer(n_devices=1) in the 2-rank launch against one rank
+    sub_one = _md_subgroup(dev, workdir, "one")
+    subs = [(pr["sub_member"], pr["sub_steps"], pr["sub_returned"])
+            for pr in got["per_rank"]]
+    res["subgroup"] = {
+        "member_steps_returned_per_rank": subs,
+        "one_rank_steps": sub_one["steps"],
+        "bit_equal_to_one_rank":
+            got["subgroup"]["digest"] == sub_one["digest"]}
+    if (subs != [(1.0, float(MD_SUB_STEPS), 1.0)]
+            + [(0.0, 0.0, 0.0)] * (MD_RANKS - 1)
+            or sub_one["steps"] != MD_SUB_STEPS
+            or not res["subgroup"]["bit_equal_to_one_rank"]):
+        fail.append("(g) Trainer(n_devices=1) on the first rank")
     # (b) the Trainer's resume on 2 ranks
     tr = got["trainer"]
     if not (tr["resume_bit_equal"] and tr["start_epoch"] == 1
@@ -4116,6 +4352,437 @@ def md_kernel_rows(md, warp_rows, k1):
     ]
 
 
+P30_CALLS = 3                       # (d): the profiled pipeline calls
+P30_GRID = "0.015,8,0;0.010,8,0"    # (e): phase 20's operating point first
+P30_SAMPLES = 8                     # (f): 512^2 samples timed on each path
+P30_ROOF_LIMIT = 1.05               # (b): no stage above its bound
+
+
+def _p30_model_cost(module, stages, depths, scan_tot):
+    """30a: model_cost of one pair forward at full width; its K1 terms
+    against the bound's formulas at phase 2's stage shapes (two images a
+    pair: 2 x depth launches a stage), written out here."""
+    from xpoint_tpu_torch.eval.benchmark import model_cost
+    from xpoint_tpu_torch.kernels import cost
+    t0 = time.perf_counter()
+    got = model_cost(module, (H, W), batch=B)
+    count_s = time.perf_counter() - t0
+    want = {"launches": 0, "bytes": 0, "flops": 0}
+    for (L, Dim), depth in zip(stages, depths):
+        M, G, n = B * 2 * Dim, B * 2, 2 * depth
+        want["launches"] += n
+        want["bytes"] += n * (2 * (5 * L * M + 4 * L * G) + 3 * 4 * 4 * Dim)
+        want["flops"] += n * 2 * 14 * L * M
+    k1 = got["kernels"].get("selective_scan_bidir", {})
+    k1_bound_ms = k1.get("bytes", 0) / cost.HBM_BYTES_PER_S * 1e3
+    ca = got["cost_analysis"]
+    res = {"flops_per_pair": got["flops"] / B,
+           "bytes_per_pair": got["bytes_accessed"] / B,
+           "transcendentals_per_pair": ca["transcendentals"] / B,
+           "cost_analysis": ca, "kernels": got["kernels"],
+           "k1_expected": want, "k1_bound_ms": k1_bound_ms,
+           "phase2_k1_bound_ms": scan_tot["bound_ms"], "count_s": count_s}
+    print("phase 30 model_cost: " + json.dumps(res), flush=True)
+    if (set(got["kernels"]) != {"selective_scan_bidir"}
+            or {k: k1[k] for k in want} != want
+            or abs(k1_bound_ms - scan_tot["bound_ms"])
+            > 1e-9 * scan_tot["bound_ms"]):
+        raise SystemExit("model_cost's kernel terms differ from the bound's "
+                         "formulas at the serving shapes")
+    return res
+
+
+def _p30_roofline(module):
+    """30b: the per-stage roofline of one 512^2 encoder pass at B=8."""
+    from xpoint_tpu_torch.tools import roofline
+    rows, exp_rate = roofline.stage_table(module, B, S=H)
+    res = {"exp_rate_per_s": exp_rate, "stages": rows}
+    print("phase 30 roofline: " + json.dumps(res), flush=True)
+    above = [r["stage"] for r in rows
+             if r.get("achieved") is not None
+             and r["achieved"] > P30_ROOF_LIMIT]
+    if above or any(r.get("achieved") is None for r in rows[:-1]):
+        raise SystemExit(f"roofline: stages above {P30_ROOF_LIMIT} of their "
+                         f"bound (their count is wrong) or untimed: {above}")
+    return res
+
+
+def _serve_latency(dev, module):
+    """Phase 3's call time, measured again: the serving pipeline at 512^2,
+    B=8 on N_CALLS fresh image pairs after a warm-up, each call
+    synchronised; the median ms."""
+    from xpoint_tpu_torch.eval import make_pair_pipeline
+    run = make_pair_pipeline(module, (H, W), k=1024, nms_size=8,
+                             detection_threshold=0.015)
+    g = torch.Generator(device=dev).manual_seed(3)
+    images = [(torch.rand(B, H, W, 1, generator=g, device=dev),
+               torch.rand(B, H, W, 1, generator=g, device=dev))
+              for _ in range(N_CALLS + 1)]
+    run(*images[0])
+    torch.cuda.synchronize()
+    lat = []
+    for img_o, img_t in images[1:]:
+        t0 = time.perf_counter()
+        run(img_o, img_t)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    return _median(lat)
+
+
+def _p30_stage_table(dev, module, phase3_latency_ms):
+    """30c: both stage tables; the on-device stages' sum against phase
+    3's call time, measured again just before them (the host's speed
+    drifts over a run: phase 3 ran minutes earlier; its own figure is
+    printed beside)."""
+    from xpoint_tpu_torch.tools import stage_table
+    host = stage_table.host_staged_table(module, H, W)
+    host_ms = {k: 1e3 * sum(v) / len(v) for k, v in host.items()}
+    print("phase 30 stage_table host-staged (B=1, ms): "
+          + json.dumps(host_ms), flush=True)
+    call_ms = _serve_latency(dev, module)
+    stages, cumulative = stage_table.on_device_table(module, B, H, W)
+    dev_ms = {k: 1e3 * v for k, v in stages.items()}
+    total_ms = sum(dev_ms.values())
+    print(f"phase 30 stage_table on-device (B={B}, ms a batch): "
+          + json.dumps(dev_ms) + f"; sum {total_ms} against phase 3's "
+          f"call {call_ms} measured just before (phase 3: "
+          f"{phase3_latency_ms})", flush=True)
+    if abs(total_ms - call_ms) > 0.25 * call_ms:
+        raise SystemExit(f"stage_table: the on-device stages sum to "
+                         f"{total_ms} ms, phase 3's call {call_ms}")
+    return {"host_staged_ms": host_ms, "on_device_ms": dev_ms,
+            "on_device_sum_ms": total_ms,
+            "cumulative_ms": {k: 1e3 * v for k, v in cumulative.items()},
+            "call_ms": call_ms, "phase3_latency_ms": phase3_latency_ms}
+
+
+def _p30_parse_trace(dev, module, workdir):
+    """30d: a torch.profiler trace of P30_CALLS pipeline calls through
+    tools.parse_trace: K1's and K2's launches by their kernels' names
+    (one span_output_kernel a K1 launch; nms_kernel is K2), against the
+    wrappers' counts (zeroed just before the calls, read just after)."""
+    from torch.profiler import ProfilerActivity, profile
+    from xpoint_tpu_torch.eval import make_pair_pipeline
+    from xpoint_tpu_torch.tools import parse_trace
+    run = make_pair_pipeline(module, (H, W), k=1024, nms_size=8,
+                             detection_threshold=0.015)
+    g = torch.Generator(device=dev).manual_seed(30)
+    images = [(torch.rand(B, H, W, 1, generator=g, device=dev),
+               torch.rand(B, H, W, 1, generator=g, device=dev))
+              for _ in range(P30_CALLS + 1)]
+    run(*images[0])
+    torch.cuda.synchronize()
+    read = _zero_counts()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for img_o, img_t in images[1:]:
+            run(img_o, img_t)
+        torch.cuda.synchronize()
+    launches = {k: v for k, v in read().items()
+                if k in ("selective_scan_bidir", "nms_sweep")}
+    path = f"{workdir}/p30_trace.json"
+    prof.export_chrome_trace(path)
+    total, by_cat, by_name, counts = parse_trace.summarize(
+        parse_trace.load_events(parse_trace.find_trace(path)))
+    found = {"selective_scan_bidir": parse_trace.launches(
+                 counts, "span_output_kernel"),
+             "nms_sweep": parse_trace.launches(counts, "nms_kernel")}
+    top = sorted(by_name.items(), key=lambda x: -x[1])[:10]
+    res = {"calls": P30_CALLS, "device_ms": total,
+           "device_ms_per_call": total / P30_CALLS, "by_category_ms": by_cat,
+           "top_ms": [[c, n, ms] for (c, n), ms in top],
+           "launches_by_name": found, "launches_counted": launches}
+    print("phase 30 parse_trace: " + json.dumps(res), flush=True)
+    want = {"selective_scan_bidir": 16 * P30_CALLS, "nms_sweep": P30_CALLS}
+    if found != want or launches != want:
+        raise SystemExit(f"parse_trace found {found} launches, the counts "
+                         f"{launches}, the pipeline makes {want}")
+    return res
+
+
+def _p30_op_sweep(dev, workdir, phase20):
+    """30e: tools.op_sweep over a 2-point grid on phase 20's config,
+    model and pairs (its processes: python -m
+    xpoint_tpu_torch.cli.benchmark); the first point is phase 20's
+    operating point and must give its MAGSAC sweep's metrics."""
+    from xpoint_tpu_torch.tools import op_sweep
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, "configs", "cipdp.yaml")) as f:
+        text = f.read()
+    old = "    filename: data/MULTIPOINT/test.hdf5\n"
+    if old not in text:
+        raise SystemExit("configs/cipdp.yaml names no test.hdf5 to replace")
+    eval_yaml = f"{workdir}/p30_eval.yaml"
+    with open(eval_yaml, "w") as f:
+        f.write(text.replace(old, f"    filename:\n    foldername: "
+                                  f"{workdir}/flagship_corpus\n"))
+    t0 = time.perf_counter()
+    rows = op_sweep.main([
+        "--work", f"{workdir}/p30_opsweep", "--model", f"{workdir}/flagship",
+        "--eval-yaml", eval_yaml, "--seed", "0", "--grid", P30_GRID,
+        "--max-samples", str(EVAL_SAMPLES), "--device", dev.type,
+        "--out", f"{workdir}/p30_opsweep.json"])
+    sweep_s = time.perf_counter() - t0
+    want = phase20["sweep"]["magsac"]
+    pairs = {"rep3": "repeatability@3", "nn_map3": "nn_map@3",
+             "m_score3": "m_score@3", "h3": "h_correctness@3"}
+    diff = {k: (rows[0][k], want[v]) for k, v in pairs.items()
+            if rows[0][k] != want[v]}
+    res = {"grid": rows, "s": sweep_s, "first_point_vs_phase20": diff}
+    print("phase 30 op_sweep: " + json.dumps(res), flush=True)
+    if len(rows) != 2 or diff:
+        raise SystemExit(f"op_sweep's first point differs from phase 20's "
+                         f"sweep: {diff}")
+    return res
+
+
+def _read_gray(path):
+    import cv2
+    return cv2.cvtColor(cv2.imread(path), cv2.COLOR_BGR2GRAY) / 255.0
+
+
+def _cv2_bound(img):
+    """The most cv2's bilinear warp may differ from exact sampling on
+    ``img``: OpenCV 4 looks its weights up at sample positions rounded to
+    1/32 pixel (INTER_BITS 5), half a step off on each axis at most, so
+    by the image's largest neighbour difference on each axis / 64."""
+    dy = float(np.abs(np.diff(img, axis=0)).max())
+    dx = float(np.abs(np.diff(img, axis=1)).max())
+    return (dx + dy) / 64
+
+
+def _exact_warp(img, H, reflect=True):
+    """``img`` sampled bilinearly in float64 at H^-1 of each pixel (cv2's
+    convention: pixel centres at integers), the sample positions in
+    float64, every tap outside the image mirrored into it without
+    repeating the edge (BORDER_REFLECT_101) or, with ``reflect`` False,
+    read as 0 (BORDER_CONSTANT); with the (h, w) mask of the pixels whose
+    four taps lie inside the image."""
+    h, w = img.shape
+    Hi = np.linalg.inv(np.asarray(H, np.float64))
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float64)
+    den = Hi[2, 0] * xs + Hi[2, 1] * ys + Hi[2, 2]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        sx = (Hi[0, 0] * xs + Hi[0, 1] * ys + Hi[0, 2]) / den
+        sy = (Hi[1, 0] * xs + Hi[1, 1] * ys + Hi[1, 2]) / den
+    x0, y0 = np.floor(sx), np.floor(sy)
+    fx, fy = sx - x0, sy - y0
+    x0, y0 = x0.astype(np.int64), y0.astype(np.int64)
+    inside = (x0 >= 0) & (y0 >= 0) & (x0 < w - 1) & (y0 < h - 1)
+    src = img.astype(np.float64)
+
+    def tap(yy, xx):
+        if reflect:
+            py, px = 2 * (h - 1), 2 * (w - 1)
+            yy, xx = np.mod(yy, py), np.mod(xx, px)
+            yy, xx = np.where(yy >= h, py - yy, yy), np.where(xx >= w, px - xx,
+                                                             xx)
+            return src[yy, xx]
+        ok = (yy >= 0) & (xx >= 0) & (yy < h) & (xx < w)
+        return np.where(ok, src[yy.clip(0, h - 1), xx.clip(0, w - 1)], 0.0)
+
+    out = ((1 - fy) * ((1 - fx) * tap(y0, x0) + fx * tap(y0, x0 + 1))
+           + fy * ((1 - fx) * tap(y0 + 1, x0) + fx * tap(y0 + 1, x0 + 1)))
+    return out, inside
+
+
+def _p30_native(workdir):
+    """30f (the engine): built on this host; homographic_augmentation on
+    512^2 corpus images with the flagship's homographic settings, through
+    the engine (the default) and through cv2 (XPOINT_NO_NATIVE=1) from the
+    same generator states. The engine within test_native.py's 2e-3 of
+    float64 sampling at the same homography (_exact_warp) on every pixel,
+    the reflected border included; on the pixels that sample inside the
+    image, within cv2's own rounding of cv2 (_cv2_bound: OpenCV 4 rounds
+    sample positions to 1/32 pixel, which test_native.py's 2e-3 against
+    cv2 does not allow for on images with edges; on the reflected border
+    its 16-bit coordinates saturate at the extreme homographies of this
+    config); the masks within test_native.py's 1% (2% with erosion); on
+    float32 images and on the float64 images the folder dataset reads; ms
+    a float32 sample each."""
+    import cv2
+    from xpoint_tpu_torch import native
+    from xpoint_tpu_torch.data.augmentation import homographic_augmentation
+    from xpoint_tpu_torch.models import VMAMBA_TRAIN_CFG
+    t0 = time.perf_counter()
+    lib = native.build()
+    native.load()
+    build_s = time.perf_counter() - t0
+    hcfg = VMAMBA_TRAIN_CFG["dataset"]["augmentation"]["homographic"]
+    reflect = hcfg.get("border_reflect", True)
+    kw = dict(params=dict(hcfg["params"]), border_reflect=reflect,
+              valid_border_margin=hcfg.get("valid_border_margin", 0),
+              return_homography=True)
+    # test_native.py's limits on the masks' differing share: 1% without
+    # erosion, 2% with
+    mask_limit = 0.02 if kw["valid_border_margin"] else 0.01
+    res = {"library": os.path.basename(lib), "build_s": build_s,
+           "cv2": cv2.__version__, "border_reflect": reflect,
+           "mask_limit": mask_limit}
+    ms = {"engine": [], "cv2": []}
+    fail = []
+    for dtype in (np.float32, np.float64):
+        row = {"exact_max_abs_err": 0.0, "exact_max_abs_err_inside": 0.0,
+               "cv2_max_abs_err_inside": 0.0, "cv2_bound": 0.0,
+               "mask_share_differing": 0.0}
+        for i in range(P30_SAMPLES):
+            img = _read_gray(f"{workdir}/flagship_corpus/optical/"
+                             f"{i:04d}.png").astype(dtype)
+            out = {}
+            for path in ("engine", "cv2"):
+                if path == "cv2":
+                    os.environ["XPOINT_NO_NATIVE"] = "1"
+                t0 = time.perf_counter()
+                try:
+                    out[path] = homographic_augmentation(
+                        img, np.random.RandomState(i), **kw)
+                finally:
+                    os.environ.pop("XPOINT_NO_NATIVE", None)
+                if dtype is np.float32:
+                    ms[path].append((time.perf_counter() - t0) * 1e3)
+            a, b = out["engine"], out["cv2"]
+            exact, inside = _exact_warp(img, a[3], reflect)
+            off = np.abs(a[0] - exact)
+            bound = _cv2_bound(img)
+            err = float(np.abs(a[0] - b[0])[inside].max())
+            row["exact_max_abs_err"] = max(row["exact_max_abs_err"],
+                                           float(off.max()))
+            row["exact_max_abs_err_inside"] = max(
+                row["exact_max_abs_err_inside"], float(off[inside].max()))
+            row["cv2_max_abs_err_inside"] = max(
+                row["cv2_max_abs_err_inside"], err)
+            row["cv2_bound"] = max(row["cv2_bound"], bound)
+            row["mask_share_differing"] = max(
+                row["mask_share_differing"], float((a[2] != b[2]).mean()))
+            if err > bound + 1e-6:
+                fail.append(f"{np.dtype(dtype).name} sample {i}: {err} "
+                            f"against cv2's rounding {bound}")
+        res[np.dtype(dtype).name] = row
+        if row["exact_max_abs_err"] >= 2e-3:
+            fail.append(f"{np.dtype(dtype).name}: {row['exact_max_abs_err']}"
+                        f" from exact sampling")
+        if row["mask_share_differing"] >= mask_limit:
+            fail.append(f"{np.dtype(dtype).name}: masks differ on "
+                        f"{row['mask_share_differing']} of the pixels")
+    res["ms_per_sample"] = {k: _median(v) for k, v in ms.items()}
+    if fail:
+        raise SystemExit(f"the native engine: {fail}")
+    return res
+
+
+def _p30_loop(dev, workdir):
+    """30f (phase 19's loop): one epoch of phase 19's Trainer on its corpus,
+    alternately with the engine (the default) and with cv2
+    (XPOINT_NO_NATIVE=1), twice each: the loop's ms a step (from the first
+    step's start to the last's) and the step's own ms (median)."""
+    from xpoint_tpu_torch.data import get_dataset
+    from xpoint_tpu_torch.models import VMAMBA_TRAIN_CFG
+    from xpoint_tpu_torch.trainer import Trainer
+    cfg = copy.deepcopy(VMAMBA_TRAIN_CFG)
+    ds_cfg = cfg["dataset"]
+    del ds_cfg["filename"], ds_cfg["keypoints_filename"]
+    ds_cfg.update(foldername=f"{workdir}/flagship_corpus",
+                  keypoints_filename=f"{workdir}/flagship_labels.npz")
+    cfg["training"].update(n_epochs=1, save_every_n_epoch=0,
+                           use_writer=False)
+    dataset = get_dataset(ds_cfg)
+    runs = {"engine": [], "cv2": []}
+    for i, path in enumerate(("engine", "cv2", "engine", "cv2")):
+        if path == "cv2":
+            os.environ["XPOINT_NO_NATIVE"] = "1"
+        try:
+            t = Trainer(cfg, f"{workdir}/p30_loop_{i}", seed=0, device=dev,
+                        dataset=dataset)
+            rows, inner = [], t.train_step
+
+            def step(*args, inner=inner, rows=rows):
+                t0 = time.perf_counter()
+                comps = inner(*args)
+                torch.cuda.synchronize()
+                rows.append((t0, (time.perf_counter() - t0) * 1e3))
+                return comps
+            t.train_step = step
+            t.train()
+        finally:
+            os.environ.pop("XPOINT_NO_NATIVE", None)
+        runs[path].append({
+            "loop_ms_per_step": (rows[-1][0] - rows[0][0]) * 1e3
+            / (len(rows) - 1),
+            "step_ms": _median([ms for _, ms in rows[1:]])})
+    res = {k: {"loop_ms_per_step": [r["loop_ms_per_step"] for r in v],
+               "step_ms": [r["step_ms"] for r in v]}
+           for k, v in runs.items()}
+    print("phase 30 phase-19 loop, engine against cv2: " + json.dumps(res),
+          flush=True)
+    return res
+
+
+def _p30_clis(workdir):
+    """30h: the show_* CLIs on three pairs of phase 19's corpus (an .npz of
+    groups) and its labels, SyntheticShapes samples, and the MULTIPOINT
+    fixture as an .npz."""
+    import cv2
+    from xpoint_tpu_torch.cli import (show_image_pair_sample, show_keypoints,
+                                      show_synthetic_images)
+    from xpoint_tpu_torch.data.group_file import open_group_file, write_groups
+    from xpoint_tpu_torch.tools import make_multipoint_fixture
+    corpus = f"{workdir}/flagship_corpus"
+    data = f"{workdir}/p30_pairs.npz"
+    write_groups(data, {f"{i:04d}.png": {
+        side: _read_gray(f"{corpus}/{side}/{i:04d}.png").astype(np.float32)
+        for side in ("optical", "thermal")} for i in range(3)})
+    labels, out = f"{workdir}/flagship_labels.npz", f"{workdir}/p30_show"
+    show_keypoints.main(["-d", data, "-k", labels, "-n", "0", "-o", out])
+    show_image_pair_sample.main(["-i", data, "-k", labels, "-n", "1",
+                                 "-o", out])
+    show_synthetic_images.main(["-n", "2", "-o", out])
+    fixture = f"{workdir}/p30_fixture.npz"
+    make_multipoint_fixture.main(["--out", fixture])
+    shapes, green = {}, {}
+    for name in sorted(os.listdir(out)):
+        im = cv2.imread(os.path.join(out, name))
+        shapes[name] = list(im.shape)
+        green[name] = int(((im[..., 0] == 0) & (im[..., 1] == 255)
+                           & (im[..., 2] == 0)).sum())
+    with open_group_file(fixture) as f:
+        members = {n: {d: [list(f[n][d].shape), str(f[n][d].dtype)]
+                       for d in f[n].keys()} for n in f.keys()}
+    res = {"png_shapes": shapes, "green_pixels": green,
+           "fixture": members}
+    print("phase 30 show CLIs and fixture: " + json.dumps(res), flush=True)
+    want = {"show_optical_0000.png.png": [H, W, 3],
+            "show_thermal_0000.png.png": [H, W, 3],
+            "pair_0001.png.png": [H, 2 * W, 3]}
+    if (any(shapes.get(k) != v for k, v in want.items())
+            or any(green[k] == 0 for k in want)
+            or sum(k.startswith("synthetic_") for k in shapes) != 2
+            or len(members) != 3
+            or sum("thermal_raw" in m for m in members.values()) != 1):
+        raise SystemExit(f"the show_* CLIs or the fixture wrote unexpected "
+                         f"files: {res}")
+    return res
+
+
+def phase_tools(dev, workdir, module, stages, depths, scan_tot,
+                phase3_latency_ms, phase20):
+    """30: the measuring tools, the CLIs of the last slice and the native
+    engine at full width (see the module docstring)."""
+    res = {"model_cost": _p30_model_cost(module, stages, depths, scan_tot),
+           "roofline": _p30_roofline(module),
+           "stage_table": _p30_stage_table(dev, module, phase3_latency_ms),
+           "parse_trace": _p30_parse_trace(dev, module, workdir),
+           "op_sweep": _p30_op_sweep(dev, workdir, phase20),
+           "native": _p30_native(workdir),
+           "loop": _p30_loop(dev, workdir),
+           "clis": _p30_clis(workdir)}
+    n = res["native"]
+    print(f"phase 30 native engine (OpenCV {n['cv2']} for the cv2 path): "
+          f"build {n['build_s']:.2f} s, ms a 512^2 "
+          f"sample {n['ms_per_sample']}, float32 {n['float32']}, float64 "
+          f"(the folder dataset's images) {n['float64']}", flush=True)
+    return res
+
+
 def host_modules():
     """Which of the host data path's modules (and tqdm, which the JAX
     package's evaluation imports and the port does not) import here."""
@@ -4218,6 +4885,8 @@ def main():
         xv_train = phase_xv_m0_train(dev, train_stages, depths)
         base = phase_baselines(dev, workdir)
         md = phase_multidevice(dev, workdir, serve_module, card)
+        tools_res = phase_tools(dev, workdir, serve_module, stages, depths,
+                                scan_tot, main_res["latency_ms"], eval_res)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -4493,7 +5162,24 @@ def main():
               ("SuperPoint serve (16 planes 512^2, size 8)",
                base["superpoint"]["launches"]["nms_sweep"],
                base["superpoint"]["k2"]))],
-    ] + md_kernel_rows(md, warp_rows, k1)
+    ] + md_kernel_rows(md, warp_rows, k1) + [
+        {"name": "selective_scan_bidir",
+         "path": f"profiled pipeline (phase 30, {P30_CALLS} calls)", **k1,
+         "launches": tools_res["parse_trace"]["launches_counted"][
+             "selective_scan_bidir"],
+         "max_abs_err": scan_err, "ms": scan_tot["ms"],
+         "ms_with_host_launch": scan_tot["ms_with_host_launch"],
+         "plain_ms": scan_tot["plain_ms"], "bound_ms": scan_tot["bound_ms"]},
+        {"name": "nms_sweep",
+         "path": f"profiled pipeline (phase 30, {P30_CALLS} calls)",
+         "route": "cuda", "source": "xpoint_tpu_torch/csrc/nms_sweep.cu",
+         "replaces": "xpoint_tpu/ops/nms.py:36",
+         "launches": tools_res["parse_trace"]["launches_counted"][
+             "nms_sweep"],
+         "max_abs_err": 0.0, "ms": nms_res["ms"],
+         "ms_with_host_launch": nms_res["ms_with_host_launch"],
+         "plain_ms": nms_res["plain_ms"], "bound_ms": nms_res["bound_ms"],
+         "bound_by": nms_res["bound_by"], "library_ms": None}]
     print("details: " + json.dumps(
         {"card": card, "build_s": build_s, "k1_stages": scan_rows,
          "k1_tails": scan_tails, "k1_ckpt_tails": tscan_tails,
@@ -4514,7 +5200,8 @@ def main():
          "cycle": cycle_res, "clis": clis_res, "swin_serve": swin_serve,
          "swin_train": swin_train, "swin_export": swin_export,
          "xv_m0_serve": xv_serve, "xv_m0_train": xv_train,
-         "baselines": base, "multi_device": md}, default=str),
+         "baselines": base, "multi_device": md, "tools": tools_res},
+        default=str),
         flush=True)
     print("serve: K1 ms/plain_ms/bound_ms are per pipeline call (sum over "
           "stage shapes x launches), K2's per call (one launch runs every "
@@ -4564,7 +5251,9 @@ def main():
           "DP step at 256^2, B=8; K1 per sharded call at 512^2, B=4; K2 on "
           "a rank's 8 heatmap planes; K6 one launch on a rank's (2048, "
           "24576) block; K4 rows the HA-step calls of phase 9, the export's "
-          "shapes)",
+          "shapes); profiled pipeline (phase 30): launches of its 3 "
+          "profiled calls (counted and found by name in the trace), times "
+          "those of phases 2 and 4 (the same shapes)",
           flush=True)
     print(f"chip_smoke wall time: {time.time() - t_start:.1f} s "
           f"({card})", flush=True)

@@ -8,6 +8,7 @@ HA and the label export, ``make_mesh`` and the launcher's failures.
 The ranks run tests/torch_parallel_ranks.py, which imports no JAX; one
 launch runs every 2-rank case (``ranked``), and its results are held here.
 Inputs are made from seeds with numpy; fp32 on the CPU."""
+import importlib
 import os
 import time
 
@@ -26,12 +27,14 @@ from xpoint_tpu_torch.ops.linear_scan import linear_scan
 from xpoint_tpu_torch.ops.selective_scan import selective_scan
 from xpoint_tpu_torch.parallel import launch, make_mesh
 from xpoint_tpu_torch.parallel.launch import default_backend
-from xpoint_tpu_torch.selfsup import homographic_adaptation as ha
 from xpoint_tpu_torch.selfsup.export import NumpySink, export_keypoints
 
 import torch_parallel_ranks as ranks
 from test_torch_models import _jax_tiny_model, _perturb, tiny_cfg
 
+# the package re-exports a function of the same name over the module, as
+# the JAX package's does
+ha = importlib.import_module("xpoint_tpu_torch.selfsup.homographic_adaptation")
 T = torch.from_numpy
 CPU2 = ["cpu", "cpu"]
 # a launch's deadline (the launch of ``ranked`` takes ~15 s alone, several

@@ -28,14 +28,14 @@ from xpoint_tpu_torch.data.synthetic_pairs import SyntheticPairs
 from xpoint_tpu_torch.eval.infer import XPointInference
 from xpoint_tpu_torch.models import build_xpoint
 from xpoint_tpu_torch.ops.nms import box_nms
-from xpoint_tpu_torch.selfsup import homographic_adaptation as ha
 from xpoint_tpu_torch.selfsup.export import (H5Sink, NumpySink,
                                              export_keypoints, make_prob_fn)
 
 from test_torch_models import _jax_tiny_model, tiny_cfg
 
-# the package re-exports a function of the same name over the module
+# each package re-exports a function of the same name over the module
 jx_ha = importlib.import_module("xpoint_tpu.selfsup.homographic_adaptation")
+ha = importlib.import_module("xpoint_tpu_torch.selfsup.homographic_adaptation")
 T = torch.from_numpy
 
 

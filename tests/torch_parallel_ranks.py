@@ -292,3 +292,58 @@ def train_cases(inp):
             "resident": resident_batches(inp["resident"], mesh),
             "trainer": trainer_run(inp["trainer"], mesh)}
 
+
+
+# ---- a mesh of fewer ranks than the group (tests/test_torch_mesh_subgroup.py)
+
+def subgroup_trainer(inp):
+    """``make_mesh(1)`` and ``Trainer(n_devices=1)`` on every rank of the
+    group: rank 0 trains as one device would, the others take no step and
+    issue no collective (had one, the all-reduce below would not meet)."""
+    import torch.distributed as dist
+    mesh = make_mesh(1)
+    out = {"mesh": (mesh.rank, mesh.size, mesh.member, mesh.group is None)}
+    try:
+        make_mesh(3)
+    except ValueError as e:
+        out["make_mesh_3"] = str(e)
+    t = Trainer(inp["cfg"], os.path.join(inp["root"], "sub"), n_devices=1,
+                seed=0, device="cpu", dataset=FrozenSingleImages(8, seed=1),
+                val_dataset=FrozenSingleImages(4, seed=2))
+    steps = [0]
+    if t.mesh.member:
+        inner = t.train_step
+
+        def counted(*a):
+            steps[0] += 1
+            return inner(*a)
+        t.train_step = counted
+    state = t.train()
+    # every rank's (member, steps, trained state) on WORLD
+    facts = torch.zeros(dist.get_world_size(), 3)
+    facts[dist.get_rank()] = torch.tensor(
+        [float(t.mesh.member), float(steps[0]), float(state is not None)])
+    dist.all_reduce(facts)
+    out["facts"] = facts
+    if t.mesh.member:
+        out["tensors"] = _trainer_tensors(t)
+        out["files"] = sorted(os.listdir(os.path.join(inp["root"], "sub")))
+    return out
+
+
+def subgroup_collectives():
+    """``make_mesh(2)`` in a group of 3: ranks 0 and 1 form a mesh over a
+    sub-group (its all-reduce sums theirs alone), rank 2 is outside it."""
+    import torch.distributed as dist
+    mesh = make_mesh(2)
+    out = {}
+    if mesh.member:
+        out["sum"] = all_reduce(torch.tensor([float(mesh.rank + 1)]),
+                                mesh).item()
+        out["rows"] = mesh.rows(torch.arange(8)).tolist()
+    facts = torch.zeros(dist.get_world_size(), 3)
+    facts[dist.get_rank()] = torch.tensor(
+        [float(mesh.member), float(mesh.size), float(mesh.rank)])
+    dist.all_reduce(facts)
+    out["facts"] = facts
+    return out

@@ -51,3 +51,5 @@ Ground rules:
     ``torch.backends.cudnn.allow_tf32`` to False.
   * Public functions keep the JAX package's NHWC layout.
 """
+
+__version__ = "0.1.0"

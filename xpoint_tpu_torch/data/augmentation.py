@@ -1,7 +1,17 @@
-"""Augmentation on the host (own copy of ``xpoint_tpu/data/augmentation.py``,
-its cv2 path): photometric primitives in a shuffled order; the homographic
-warp with cv2 (BORDER_REFLECT_101 or constant), the valid mask with border
-erosion, keypoint warp and filter.
+"""Augmentation on the host (own copy of ``xpoint_tpu/data/augmentation.py``):
+photometric primitives in a shuffled order; the homographic warp
+(BORDER_REFLECT_101 or constant), the valid mask with border erosion,
+keypoint warp and filter.
+
+The warp and the mask take the JAX package's default path, the native
+engine (``native.homographic_augment``: warp, mask and erosion in one C
+call); with ``XPOINT_NO_NATIVE`` set they take its other path,
+``cv2.warpPerspective`` and ``compute_valid_mask``. The two differ on
+about 1% of the mask's pixels at most, and on warped pixels by cv2's
+rounding of sample positions to 1/32 pixel where OpenCV rounds (OpenCV 4,
+and OpenCV 5 on float64 images: up to ~2e-2 at edges); the engine samples
+exactly. Unlike the JAX package, a failed engine build raises instead of
+taking cv2.
 
 Randomness comes from the generators passed in: ``rng``, a
 ``np.random.RandomState`` in place of the global ``np.random`` stream, and
@@ -9,12 +19,15 @@ Randomness comes from the generators passed in: ``rng``, a
 the JAX package seeds a ``np.random.Generator`` from the global stream (the
 homography samplers), it is seeded here from ``rng`` by the same draw.
 """
+import os
+
 import cv2
 import numpy as np
 
 from ..geometry.homography import (compute_valid_mask, filter_points,
                                    sample_homography,
                                    sample_homography_corner, warp_keypoints)
+from .. import native
 from ..utils import parse_primitives
 from . import photometric as photoaug
 
@@ -46,12 +59,18 @@ def homographic_augmentation(image, rng, keypoints=None,
         homography = sample_homography(image_shape, rng=sampler_rng,
                                        **params)
 
-    border_mode = (cv2.BORDER_REFLECT_101 if border_reflect
-                   else cv2.BORDER_CONSTANT)
-    warped_image = cv2.warpPerspective(image, homography, image.shape[::-1],
-                                       borderMode=border_mode)
-    valid_mask = compute_valid_mask(image_shape, homography,
-                                    valid_border_margin * 2, mask_border)
+    if not os.environ.get('XPOINT_NO_NATIVE'):
+        warped_image, valid_mask = native.homographic_augment(
+            image, homography, border_reflect, valid_border_margin * 2,
+            mask_border)
+    else:
+        border_mode = (cv2.BORDER_REFLECT_101 if border_reflect
+                       else cv2.BORDER_CONSTANT)
+        warped_image = cv2.warpPerspective(image, homography,
+                                           image.shape[::-1],
+                                           borderMode=border_mode)
+        valid_mask = compute_valid_mask(image_shape, homography,
+                                        valid_border_margin * 2, mask_border)
 
     if keypoints is not None and np.size(keypoints) > 0:
         warped_points = warp_keypoints(keypoints, homography)

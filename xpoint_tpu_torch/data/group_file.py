@@ -162,6 +162,22 @@ def write_npz_groups(path, groups):
             os.remove(tmp)
 
 
+def write_groups(path, groups):
+    """Write ``groups`` ({group: {dataset: array}} or (group, arrays)
+    pairs) to ``path`` by its suffix: HDF5 through h5py (imported here)
+    for ``.hdf5`` / ``.h5``, one h5py group a group and one dataset an
+    array, else :func:`write_npz_groups`."""
+    if not is_hdf5(path):
+        return write_npz_groups(path, groups)
+    import h5py
+    items = groups.items() if isinstance(groups, dict) else groups
+    with h5py.File(path, 'w') as f:
+        for group, arrays in items:
+            g = f.create_group(group)
+            for ds, value in arrays.items():
+                g.create_dataset(ds, data=value)
+
+
 class _NpzGroup:
     def __init__(self, file, name, datasets):
         self._file, self._name, self._datasets = file, name, datasets

@@ -1,5 +1,5 @@
-"""Benchmark sweep + timing harness (reference benchmark_evaluation.py;
-port of ``xpoint_tpu/eval/benchmark.py`` less ``model_cost``).
+"""Benchmark sweep + timing harness + model cost (reference
+benchmark_evaluation.py; port of ``xpoint_tpu/eval/benchmark.py``).
 
 One pass over the dataset computing repeatability / descriptor metrics /
 homography correctness over LISTS of thresholds (repeatability 1-10, kp
@@ -241,3 +241,29 @@ def compute_metrics(infer, dataloader, config,
                 for tw in threshold_warp},
         }
     return results
+
+
+def model_cost(module, image_shape, batch=1):
+    """FLOPs and bytes of one pair forward (port of JAX's ``model_cost``,
+    which reads XLA's cost analysis; the reference counts with fvcore and
+    a selective-scan handler, VMamba.py:1527-1548).
+
+    ``module.forward_pair`` runs once in eval mode, without gradients, on
+    zero images (batch, H, W, 1) on the module's device. The hand-written
+    kernels' work is counted from their shapes and the rest operator by
+    operator (``kernels/cost.py``), so the count is the same on the card
+    and on the CPU, where the kernels' plain versions run. Returns
+    ``{"flops", "bytes_accessed", "cost_analysis", "kernels"}``:
+    ``cost_analysis`` holds the totals and their parts as numbers (JAX's
+    holds XLA's), ``kernels`` each kernel's launches and work."""
+    from ..kernels import cost
+    dev = next(module.parameters()).device
+    img = torch.zeros((batch,) + tuple(image_shape) + (1,), device=dev)
+    was_training = module.training
+    module.eval()
+    try:
+        with torch.no_grad(), cost.count() as counter:
+            module.forward_pair(img, img)
+    finally:
+        module.train(was_training)
+    return counter.result()

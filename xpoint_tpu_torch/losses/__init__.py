@@ -1,2 +1,4 @@
 """Training losses."""
-from .xpoint_loss import XPointLoss  # noqa: F401
+from .xpoint_loss import XPointLoss, descriptor_loss, detector_loss
+
+__all__ = ["XPointLoss", "detector_loss", "descriptor_loss"]

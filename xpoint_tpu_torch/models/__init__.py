@@ -2,7 +2,10 @@
 or SwinV2 encoder and the RegNet or HomographyNet homography head; the
 baselines (MagicLeap SuperPoint, the classical detectors) through
 :func:`get_model`."""
-from .xpoint import (VMAMBA_MODEL_CFG, VMAMBA_TRAIN_CFG,  # noqa: F401
+from .heads import CNNEncoder, Head
+from .regnet import RegNet
+from .vssm import VSSM, build_vssm_from_config
+from .xpoint import (DEFAULT_CONFIG, VMAMBA_MODEL_CFG, VMAMBA_TRAIN_CFG,
                      XPointNet, build_xpoint)
 
 
@@ -22,3 +25,8 @@ def get_model(config, device="cuda", seed=0):
         from .classic import ClassicDetectors
         return ClassicDetectors(config), config
     raise ValueError(f"unknown model type: {mtype}")
+
+
+__all__ = ["XPointNet", "build_xpoint", "DEFAULT_CONFIG", "VSSM",
+           "build_vssm_from_config", "RegNet", "CNNEncoder", "Head",
+           "get_model", "VMAMBA_MODEL_CFG", "VMAMBA_TRAIN_CFG"]

@@ -19,7 +19,7 @@ import math
 
 import torch
 
-from ..kernels import build
+from ..kernels import build, cost
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}   # the kernels' codes
 
@@ -100,9 +100,13 @@ def linear_scan_launch(a, b, reverse=False, shift=0, dim=0):
     tensors launch the kernel, CPU tensors run the plain version. Returns
     fp32 (fp64 for fp64 operands) of the operands' shape."""
     _check_operands(a, b, dim)
-    if a.device.type == "cpu":
-        return linear_scan_plain(a, b, reverse, shift, dim)
-    return _launch(a, b, reverse, shift, dim)
+    if cost.counting():
+        L = a.shape[dim]
+        cost.record("linear_scan", cost.linear_scan(L, a.numel() // L))
+    with cost.uncounted():
+        if a.device.type == "cpu":
+            return linear_scan_plain(a, b, reverse, shift, dim)
+        return _launch(a, b, reverse, shift, dim)
 
 
 class LinearScan(torch.autograd.Function):

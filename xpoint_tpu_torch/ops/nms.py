@@ -15,7 +15,7 @@ import functools
 
 import torch
 
-from ..kernels import build
+from ..kernels import build, cost
 from .gridops import device_constant
 
 
@@ -156,12 +156,20 @@ def _grid_nms_keep_async(prob, valid, size, iou):
     if valid.dtype != torch.bool or prob.device != valid.device:
         raise ValueError(f"valid must be bool on prob's device, got "
                          f"{valid.dtype} on {valid.device}")
-    if prob.device.type == "cpu":
-        keep, sweeps = grid_nms_keep_plain(prob, valid, size, iou)
-        return keep, torch.tensor(sweeps, dtype=torch.int32)
-    if prob.device.type != "cuda":
+    if prob.device.type not in ("cpu", "cuda"):
         raise ValueError(f"grid_nms_keep: unsupported device {prob.device}")
-    return _grid_nms_keep_cuda(prob, valid, size, iou)
+    with cost.uncounted():
+        if prob.device.type == "cpu":
+            keep, sweeps = grid_nms_keep_plain(prob, valid, size, iou)
+            sweeps = torch.tensor(sweeps, dtype=torch.int32)
+        else:
+            keep, sweeps = _grid_nms_keep_cuda(prob, valid, size, iou)
+    if cost.counting():
+        # the work depends on the data: the sweeps this call took (read
+        # back only while counting)
+        cost.record("grid_nms_keep", cost.nms(prob.numel(), int(sweeps),
+                                              size, iou))
+    return keep, sweeps
 
 
 def grid_nms_keep(prob, valid, size, iou):

@@ -31,7 +31,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from ..kernels import build
+from ..kernels import build, cost
 from .linear_scan import _DTYPE_CODE, _compute_dtype, linear_scan
 
 CKPT_CHUNK = 256
@@ -458,10 +458,15 @@ def selective_scan_bidir(u_t, dt_t, bc_t, cc_t, A, D, delta_bias,
     docstring). CUDA tensors launch the kernel (counted in
     ``selective_scan_bidir.launches``); CPU tensors run the plain version."""
     _check_operands(u_t, dt_t, bc_t, cc_t, A, D, delta_bias)
-    if _device_kind(u_t, "selective_scan_bidir") == "cpu":
-        return selective_scan_bidir_plain(u_t, dt_t, bc_t, cc_t, A, D,
-                                          delta_bias, emit_ckpt)
-    return _launch(u_t, dt_t, bc_t, cc_t, A, D, delta_bias, emit_ckpt)
+    if cost.counting():
+        L, B, K2, Dim = u_t.shape
+        cost.record("selective_scan_bidir", cost.scan_bidir(
+            L, B * K2 * Dim, B * K2, Dim, emit_ckpt))
+    with cost.uncounted():
+        if _device_kind(u_t, "selective_scan_bidir") == "cpu":
+            return selective_scan_bidir_plain(u_t, dt_t, bc_t, cc_t, A, D,
+                                              delta_bias, emit_ckpt)
+        return _launch(u_t, dt_t, bc_t, cc_t, A, D, delta_bias, emit_ckpt)
 
 
 selective_scan_bidir.launches = 0
@@ -519,12 +524,16 @@ def selective_scan_bidir_bwd(u_t, dt_t, bc_t, cc_t, A, D, delta_bias,
     _check_operands(u_t, dt_t, bc_t, cc_t, A, D, delta_bias, extra={
         "hck_f": (hck_f, ck), "hck_r": (hck_r, ck),
         "g_f": (g_f, tuple(u_t.shape)), "g_r": (g_r, tuple(u_t.shape))})
-    if _device_kind(u_t, "selective_scan_bidir_bwd") == "cpu":
-        return selective_scan_bidir_bwd_plain(u_t, dt_t, bc_t, cc_t, A, D,
-                                              delta_bias, hck_f, hck_r, g_f,
-                                              g_r)
-    return _launch_bwd(u_t, dt_t, bc_t, cc_t, A, D, delta_bias, hck_f, hck_r,
-                       g_f, g_r)
+    if cost.counting():
+        cost.record("selective_scan_bidir_bwd", cost.scan_bidir_bwd(
+            L, B * K2 * Dim, B * K2))
+    with cost.uncounted():
+        if _device_kind(u_t, "selective_scan_bidir_bwd") == "cpu":
+            return selective_scan_bidir_bwd_plain(
+                u_t, dt_t, bc_t, cc_t, A, D, delta_bias, hck_f, hck_r, g_f,
+                g_r)
+        return _launch_bwd(u_t, dt_t, bc_t, cc_t, A, D, delta_bias, hck_f,
+                           hck_r, g_f, g_r)
 
 
 selective_scan_bidir_bwd.launches = 0
@@ -687,9 +696,13 @@ def _fused_bkld_forward(u, dt, A, Bs, Cs, D, delta_bias):
     const = torch.float64 if fp64 else torch.float32
     if any(x.dtype != const for x in (A, D, delta_bias)):
         raise TypeError(f"A, D, delta_bias must be {const}")
-    if _device_kind(u, "selective_scan_fused_bkld") == "cpu":
-        return selective_scan_fused_bkld_plain(*args)
-    return _launch_fused(*(x.contiguous() for x in args))
+    if cost.counting():
+        cost.record("selective_scan_fused_bkld", cost.scan_fused(
+            L, B * K * Dim, B * K, Dim))
+    with cost.uncounted():
+        if _device_kind(u, "selective_scan_fused_bkld") == "cpu":
+            return selective_scan_fused_bkld_plain(*args)
+        return _launch_fused(*(x.contiguous() for x in args))
 
 
 def _unfused_bkld(u, dt, A, Bs, Cs, D, delta_bias):

@@ -1,11 +1,14 @@
 """Homography image warping by explicit gather (port of
-``xpoint_tpu/ops/warp.py``: ``warp_image_batch``, ``warp_image_multi`` and
-their helpers).
+``xpoint_tpu/ops/warp.py``: ``warp_image``, ``warp_image_batch``,
+``warp_image_multi`` and their helpers).
 
 Convention: a homography ``H`` maps SOURCE pixel coords to DESTINATION
 pixel coords in cv2 (x=col, y=row) order, as cv2.warpPerspective does. The
 warp samples ``out[y, x] = src(H^-1 @ [x, y, 1])`` at exact pixel positions
-(align_corners=True), bilinear or nearest (round half to even).
+(align_corners=True), bilinear or nearest (round half to even). ``dsize``
+(H_out, W_out) gives an output canvas other than the input's, as in JAX;
+the warp kernel does not take it (nor does the TPU kernel), so such a warp
+is always the plain gather.
 
 Padding modes: 'zeros' and 'reflection' (mirror about pixel centers,
 cv2.BORDER_REFLECT_101). This is an explicit gather in pixel coordinates.
@@ -95,12 +98,14 @@ def check_modes(mode, padding_mode):
         raise ValueError(f"unknown padding mode: {padding_mode}")
 
 
-def warp_from_inverse(src, Hinv, mode, padding_mode):
+def warp_from_inverse(src, Hinv, mode, padding_mode, dsize=None):
     """src (n, H, W, C) (an expanded view will do), Hinv (n, 3, 3) fp32
-    inverse homographies -> (n, H, W, C)."""
+    inverse homographies -> (n, H_out, W_out, C), ``dsize`` (H_out, W_out)
+    defaulting to (H, W)."""
     check_modes(mode, padding_mode)
     n, H, W, C = src.shape
-    ys, xs = _source_coords_from_inverse(Hinv, H, W)
+    H_out, W_out = dsize if dsize is not None else (H, W)
+    ys, xs = _source_coords_from_inverse(Hinv, H_out, W_out)
     if padding_mode == "reflection":
         ys = _reflect_101(ys, H)
         xs = _reflect_101(xs, W)
@@ -119,15 +124,23 @@ def warp_from_inverse(src, Hinv, mode, padding_mode):
         top = g(y0i, x0i) * (1 - wx) + g(y0i, x0i + 1) * wx
         bot = g(y0i + 1, x0i) * (1 - wx) + g(y0i + 1, x0i + 1) * wx
         out = top * (1 - wy) + bot * wy
-    return out.reshape(n, H, W, C)
+    return out.reshape(n, H_out, W_out, C)
+
+
+def warp_image(image, homography, mode="bilinear", padding_mode="zeros",
+               dsize=None):
+    """Warp one image: image (H, W, C), homography (3, 3) ->
+    (H_out, W_out, C), ``dsize`` (H_out, W_out) defaulting to (H, W)."""
+    return warp_image_batch(image[None], homography[None], mode,
+                            padding_mode, dsize)[0]
 
 
 def warp_image_batch(images, homographies, mode="bilinear",
-                     padding_mode="zeros"):
+                     padding_mode="zeros", dsize=None):
     """Per-sample warp: images (n, H, W, C), homographies (n, 3, 3) ->
-    (n, H, W, C)."""
+    (n, H_out, W_out, C)."""
     return warp_from_inverse(images, inverse_homographies(homographies),
-                             mode, padding_mode)
+                             mode, padding_mode, dsize)
 
 
 def multi_source(images, n):
@@ -140,13 +153,14 @@ def multi_source(images, n):
 
 
 def warp_image_multi(images, homographies, mode="bilinear",
-                     padding_mode="zeros"):
+                     padding_mode="zeros", dsize=None):
     """Warp the SAME image batch by MANY homographies (the homographic-
     adaptation inner loop): images (B, H, W, C), homographies (n, 3, 3) ->
-    (n, B, H, W, C)."""
+    (n, B, H_out, W_out, C)."""
     B, H, W, C = images.shape
+    H_out, W_out = dsize if dsize is not None else (H, W)
     n = homographies.shape[0]
     out = warp_from_inverse(multi_source(images, n),
                             inverse_homographies(homographies), mode,
-                            padding_mode)
-    return out.reshape(n, H, W, B, C).permute(0, 3, 1, 2, 4)
+                            padding_mode, dsize)
+    return out.reshape(n, H_out, W_out, B, C).permute(0, 3, 1, 2, 4)

@@ -13,7 +13,7 @@ import ctypes
 
 import torch
 
-from ..kernels import build
+from ..kernels import build, cost
 from .warp import (MODES, PADDING_MODES, check_modes, inverse_homographies,
                    warp_image_batch, warp_image_multi)
 
@@ -34,6 +34,16 @@ def _check(images, homographies, n_axis_is_batch, mode, padding_mode):
                          f"{images.device}")
     if images.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {images.device}")
+
+
+def _record(images, homographies, multi):
+    """The kernel's work, while a cost count runs (``kernels/cost.py``)."""
+    if cost.counting():
+        n = homographies.shape[0]
+        _, H, W, C = images.shape
+        n_out = n * (images.shape[0] if multi else 1) * H * W * C
+        cost.record("warp_projective", cost.warp(images.numel(), n_out, n,
+                                                 H, W))
 
 
 def _warp_library():
@@ -82,17 +92,23 @@ def warp_multi(images, homographies, mode="bilinear", padding_mode="zeros"):
     (n, B, H, W, C). A CUDA tensor launches the kernel (counted in
     ``warp_projective.launches``); a CPU tensor runs the plain gather."""
     _check(images, homographies, False, mode, padding_mode)
-    if images.device.type == "cuda":
-        return warp_projective(images, inverse_homographies(homographies),
-                               mode, padding_mode, multi=True)
-    return warp_image_multi(images, homographies, mode, padding_mode)
+    _record(images, homographies, multi=True)
+    with cost.uncounted():
+        if images.device.type == "cuda":
+            return warp_projective(images,
+                                   inverse_homographies(homographies), mode,
+                                   padding_mode, multi=True)
+        return warp_image_multi(images, homographies, mode, padding_mode)
 
 
 def warp_batch(images, homographies, mode="bilinear", padding_mode="zeros"):
     """images (n, H, W, C), one homography each (n, 3, 3) -> (n, H, W, C).
     Same contract and dispatch as :func:`warp_multi`."""
     _check(images, homographies, True, mode, padding_mode)
-    if images.device.type == "cuda":
-        return warp_projective(images, inverse_homographies(homographies),
-                               mode, padding_mode, multi=False)
-    return warp_image_batch(images, homographies, mode, padding_mode)
+    _record(images, homographies, multi=False)
+    with cost.uncounted():
+        if images.device.type == "cuda":
+            return warp_projective(images,
+                                   inverse_homographies(homographies), mode,
+                                   padding_mode, multi=False)
+        return warp_image_batch(images, homographies, mode, padding_mode)

@@ -42,12 +42,16 @@ _RANK_DEVICES = None    # the launcher's device list, one per rank
 class Mesh:
     """A 1-D data-parallel mesh as one rank sees it: ``rank``, ``size``
     (the number of ranks), this rank's ``device`` and the process
-    ``group`` (None for a one-rank mesh without a process group)."""
+    ``group`` (None for a one-rank mesh). ``member`` is False on a rank of
+    the process group that a mesh of its first ``size`` ranks leaves out:
+    such a rank takes no part in the mesh's work (its ``rank`` is its rank
+    in the process group)."""
 
-    def __init__(self, rank, size, device, group=None):
+    def __init__(self, rank, size, device, group=None, member=True):
         self.rank, self.size = int(rank), int(size)
         self.device = torch.device(device)
         self.group = group
+        self.member = bool(member)
 
     def rows(self, x):
         """This rank's rows of a tensor whose leading axis is the global
@@ -68,39 +72,45 @@ def _set_rank_devices(devices):
 
 
 def make_mesh(n_devices=None, devices=None, device="cuda"):
-    """The mesh over every rank of the process group (one rank and no
-    group when none is initialised).
+    """The mesh over the first ``n_devices`` ranks of the process group
+    (default: every rank; one rank and no group when none is initialised),
+    as JAX's ``make_mesh`` takes the first n devices.
 
+    With fewer ranks than the group has, every rank of the group must call
+    this (it builds the sub-group of ranks 0..n-1 with ``dist.new_group``);
+    the ranks past n get a mesh with ``member`` False, and take no part.
     ``devices`` names each rank's device (a list as long as the group);
     default: the list the launcher was given, else ``cuda:<rank>`` (or
-    ``device`` for a one-rank mesh). Raises if ``n_devices`` asks for
-    another number of ranks than the group has, if ``devices`` does not
-    name one device a rank, or if the default CUDA devices do not exist:
-    silently truncating would let a "multi-device" check pass on one."""
-    if dist.is_available() and dist.is_initialized():
-        rank, size = dist.get_rank(), dist.get_world_size()
-        group = dist.group.WORLD
-    else:
-        rank, size, group = 0, 1, None
-    if n_devices is not None and n_devices != size:
+    ``device`` for a one-rank group). Raises, as JAX's does when fewer
+    devices exist, if ``n_devices`` asks for more ranks than the group
+    has; and if ``devices`` does not name one device a rank, or if the
+    default CUDA devices do not exist: silently truncating would let a
+    "multi-device" check pass on one."""
+    grouped = dist.is_available() and dist.is_initialized()
+    rank, world = ((dist.get_rank(), dist.get_world_size()) if grouped
+                   else (0, 1))
+    size = world if n_devices is None else int(n_devices)
+    if size > world:
         raise ValueError(
-            f"make_mesh: asked for {n_devices} devices but the process "
-            f"group has {size} rank(s); start one rank a device with "
+            f"make_mesh: asked for {size} devices but the process group "
+            f"has only {world} rank(s); start one rank a device with "
             f"xpoint_tpu_torch.parallel.launch")
+    if size < 1:
+        raise ValueError(f"make_mesh: asked for {size} devices")
     if devices is None:
         devices = _RANK_DEVICES
     if devices is None:
         dev = torch.device(device)
-        if size == 1:
+        if world == 1:
             devices = [dev]
         elif dev.type == "cuda":
-            devices = [torch.device("cuda", r) for r in range(size)]
+            devices = [torch.device("cuda", r) for r in range(world)]
         else:
-            devices = [dev] * size
+            devices = [dev] * world
     devices = [torch.device(d) for d in devices]
-    if len(devices) != size:
+    if len(devices) != world:
         raise ValueError(f"make_mesh: {len(devices)} devices named for "
-                         f"{size} rank(s)")
+                         f"{world} rank(s)")
     mine = devices[rank]
     if mine.type == "cuda":
         have = torch.cuda.device_count() if torch.cuda.is_available() else 0
@@ -108,6 +118,13 @@ def make_mesh(n_devices=None, devices=None, device="cuda"):
             raise ValueError(
                 f"make_mesh: rank {rank} asks for {mine} but only {have} "
                 f"CUDA device(s) exist")
+    if size == world:
+        group = dist.group.WORLD if grouped else None
+    else:
+        # a collective call: every rank of the group takes part in it
+        group = dist.new_group(list(range(size))) if size > 1 else None
+        if rank >= size:
+            return Mesh(rank, size, mine, None, member=False)
     return Mesh(rank, size, mine, group)
 
 

@@ -37,7 +37,7 @@ def label_counts(path):
     from ..data.group_file import open_group_file
     counts = {}
     with open_group_file(path) as f:
-        names = f.keys()
+        names = list(f.keys())
         for name in names:
             grp = f[name]
             for ds in grp.keys():

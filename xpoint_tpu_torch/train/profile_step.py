@@ -20,11 +20,13 @@ import torch
 B, S, N_TIMED = 16, 256, 7
 
 
-def flagship_train(dev, forward_type=None, d_state=None, mesh=None):
+def flagship_train(dev, forward_type=None, d_state=None, mesh=None,
+                   fp32=False):
     """The flagship training config (VMAMBA_TRAIN_CFG: 256^2, bf16,
     DropPath 0.2, RegNet + HM loss, hard negatives; with ``forward_type``
-    in place of its SSM_FORWARDTYPE v05_noz and ``d_state`` in place of its
-    SSM_D_STATE 1) from seed 0, on the
+    in place of its SSM_FORWARDTYPE v05_noz, ``d_state`` in place of its
+    SSM_D_STATE 1, and with ``fp32`` its mixed precision off) from seed 0,
+    on the
     SyntheticPairs corpus (32 pairs at 320^2, 256 keypoints each, seed 0)
     made resident by load_resident_pair_data and
     batched by make_resident_batch_fn. Returns (state, step, data, meta):
@@ -44,6 +46,8 @@ def flagship_train(dev, forward_type=None, d_state=None, mesh=None):
         vssm["SSM_FORWARDTYPE"] = forward_type
     if d_state is not None:
         vssm["SSM_D_STATE"] = d_state
+    if fp32:
+        cfg["model"]["mixed_precision"] = False
     module, _ = build_xpoint(cfg["model"], device=dev, seed=0)
     state = TrainState(module, make_optimizer(cfg["training"])[0])
     data, meta = load_resident_pair_data(SyntheticPairs(), device=dev)

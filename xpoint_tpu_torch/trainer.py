@@ -35,7 +35,10 @@ Where it differs:
     ranks compute what one device computes on the global batch. Every rank
     draws the same shuffles and generator states; rank 0 alone writes
     ``params.yaml``, the checkpoints, TensorBoard and the log lines, and
-    every rank reads a checkpoint on resume.
+    every rank reads a checkpoint on resume. ``n_devices`` below the
+    group's size trains on its first n ranks, as JAX's trains on its first
+    n devices; a rank past them builds nothing, and its ``train`` returns
+    None without a step or a collective.
 """
 import os
 import time
@@ -97,6 +100,9 @@ class Trainer:
         self.mesh = make_mesh(n_devices, device=device)
         self.device = self.mesh.device
         self.main = self.mesh.rank == 0
+        self.state, self.start_epoch = None, 0
+        if not self.mesh.member:
+            return
         mesh = self.mesh if self.mesh.size > 1 else None
         if self.main:
             os.makedirs(output_dir, exist_ok=True)
@@ -225,6 +231,8 @@ class Trainer:
         (``.model`` / ``.pth`` / ``.pt``), converted by
         ``compat.torch_converter``; anything else is a bare state_dict of
         this package. An orbax ``.ckpt`` of the JAX package is not read."""
+        if not self.mesh.member:
+            return None
         if path.endswith('.ckpt'):
             raise NotImplementedError(
                 f"{path}: orbax checkpoints of the JAX package are not read")
@@ -258,6 +266,8 @@ class Trainer:
         return stats
 
     def resume(self, name='latest'):
+        if not self.mesh.member:
+            return self.start_epoch
         restored, epoch = ckpt.restore(self.output_dir, self.state, name)
         if restored is not None:
             self.start_epoch = epoch
@@ -300,6 +310,8 @@ class Trainer:
         tcfg = self.config.get('training', {})
         n_epochs = n_epochs or int(tcfg.get('n_epochs', 1))
         save_every = int(tcfg.get('save_every_n_epoch', 0) or 0)
+        if not self.mesh.member:
+            return None
         if self.mesh.size > 1:
             opt = self.state.optimizer
             replicate([self.state.params, list(self.module.buffers()),
