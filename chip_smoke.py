@@ -25,10 +25,12 @@ Phases (any failure exits non-zero and prints no result):
      device time behind queued work (ms), the time with the host's launch
      path, both bounds (the function's and the bytes of every sweep through
      device memory) and the plain version's time; then boxes of 24 and 32
-     (the kernel's direct instance, which reads each neighbourhood from
-     device memory) on the 16 heatmaps and on one of them: exactly the
-     plain version's mask and sweeps in one launch a call, device time,
-     bound and plain time;
+     (the kernel's banded instance, which stages each neighbourhood in
+     shared memory a band of rows at a time) on the 16 heatmaps and on one
+     of them: exactly the plain version's mask and sweeps in one launch a
+     call, device time, bound and plain time; the banded instance's
+     registers, spills and static shared memory (nvcc -Xptxas -v) and each
+     launch's dynamic shared memory, resident blocks an SM and band plan;
   5. a small-input reference check: the tiny fp32 model on the card against
      the same model on the CPU (plain versions);
   6. K1 with checkpoints and K3 (the scan's backward) at the flagship
@@ -416,6 +418,31 @@ def queued_delay(dev):
     some 40 small kernels behind it."""
     big = torch.ones(8192, 8192, dtype=torch.bfloat16, device=dev)
     return lambda: [torch.mm(big, big) for _ in range(8)]
+
+
+def ptxas_summary(log, entry):
+    """Registers, spill bytes and static shared memory of the entry
+    functions whose mangled names contain ``entry``, from nvcc's ``-Xptxas
+    -v`` output (``build.build_all(verbose=True)``)."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?(\w+)", line)
+        if m:
+            name = m.group(1) if entry in m.group(1) else None
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out.setdefault(name, {}).update(spill_stores=int(m.group(1)),
+                                            spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+        if m:
+            out.setdefault(name, {}).update(registers=int(m.group(1)),
+                                            static_smem=int(m.group(2)))
+    return out
 
 
 def bound(work):
@@ -1932,7 +1959,8 @@ def k2_on(probs, size, min_prob, tag):
     launches are not the path's: its counts are read before."""
     from xpoint_tpu_torch.kernels import cost
     from xpoint_tpu_torch.ops.nms import (_grid_nms_keep_cuda, grid_nms_keep,
-                                          grid_nms_keep_plain)
+                                          grid_nms_keep_plain,
+                                          last_launch_shape)
     valid = probs > min_prob
     before = grid_nms_keep.launches
     keep, sweeps = grid_nms_keep(probs, valid, size, 0.1)
@@ -1946,12 +1974,13 @@ def k2_on(probs, size, min_prob, tag):
                          f"{launches} launches")
     args = [(probs, valid, size, 0.1)] * 5
     ms = cuda_ms_queued(_grid_nms_keep_cuda, args, queued_delay(probs.device))
+    shape = last_launch_shape()             # of the launches just timed
     plain_ms = cuda_ms(grid_nms_keep_plain, args[:3])
     b_ms, b_by = bound(cost.nms(probs.numel(), sweeps, size, 0.1))
     res = {"planes": probs.shape[0], "shape": list(probs.shape),
            "size": size, "sweeps": sweeps, "launches": launches,
            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms,
-           "bound_by": b_by, "max_abs_err": 0.0}
+           "bound_by": b_by, "max_abs_err": 0.0, "launch_shape": shape}
     print(f"K2 on the {tag} heatmaps ({tuple(probs.shape)}, size {size}): "
           f"{res}", flush=True)
     return res
@@ -4407,10 +4436,10 @@ def _p30_roofline(module):
     return res
 
 
-def _serve_latency(dev, module):
+def _serve_latencies(dev, module):
     """Phase 3's call time, measured again: the serving pipeline at 512^2,
     B=8 on N_CALLS fresh image pairs after a warm-up, each call
-    synchronised; the median ms."""
+    synchronised; the ms of each call."""
     from xpoint_tpu_torch.eval import make_pair_pipeline
     run = make_pair_pipeline(module, (H, W), k=1024, nms_size=8,
                              detection_threshold=0.015)
@@ -4426,33 +4455,38 @@ def _serve_latency(dev, module):
         run(img_o, img_t)
         torch.cuda.synchronize()
         lat.append((time.perf_counter() - t0) * 1e3)
-    return _median(lat)
+    return lat
 
 
 def _p30_stage_table(dev, module, phase3_latency_ms):
     """30c: both stage tables; the on-device stages' sum against phase
-    3's call time, measured again just before them (the host's speed
-    drifts over a run: phase 3 ran minutes earlier; its own figure is
-    printed beside)."""
+    3's call time, measured again just before and just after them and
+    taken as the median of both sets of calls (the host's speed drifts
+    over a run: phase 3 ran minutes earlier, and one set taken before the
+    table alone was once 26% faster than the table; phase 3's own figure
+    is printed beside)."""
     from xpoint_tpu_torch.tools import stage_table
     host = stage_table.host_staged_table(module, H, W)
     host_ms = {k: 1e3 * sum(v) / len(v) for k, v in host.items()}
     print("phase 30 stage_table host-staged (B=1, ms): "
           + json.dumps(host_ms), flush=True)
-    call_ms = _serve_latency(dev, module)
+    before = _serve_latencies(dev, module)
     stages, cumulative = stage_table.on_device_table(module, B, H, W)
+    after = _serve_latencies(dev, module)
+    call_ms = _median(before + after)
     dev_ms = {k: 1e3 * v for k, v in stages.items()}
+    cum_ms = {k: 1e3 * v for k, v in cumulative.items()}
     total_ms = sum(dev_ms.values())
     print(f"phase 30 stage_table on-device (B={B}, ms a batch): "
           + json.dumps(dev_ms) + f"; sum {total_ms} against phase 3's "
-          f"call {call_ms} measured just before (phase 3: "
-          f"{phase3_latency_ms})", flush=True)
+          f"call {call_ms} measured around it (before {_median(before)}, "
+          f"after {_median(after)}; phase 3: {phase3_latency_ms}); "
+          f"cumulative {json.dumps(cum_ms)}", flush=True)
     if abs(total_ms - call_ms) > 0.25 * call_ms:
         raise SystemExit(f"stage_table: the on-device stages sum to "
                          f"{total_ms} ms, phase 3's call {call_ms}")
     return {"host_staged_ms": host_ms, "on_device_ms": dev_ms,
-            "on_device_sum_ms": total_ms,
-            "cumulative_ms": {k: 1e3 * v for k, v in cumulative.items()},
+            "on_device_sum_ms": total_ms, "cumulative_ms": cum_ms,
             "call_ms": call_ms, "phase3_latency_ms": phase3_latency_ms}
 
 
@@ -4833,11 +4867,17 @@ def main():
     main_res, probs, serve_module = phase_main_path(dev)
     nms_res = phase_nms(probs)
     main_res["nms_sweeps_per_call"] = nms_res["sweeps"]
-    # boxes above 16 (the direct instance) on the serving heatmaps and on
+    # boxes above 16 (the banded instance) on the serving heatmaps and on
     # one of their planes
     k2_large = [k2_on(p, size, 0.015, f"serving, {tag}")
                 for size in (24, 32)
                 for p, tag in ((probs, "16 planes"), (probs[:1], "1 plane"))]
+    print("K2 banded instance (boxes above 16): ptxas "
+          f"{ptxas_summary(build_log['nms_sweep'], 'nms_kernelILi0E')}; "
+          "launch shape (smem_bytes a block, blocks_per_sm resident, band "
+          "rows, table levels, staged columns) " + "; ".join(
+              f"size {r['size']} {tuple(r['shape'])}: {r['launch_shape']}"
+              for r in k2_large), flush=True)
     ref_res = phase_reference(dev)
     # the training stage shapes (256^2, B=16); each stage has 2 passes x 2
     # blocks, as a serving call has
@@ -5222,7 +5262,7 @@ def main():
           "K4 rows the HA-step calls of phase 9 (the export's shapes), "
           "launches those of phases 17 and 18; train on host data: K1 and K3 "
           "launches of phase 19 (its 16 steps), times those of phase 6 (the "
-          "same shapes); nms_sweep at sizes 24 and 32: the direct instance "
+          "same shapes); nms_sweep at sizes 24 and 32: the banded instance "
           "on phase 3's heatmaps, launches per call (no path runs these "
           "sizes); eval: launches of phase 20's MAGSAC sweep (38 pair "
           "forwards, the device sweep's are equal), K1 times per pair (sum "

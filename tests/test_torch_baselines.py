@@ -62,6 +62,7 @@ from test_torch_models import _perturb, tiny_cfg
 from test_torch_pretrained import _swin_ref_key, _vssm_ref_key
 from test_torch_swinv2 import swin_cfg
 from test_torch_trainer import FrozenSingleImages, synth_config
+from torch_env import torch_env  # noqa: F401 (autouse)
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

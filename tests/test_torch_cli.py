@@ -35,6 +35,7 @@ from xpoint_tpu_torch.tools import full_cycle
 from xpoint_tpu_torch.tools import make_mini_corpus as corpus
 
 from test_torch_models import _jax_tiny_model, tiny_cfg
+from torch_env import torch_env  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PRED = {"nms": 4, "detection_threshold": 0.015, "topk": 0,

@@ -27,6 +27,7 @@ from xpoint_tpu_torch.model_io import load_model
 from xpoint_tpu_torch.models import build_xpoint
 
 from test_torch_models import tiny_cfg
+from torch_env import torch_env  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_PAIRS = 6

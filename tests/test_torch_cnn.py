@@ -21,6 +21,7 @@ from xpoint_tpu_torch.models import build_xpoint
 from xpoint_tpu_torch.models.heads import SpectralBatchNorm
 
 from test_torch_models import _perturb
+from torch_env import torch_env  # noqa: F401 (autouse)
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

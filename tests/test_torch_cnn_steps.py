@@ -33,6 +33,7 @@ from xpoint_tpu_torch.train import (TrainState, make_optimizer,
 
 from test_torch_cnn import (T, _assert_trees_close, _images, cnn_cfg,
                             jax_cnn, port_cnn)
+from torch_env import torch_env  # noqa: F401 (autouse)
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

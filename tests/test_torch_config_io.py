@@ -25,6 +25,7 @@ from xpoint_tpu_torch.model_io import load_model
 from xpoint_tpu_torch.models import build_xpoint
 from xpoint_tpu_torch.train import TrainState, make_optimizer
 from xpoint_tpu_torch.trainer import Trainer
+from torch_env import torch_env  # noqa: F401 (autouse)
 
 CONFIG = {
     "dataset": {"type": "ImagePairDataset", "height": 256, "width": 256,

@@ -12,6 +12,7 @@ from xpoint_tpu.compat import convert_torch_state_dict
 from xpoint_tpu.ops.detector import prob_from_logits
 
 from reference_oracle import get_reference
+from torch_env import torch_env  # noqa: F401 (autouse)
 
 
 def _forward_jax(module, variables, img_nchw, spectrum="optical"):

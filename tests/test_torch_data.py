@@ -37,6 +37,7 @@ from xpoint_tpu_torch.geometry.homography import (compute_valid_mask_device,
                                                   warp_points)
 from xpoint_tpu_torch.models import VMAMBA_TRAIN_CFG
 from xpoint_tpu_torch.ops.warp import warp_image_batch
+from torch_env import torch_env  # noqa: F401 (autouse)
 
 T = torch.from_numpy
 FLAGSHIP_PARAMS = VMAMBA_TRAIN_CFG["dataset"]["augmentation"]["homographic"][

@@ -37,6 +37,7 @@ from xpoint_tpu_torch.ops.detector import refine_keypoints_subpixel
 from xpoint_tpu_torch.ops.nms import extract_keypoints
 
 from test_torch_models import _jax_tiny_model, tiny_cfg
+from torch_env import torch_env  # noqa: F401 (autouse)
 
 T = torch.from_numpy
 

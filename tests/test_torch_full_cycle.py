@@ -26,6 +26,7 @@ from xpoint_tpu_torch.data.group_file import open_group_file
 from xpoint_tpu_torch.tools import full_cycle, holdout_sweep
 from xpoint_tpu_torch.tools import make_mini_corpus as corpus
 from xpoint_tpu_torch.tools.cycle_report import report
+from torch_env import torch_env  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -25,6 +25,7 @@ from xpoint_tpu_torch.models import VMAMBA_TRAIN_CFG
 from xpoint_tpu_torch.selfsup.export import NumpySink, open_sink
 
 from test_torch_host_data import cv2_path, run_jax, run_port  # noqa: F401
+from torch_env import torch_env  # noqa: F401 (autouse)
 
 FLAGSHIP_AUG = VMAMBA_TRAIN_CFG["dataset"]["augmentation"]
 

@@ -36,6 +36,7 @@ from xpoint_tpu_torch.data.sat_thermal import SatThermalGeoDataset
 from xpoint_tpu_torch.models import VMAMBA_TRAIN_CFG
 from xpoint_tpu_torch.trainer import Trainer
 from xpoint_tpu_torch.utils import generate_keypoint_map
+from torch_env import torch_env  # noqa: F401 (autouse)
 
 ATOL = 1e-6
 FLAGSHIP_AUG = VMAMBA_TRAIN_CFG["dataset"]["augmentation"]

@@ -26,6 +26,7 @@ from xpoint_tpu.geometry.homography import sample_homography
 from xpoint_tpu.ops import warp as jx_warp
 
 from xpoint_tpu_torch.ops import warp
+from torch_env import torch_env  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PACKAGES = ["", "ops", "geometry", "losses", "models", "selfsup", "compat",

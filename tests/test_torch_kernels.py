@@ -21,6 +21,7 @@ from xpoint_tpu_torch.ops.selective_scan_cuda import (
     SelectiveScanBidir, selective_scan_bidir, selective_scan_bidir_bwd,
     selective_scan_bidir_bwd_plain, selective_scan_bidir_plain,
     selective_scan_fused_bkld, selective_scan_fused_bkld_plain)
+from torch_env import torch_env  # noqa: F401 (autouse)
 
 pytestmark = pytest.mark.cuda
 
@@ -253,11 +254,21 @@ def _nms_planes(seed, n, H, W):
     (8, 0.1, (4, 64, 128)), (4, 0.1, (2, 100, 70)), (16, 0.2, (2, 96, 96)),
     (3, 0.5, (3, 33, 65)), (8, 1.0, (1, 32, 32)), (17, 0.1, (2, 80, 72)),
     (24, 0.1, (2, 96, 130)), (32, 0.1, (1, 128, 128)),
-    (40, 0.3, (2, 100, 70)), (24, 1.0, (1, 40, 40))])
+    (40, 0.3, (2, 100, 70)), (24, 1.0, (1, 40, 40)),
+    (17, 0.3, (1, 45, 77)), (33, 0.1, (2, 96, 100)), (34, 0.1, (1, 100, 130)),
+    (34, 0.3, (2, 70, 65)), (48, 0.1, (1, 128, 160)), (48, 0.3, (2, 90, 75)),
+    (64, 0.1, (1, 160, 200)), (64, 0.3, (1, 130, 96)),
+    (24, 0.1, (2, 20, 27)), (40, 0.3, (1, 64, 20)),
+    (2900, 0.1, (1, 16, 2400))])
 def test_nms_kernel_equals_plain(cuda, size, iou, shape):
     """Keep masks and sweep counts are exactly the plain version's, for the
-    staged instance (size <= 16) and the direct one (larger boxes; at 40
-    the halo reaches two tiles each way)."""
+    staged instance (size <= 16) and the banded one (larger boxes): halos
+    just under and over one tile (17, 33, 34), two tiles each way (40) and
+    the largest tables of the tests above (48, 64: 7 levels, 8 rows a
+    band), a plane of one partial tile (20 x 27), one narrower than the
+    halo (W 20 at a halo of 21 columns, clamped to the plane), and a box so
+    wide that a staged row keeps 12 of its 13 table levels (2,372 columns
+    each way: a window takes one read every 2,048 columns)."""
     prob = _nms_planes(size, *shape)
     for p, valid in ((prob, prob > 0.015), (prob - 0.5, prob >= 0)):
         ref, ref_sweeps = grid_nms_keep_plain(p, valid, size, iou)
@@ -294,13 +305,16 @@ def test_nms_kernel_long_chain(cuda):
     assert _kernel_against_plain(p, p > 0, 8, 0.1) >= 100
 
 
+@pytest.mark.parametrize("size,iou", [(2, 0.1), (24, 0.9)])
 @pytest.mark.parametrize("W", [64, 65])
-def test_nms_kernel_at_the_sweep_cap(cuda, W):
-    """A 1 x W row ramp at size 2 runs into the H * W cap with the last
-    sweep still changing pixels: after an odd last sweep (W = 64) the
-    kernel copies its mask to the output plane, after an even one not."""
+def test_nms_kernel_at_the_sweep_cap(cuda, W, size, iou):
+    """A 1 x W row ramp runs into the H * W cap with the last sweep still
+    changing pixels: after an odd last sweep (W = 64) the kernel copies its
+    mask to the output plane, after an even one not. Size 24 at IoU 0.9
+    has the row strip of size 2 at 0.1 (|dx| <= 1) and takes the banded
+    instance."""
     p = _ramp_plane(1, W, -1).to(cuda)
-    assert _kernel_against_plain(p, p > 0, 2, 0.1) == W
+    assert _kernel_against_plain(p, p > 0, size, iou) == W
 
 
 def test_nms_kernel_more_tiles_than_blocks(cuda):
@@ -310,12 +324,13 @@ def test_nms_kernel_more_tiles_than_blocks(cuda):
     assert _kernel_against_plain(p, p > 0.015, 8, 0.1) >= 2
 
 
+@pytest.mark.parametrize("size", [8, 24])
 @pytest.mark.parametrize("shape", [(16, 512, 512), (1, 512, 512),
                                    (3, 33, 65)])
-def test_nms_kernel_repeat_bit_equal(cuda, shape):
+def test_nms_kernel_repeat_bit_equal(cuda, shape, size):
     p = _nms_planes(7, *shape).to(cuda)
-    first = grid_nms_keep(p, p > 0.015, 8, 0.1)
-    again = grid_nms_keep(p, p > 0.015, 8, 0.1)
+    first = grid_nms_keep(p, p > 0.015, size, 0.1)
+    again = grid_nms_keep(p, p > 0.015, size, 0.1)
     assert torch.equal(first[0], again[0]) and first[1] == again[1]
 
 
@@ -348,9 +363,9 @@ def test_nms_reads_nothing_back(cuda):
 
 
 def test_nms_kernel_takes_large_boxes(cuda):
-    """No box size is refused any more: boxes above 16 take the direct
-    instance, in one launch, with the plain version's answer; the serving
-    shape at sizes 24 and 32, and a ramp at 24 (a long chain)."""
+    """No box size is refused: boxes above 16 take the banded instance, in
+    one launch, with the plain version's answer; the serving shape at sizes
+    24 and 32, and a ramp at 24 (a long chain)."""
     p = _nms_planes(1, 16, 512, 512).to(cuda)
     for size in (24, 32):
         assert _kernel_against_plain(p, p > 0.015, size, 0.1) >= 2

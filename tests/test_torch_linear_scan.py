@@ -25,6 +25,7 @@ from xpoint_tpu_torch.ops.selective_scan import (_selective_scan_unfused,
                                                  selective_scan,
                                                  selective_scan_fused,
                                                  selective_scan_ref)
+from torch_env import torch_env  # noqa: F401 (autouse)
 
 T = torch.from_numpy
 

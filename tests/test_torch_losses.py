@@ -21,6 +21,7 @@ from xpoint_tpu_torch.losses.xpoint_loss import (DEFAULT_CONFIG, XPointLoss,
                                                  detector_loss)
 from xpoint_tpu_torch.models import VMAMBA_TRAIN_CFG
 from xpoint_tpu_torch.utils import dict_update
+from torch_env import torch_env  # noqa: F401 (autouse)
 
 T = torch.from_numpy
 # fp32 sums in another order on each side: 1e-5 relative

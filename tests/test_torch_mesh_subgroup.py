@@ -19,6 +19,7 @@ from xpoint_tpu_torch.trainer import Trainer
 
 import torch_parallel_ranks as ranks
 from test_torch_trainer import synth_config
+from torch_env import torch_env  # noqa: F401 (autouse)
 
 LAUNCH_S = 300
 

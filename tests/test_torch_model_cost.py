@@ -27,6 +27,7 @@ from xpoint_tpu_torch.ops import selective_scan_cuda as ssc
 
 from test_torch_cnn import cnn_cfg, jax_cnn
 from test_torch_models import tiny_cfg
+from torch_env import torch_env  # noqa: F401 (autouse)
 
 
 @pytest.mark.parametrize("cfg", [

@@ -22,6 +22,7 @@ from xpoint_tpu_torch.models import VMAMBA_MODEL_CFG, build_xpoint
 from xpoint_tpu_torch.models.xpoint import DEFAULT_CONFIG
 from xpoint_tpu_torch.models.vssm import (SS2D, StridedConv3x3, VSSBlock,
                                           build_vssm_from_config)
+from torch_env import torch_env  # noqa: F401 (autouse)
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

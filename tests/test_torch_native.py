@@ -25,6 +25,7 @@ from xpoint_tpu_torch.data import SyntheticShapes
 
 from test_torch_host_data import FLAGSHIP_AUG, _image, both
 from test_torch_synthetic_shapes import SMALL
+from torch_env import torch_env  # noqa: F401 (autouse)
 
 
 @pytest.fixture(autouse=True)

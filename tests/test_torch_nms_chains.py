@@ -14,6 +14,7 @@ import torch
 from xpoint_tpu.ops.nms import _grid_nms_keep
 
 from xpoint_tpu_torch.ops.nms import grid_nms_keep, grid_nms_keep_plain
+from torch_env import torch_env  # noqa: F401 (autouse)
 
 
 def _ramp(H, W, axis):
@@ -73,5 +74,17 @@ def test_all_invalid_plane(size):
 def test_one_tile_plane(size, iou):
     rng = np.random.default_rng(size)
     prob = (rng.uniform(size=(1, 32, 32)) ** 4).astype(np.float32)
+    keep, sweeps = _both(prob, prob > 0.015, size, iou)
+    assert sweeps >= 2 and 0 < int(keep.sum()) < int((prob > 0.015).sum())
+
+
+@pytest.mark.parametrize("size,iou,shape", [(40, 0.3, (1, 64, 20)),
+                                            (64, 0.1, (2, 60, 33))])
+def test_box_wider_than_the_plane(size, iou, shape):
+    """Strips wider than the plane (|dx| up to 21 and 52 on planes 20 and
+    33 wide): every window then holds the whole row, as JAX's
+    reduce_window gives it; the kernel clamps its halo to the plane."""
+    prob = (np.random.default_rng(size).uniform(size=shape) ** 4).astype(
+        np.float32)
     keep, sweeps = _both(prob, prob > 0.015, size, iou)
     assert sweeps >= 2 and 0 < int(keep.sum()) < int((prob > 0.015).sum())

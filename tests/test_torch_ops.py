@@ -34,6 +34,7 @@ from xpoint_tpu_torch.ops.selective_scan_cuda import (
     SelectiveScanBidir, scan_bidir, selective_scan_bidir,
     selective_scan_bidir_bwd, selective_scan_bidir_bwd_plain,
     selective_scan_bidir_plain)
+from torch_env import torch_env  # noqa: F401 (autouse)
 
 T = torch.from_numpy
 

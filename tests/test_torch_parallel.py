@@ -31,6 +31,7 @@ from xpoint_tpu_torch.selfsup.export import NumpySink, export_keypoints
 
 import torch_parallel_ranks as ranks
 from test_torch_models import _jax_tiny_model, _perturb, tiny_cfg
+from torch_env import torch_env  # noqa: F401 (autouse)
 
 # the package re-exports a function of the same name over the module, as
 # the JAX package's does

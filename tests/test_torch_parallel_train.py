@@ -35,6 +35,7 @@ import torch_parallel_ranks as ranks
 from test_torch_cnn import _assert_trees_close, cnn_cfg, jax_cnn
 from test_torch_cnn_steps import SYNTH_LOSS, _pair_batch, _single_batch
 from test_torch_models import _perturb, tiny_cfg
+from torch_env import torch_env  # noqa: F401 (autouse)
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

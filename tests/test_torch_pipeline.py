@@ -19,6 +19,7 @@ from xpoint_tpu_torch.ops.nms import grid_nms_keep
 from xpoint_tpu_torch.ops.selective_scan_cuda import selective_scan_bidir
 
 from test_torch_models import _jax_tiny_model, tiny_cfg
+from torch_env import torch_env  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

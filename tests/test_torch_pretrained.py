@@ -26,6 +26,7 @@ from xpoint_tpu_torch.models import build_xpoint
 
 from test_torch_models import tiny_cfg
 from test_torch_swinv2 import swin_cfg
+from torch_env import torch_env  # noqa: F401 (autouse)
 
 
 def _swin_ref_key(k):

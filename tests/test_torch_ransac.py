@@ -22,6 +22,7 @@ from xpoint_tpu_torch.compat.from_flax import load_flax_variables
 from xpoint_tpu_torch.eval import make_pair_pipeline, pipeline
 from xpoint_tpu_torch.geometry import ransac
 from xpoint_tpu_torch.models import build_xpoint
+from torch_env import torch_env  # noqa: F401 (autouse)
 
 T = torch.from_numpy
 H_TRUE = np.array([[1.05, 0.03, 8.0], [-0.02, 0.97, -5.0],

@@ -28,6 +28,7 @@ from xpoint_tpu_torch.ops.selective_scan_cuda import (
     selective_scan_bidir_bwd_plain, selective_scan_bidir_plain,
     selective_scan_fused_bkld, selective_scan_fused_bkld_plain,
     selective_scan_fused_chunked)
+from torch_env import torch_env  # noqa: F401 (autouse)
 
 T = torch.from_numpy
 LENGTHS = [1, 64, 129, 300, 513]

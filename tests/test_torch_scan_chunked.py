@@ -20,6 +20,7 @@ from xpoint_tpu.ops.selective_scan_pallas import _fused_bidir_tok_impl
 from xpoint_tpu_torch.ops.selective_scan_cuda import (
     CKPT_CHUNK, selective_scan_bidir_bwd_plain, selective_scan_bidir_chunked,
     selective_scan_bidir_plain)
+from torch_env import torch_env  # noqa: F401 (autouse)
 
 T = torch.from_numpy
 LENGTHS = [1, 7, 255, 256, 257, 300, 513]

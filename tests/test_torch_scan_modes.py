@@ -30,6 +30,7 @@ from xpoint_tpu_torch.ops.selective_scan_cuda import (
     selective_scan_fused_bkld, selective_scan_fused_bkld_plain)
 
 from test_torch_models import _perturb, tiny_cfg
+from torch_env import torch_env  # noqa: F401 (autouse)
 
 T = torch.from_numpy
 

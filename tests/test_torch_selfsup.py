@@ -32,6 +32,7 @@ from xpoint_tpu_torch.selfsup.export import (H5Sink, NumpySink,
                                              export_keypoints, make_prob_fn)
 
 from test_torch_models import _jax_tiny_model, tiny_cfg
+from torch_env import torch_env  # noqa: F401 (autouse)
 
 # each package re-exports a function of the same name over the module
 jx_ha = importlib.import_module("xpoint_tpu.selfsup.homographic_adaptation")

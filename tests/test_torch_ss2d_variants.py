@@ -44,6 +44,7 @@ from test_torch_pretrained import _vssm_ref_key
 from test_torch_train import (_assert_trees_close, _pair_batch,
                               _port_state_tree, _tiny_train_cfg,
                               _torch_batch)
+from torch_env import torch_env  # noqa: F401 (autouse)
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

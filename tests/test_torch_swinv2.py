@@ -25,6 +25,7 @@ from xpoint_tpu_torch.config import load_yaml
 from xpoint_tpu_torch.models import build_xpoint, swinv2
 
 from test_torch_models import _perturb
+from torch_env import torch_env  # noqa: F401 (autouse)
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

@@ -25,6 +25,7 @@ import xpoint_tpu_torch.data.draw_primitives as draw
 from xpoint_tpu_torch.data import SyntheticShapes, get_dataset
 
 from test_torch_host_data import assert_same, both, cv2_path  # noqa: F401
+from torch_env import torch_env  # noqa: F401 (autouse)
 
 GEN = JX_DEFAULTS["generation"]
 SMALL = {

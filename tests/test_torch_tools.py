@@ -36,6 +36,7 @@ from xpoint_tpu_torch.tools import (make_multipoint_fixture, op_sweep,
                                     parse_trace, roofline, stage_table)
 
 from test_torch_models import tiny_cfg
+from torch_env import torch_env  # noqa: F401 (autouse)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

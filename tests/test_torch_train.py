@@ -36,6 +36,7 @@ from xpoint_tpu_torch.train import (TrainState, make_eval_step,
                                     make_optimizer, make_train_step)
 
 from test_torch_models import _perturb, tiny_cfg
+from torch_env import torch_env  # noqa: F401 (autouse)
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

@@ -28,6 +28,7 @@ from xpoint_tpu_torch.data.synthetic_pairs import SyntheticPairs
 from xpoint_tpu_torch.models import build_xpoint
 from xpoint_tpu_torch.ops.detector import prob_from_logits
 from xpoint_tpu_torch.trainer import Trainer
+from torch_env import torch_env  # noqa: F401 (autouse)
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False

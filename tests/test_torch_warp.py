@@ -22,6 +22,7 @@ from xpoint_tpu_torch.geometry.homography import sample_homography
 from xpoint_tpu_torch.ops import warp, warp_projective
 from xpoint_tpu_torch.selfsup.homographic_adaptation import (
     EXPORT_HA_CONFIG, HA_DEFAULT_CONFIG)
+from torch_env import torch_env  # noqa: F401 (autouse)
 
 T = torch.from_numpy
 HA_SAMPLER = HA_DEFAULT_CONFIG["homographies"]

@@ -18,7 +18,9 @@
 // pixel a sweep (25 at size 8, IoU 0.1): for the flagship serving call (16
 // planes of 512^2, ~12 sweeps) 0.0075 ms of bytes against ~0.019 ms of
 // operations. A design that stages every sweep through device memory moves
-// 6 B a pixel a sweep: 0.083 ms at the memory rate for the same call.
+// 6 B a pixel a sweep: 0.083 ms at the memory rate for the same call. At
+// box 24 (32) the comparisons are 77 (105) a pixel a sweep: 0.048 ms
+// (0.066 ms) for 16 planes of 512^2 at 10 sweeps, bound by operations.
 //
 // The TPU kernel keeps a whole plane in VMEM and loops inside the kernel. A
 // 512^2 plane does not fit one SM's shared memory, so here the state lives
@@ -44,21 +46,55 @@
 // in part), then to the grid barrier and the wait for the slowest block.
 //
 // Boxes larger than 16 (a halo wider than the staged tile allows) take a
-// second instance of the same launch, nms_kernel<kDirect>: the same
-// cooperative loop, grid barrier, change flags and quiet-tile skipping, but
-// each pixel reads its (2 size - 1)-row overlap set straight from device
-// memory (keep_in with __ldcg, p through the read-only path), one column a
-// lane so that a warp's loads are contiguous, with the widths table in device
-// memory. It makes ~(2 size - 1)(2 max_w + 1) loads a pixel a sweep where the
-// staged instance makes one, and is kept simple: no config uses such boxes.
-// A tile's halo may then reach past its eight neighbours (size > 33), so the
-// skipping looks at every tile within ceil(halo / 32) tiles.
+// second instance of the same launch, nms_kernel<kBanded>: the same
+// cooperative loop, grid barrier, change flags and quiet-tile skipping, with
+// another tile body, sweep_tile_banded. Its halo is the strip set's own: hy
+// = the largest |dy| with a width >= 0 and hx = the largest width (19 and 19
+// at size 24, IoU 0.1; 26 and 26 at 32; 52 and 52 at 64), both clamped to
+// the plane. The staged instance's one plane of horizontal maxima a distinct
+// width does not carry over (12 widths at size 24, 17 at 32, 32 at 64: up to
+// 557 KB a tile), so each staged row holds a sparse table instead: level l
+// is the maximum over 2^l columns from q, built from level l - 1 with one
+// fmaxf, and a window of 2w + 1 columns is the larger of two entries of
+// level floor(log2(2w + 1)). The offsets of those two entries a |dy| are
+// fixed for the launch; each block computes them once into shared memory
+// (dytab, after the table). The (32 + 2 hy) staged rows pass through shared
+// memory a band of rows at a time, sized to kBandBytes so that four blocks
+// fit an SM: a warp stages S = keep_in ? p : -inf over its row (keep_in with
+// __ldcg, p through the read-only path, 32 adjacent columns a load) and
+// builds the row's levels, the row being its own (__syncwarp between
+// levels); after a barrier each thread folds the band into the four pixels
+// it owns (one column, rows 8 apart: a warp shares |dy| and reads 32
+// adjacent floats, no bank conflict). A pixel costs two shared reads a row
+// of its overlap set a sweep, where reading the set from device memory
+// costs 2 max_w + 1 loads a row. Shared memory a block (table + offsets):
+// 40,480 B at size 24 (6 levels x 24 rows x 70 columns, 3 bands), 48,600 B
+// at 32 (6 x 24 x 84, 4 bands), 30,888 B at 64 (7 x 8 x 136, 17 bands).
+// Where all levels of one row cannot fit (a box thousands of pixels wide),
+// the top levels are dropped and a window reads one entry every
+// 2^(levels - 1) columns. A tile's halo may reach past its eight neighbours
+// (hy or hx > 32), so the skipping looks at every tile within ceil(halo /
+// 32) tiles. What holds it above its bound (2.81 ms against 0.048 ms at size
+// 24 on 16 planes of 512^2, 12 sweeps, NVIDIA H100 80GB HBM3, 700.00 W):
+// per-phase clock64 counters in a copy of this file put a block's time at
+// 39% staging and table, 31% folding, 24% waiting at the grid barrier for
+// the slowest block and 5% writing keep, with 61% of tile visits computed
+// (the rest quiet). The staged area is 4.8 times the tile's at size 24 (6.9
+// at 32, 18 at 64), and the fold spends ~10 instructions a row for its two
+// fmaxf. Neither the band size (32 to 96 KB a block, two to four blocks an
+// SM, with and without spills) nor issuing a warp's staging loads eight
+// chunks at a time moved the time by more than 5%.
 //
 // Where blocks share memory within the launch, and how each case is handled:
 //  - the keep planes are written by one block and read by others after a
 //    barrier, so they are read with __ldcg (L2, never the non-coherent
-//    read-only path or a stale L1 line); p and valid are read-only for the
-//    whole launch and keep __restrict__;
+//    read-only path or a stale L1 line), the banded instance's staging
+//    included; p and valid are read-only for the whole launch and keep
+//    __restrict__, and the widths table is read with __ldg;
+//  - shared memory is the block's own: the banded table is rewritten a
+//    band at a time, after a barrier that ends the last band's fold (the
+//    first band's writes follow the barrier that ended the tile before),
+//    and each row's levels are written and read by one warp alone;
 //  - the changed flag: every block that flipped a pixel in sweep i ORs into
 //    flag[i % 3]; after the barrier every block reads it (volatile) and all
 //    agree whether to stop. Block 0 clears flag[(i + 1) % 3] during sweep i:
@@ -75,6 +111,8 @@
 //    it asks.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <algorithm>
 #include <math.h>
 #include <stdint.h>
 
@@ -88,13 +126,26 @@ constexpr int kTileW = 32;                 // one warp's lanes
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kChecked = kThreads / 9;     // tiles checked a round, 9 each
-constexpr int kDirect = 0;                 // nms_kernel<kDirect>: no staging
+constexpr int kBanded = 0;                 // nms_kernel<kBanded>: boxes > 16
+// the banded instance's table a block aims at: four blocks an SM
+constexpr int kBandBytes = 48 * 1024;
 
 struct StripSet {
   int size;                  // box side; vertical halo is size - 1
   int max_w;                 // horizontal halo
   unsigned int slot_mask;    // bit w: w is one of the widths (a slot of R)
   int dy_slot[kMaxSize];     // |dy| -> slot of widths[|dy|], -1 if none
+};
+
+// The banded instance's plan (boxes above 16), fixed by the host for a call.
+struct BandPlan {
+  int hy;                    // vertical halo: largest |dy| with a width >= 0
+  int hx;                    // horizontal halo: the largest width
+  int span;                  // staged columns a row: kTileW + 2 hx
+  int rows;                  // staged rows a band
+  int levels;                // sparse-table levels kept (level l: 2^l columns)
+  int capped;                // levels < 1 + floor(log2(2 hx + 1))
+  int table;                 // floats of the table, even (the offsets follow)
 };
 
 struct NmsArgs {
@@ -107,7 +158,8 @@ struct NmsArgs {
   int reach_y, reach_x;      // tiles a halo reaches, each way (at least 1)
   long long max_sweeps;
   StripSet ss;               // the staged instance's strip set
-  const int* widths;         // the direct instance's: size ints, on device
+  BandPlan bp;               // the banded instance's plan
+  const int* widths;         // the banded instance's: size ints, on device
 };
 
 // shared-memory row pitch of the staged S for a halo bound, 16-byte aligned
@@ -265,46 +317,131 @@ __device__ int sweep_tile(const float* __restrict__ pp,
   return __syncthreads_or(flipped);
 }
 
-// One sweep of the 32 x 32 tile at (y0, x0) for any box size, nothing
-// staged: each pixel takes the maximum of p over the kept pixels of its
-// overlap set {|dy| < size, |dx| <= widths[|dy|]} from device memory. Lane
-// x of warp y takes column x of rows y, y + 8, y + 16, y + 24. Returns
-// whether any pixel changed (the same value in every thread of the block).
-__device__ int sweep_tile_direct(const float* __restrict__ pp,
+// The banded instance's vertical combine over one band: nm[j] takes the
+// maximum over the band's staged rows r that row j of the thread reaches
+// (|r - (row + hy)| <= hy) of the horizontal maximum at that row's width,
+// read from the sparse table at the two offsets dytab[|dy|] gives (or, with
+// the levels capped, at every 2^(levels - 1) columns from the first to the
+// second). `col` is the table at the thread's column.
+template <bool kCapped>
+__device__ __forceinline__ void band_combine(float (&nm)[4], const float* col,
+                                             const int2* dytab, int rb,
+                                             int n, int hy, int span,
+                                             int step) {
+#pragma unroll
+  for (int j = 0; j < kTileH / kWarps; ++j) {
+    const int yj = threadIdx.y + kWarps * j;  // its staged row is yj + hy
+    const int hi = min(rb + n, yj + 2 * hy + 1);
+    float m = nm[j];
+#pragma unroll 2
+    for (int r = max(rb, yj); r < hi; ++r) {
+      const int d = r - yj - hy;
+      const int2 o = dytab[d < 0 ? -d : d];
+      if (o.x < 0) continue;                  // no strip at this |dy|
+      const float* row = col + (r - rb) * span;
+      float v = row[o.y];
+      if constexpr (kCapped) {
+        for (int q = o.x; q < o.y; q += step) v = fmaxf(v, row[q]);
+      } else {
+        v = fmaxf(v, row[o.x]);
+      }
+      m = fmaxf(m, v);
+    }
+    nm[j] = m;
+  }
+}
+
+// One sweep of the 32 x 32 tile at (y0, x0) for boxes above 16. The staged
+// rows (the tile's and bp.hy above and below it) go through shared memory a
+// band of bp.rows at a time: a warp stages S = keep_in ? p : -inf over a row
+// of bp.span columns (column q is image column x0 - hx + q) and builds that
+// row's sparse table in place (level l holds the maximum over 2^l columns
+// from q; __syncwarp between levels, the row being the warp's own), then,
+// after a barrier, every thread folds the band into the four pixels it owns
+// (column lane, rows warp + 8 j) with band_combine. A window of 2w + 1
+// columns is the maximum of two entries of level floor(log2(2w + 1)).
+// Returns whether any pixel changed (the same value in every thread).
+__device__ int sweep_tile_banded(const float* __restrict__ pp,
                                  const uint8_t* __restrict__ vv,
                                  const uint8_t* kin, uint8_t* kout, int H,
-                                 int W, int y0, int x0, int size,
-                                 const int* __restrict__ widths) {
-  const int gx = x0 + threadIdx.x;
-  const int hy = size - 1;
-  int flipped = 0;
-#pragma unroll 1
-  for (int k = 0; k < kTileH / kWarps; ++k) {
-    const int gy = y0 + threadIdx.y + kWarps * k;
-    if (gy >= H || gx >= W) continue;
-    float nm = -INFINITY;
-    const int dy_hi = min(hy, H - 1 - gy);
-#pragma unroll 1
-    for (int dy = max(-hy, -gy); dy <= dy_hi; ++dy) {
-      const int w = widths[dy < 0 ? -dy : dy];
-      if (w < 0) continue;
-      const int row = (gy + dy) * W;
-      const int x_hi = min(gx + w, W - 1);
-#pragma unroll 4
-      for (int x = max(gx - w, 0); x <= x_hi; ++x)
-        if (__ldcg(kin + row + x)) nm = fmaxf(nm, pp[row + x]);
+                                 int W, int y0, int x0, const BandPlan& bp,
+                                 const int2* dytab, float* T) {
+  const int lane = threadIdx.x;
+  const int gx = x0 + lane;
+  const int hy = bp.hy, hx = bp.hx, span = bp.span;
+  const int level = bp.rows * span;             // floats a level
+  // the own pixels' loads first, so that they overlap the staging
+  float own_p[kTileH / kWarps];
+  unsigned int own_bits = 0;                    // bit j: keep_in, 4 + j: valid
+#pragma unroll
+  for (int j = 0; j < kTileH / kWarps; ++j) {
+    const int gy = y0 + threadIdx.y + kWarps * j;
+    own_p[j] = 0.f;
+    if (gy < H && gx < W) {
+      const int o = gy * W + gx;
+      own_p[j] = pp[o];
+      own_bits |= (static_cast<unsigned int>(__ldcg(kin + o) != 0) << j) |
+                  (static_cast<unsigned int>(vv[o] != 0) << (4 + j));
     }
-    const int o = gy * W + gx;
-    const int nk = vv[o] != 0 && !(nm > pp[o]);
-    flipped |= nk != (__ldcg(kin + o) != 0);
-    kout[o] = static_cast<uint8_t>(nk);
+  }
+  float nm[kTileH / kWarps];
+#pragma unroll
+  for (int j = 0; j < kTileH / kWarps; ++j) nm[j] = -INFINITY;
+
+  const int SH = kTileH + 2 * hy;
+  for (int rb = 0; rb < SH; rb += bp.rows) {
+    const int n = min(bp.rows, SH - rb);
+    if (rb > 0) __syncthreads();                // the last band is folded
+    for (int b = threadIdx.y; b < n; b += kWarps) {
+      float* row = T + b * span;
+      const int gy = y0 - hy + rb + b;
+      const bool in_y = gy >= 0 && gy < H;
+#pragma unroll 4
+      for (int q = lane; q < span; q += 32) {
+        const int x = x0 - hx + q;
+        float v = -INFINITY;
+        if (in_y && x >= 0 && x < W) {
+          const int o = gy * W + x;
+          const float pv = pp[o];
+          v = __ldcg(kin + o) ? pv : -INFINITY;
+        }
+        row[q] = v;
+      }
+      for (int l = 1; l < bp.levels; ++l) {
+        __syncwarp();
+        const float* src = row + (l - 1) * level;
+        float* dst = row + l * level;
+        const int h = 1 << (l - 1);
+        for (int q = lane; q + 2 * h <= span; q += 32)
+          dst[q] = fmaxf(src[q], src[q + h]);
+      }
+    }
+    __syncthreads();
+    const float* col = T + lane;
+    if (bp.capped)
+      band_combine<true>(nm, col, dytab, rb, n, hy, span,
+                         1 << (bp.levels - 1));
+    else
+      band_combine<false>(nm, col, dytab, rb, n, hy, span, 0);
+  }
+
+  int flipped = 0;
+#pragma unroll
+  for (int j = 0; j < kTileH / kWarps; ++j) {
+    const int gy = y0 + threadIdx.y + kWarps * j;
+    if (gy < H && gx < W) {
+      const unsigned int nk =
+          ((own_bits >> (4 + j)) & 1u) && !(nm[j] > own_p[j]);
+      flipped |= nk != ((own_bits >> j) & 1u);
+      kout[gy * W + gx] = static_cast<uint8_t>(nk);
+    }
   }
   return __syncthreads_or(flipped);
 }
 
 // Four blocks an SM (64 registers, a few spilled) cover more of the tiles'
 // load latency than two without spills. kMaxHalo: the staged instance's
-// halo bound, or kDirect for the instance that stages nothing.
+// halo bound, or kBanded for boxes above 16.
 template <int kMaxHalo>
 __global__ void __launch_bounds__(kThreads, 4) nms_kernel(const NmsArgs a) {
   extern __shared__ float smem[];
@@ -320,8 +457,21 @@ __global__ void __launch_bounds__(kThreads, 4) nms_kernel(const NmsArgs a) {
   // tiles whose change can reach a tile, itself included
   const int reach_w = 2 * a.reach_x + 1;
   const int n_reach = (2 * a.reach_y + 1) * reach_w;
-  if (kMaxHalo != kDirect && tid < 2 * a.ss.size - 1) {  // read after the
-    const int hy = a.ss.size - 1;                         // first barrier
+  // the banded instance's offsets a |dy|, after its table
+  int2* dytab = reinterpret_cast<int2*>(smem + a.bp.table);
+  if constexpr (kMaxHalo == kBanded) {    // read after the first barrier
+    for (int d = tid; d <= a.bp.hy; d += kThreads) {
+      const int w = d < a.ss.size ? min(__ldg(a.widths + d), a.W - 1) : -1;
+      int2 o = make_int2(-1, -1);
+      if (w >= 0) {
+        const int k = min(31 - __clz(2 * w + 1), a.bp.levels - 1);
+        const int base = k * a.bp.rows * a.bp.span + a.bp.hx;
+        o = make_int2(base - w, base + w - (1 << k) + 1);
+      }
+      dytab[d] = o;
+    }
+  } else if (tid < 2 * a.ss.size - 1) {   // read after the first barrier
+    const int hy = a.ss.size - 1;
     const int s = a.ss.dy_slot[tid < hy ? hy - tid : tid - hy];
     row_base[tid] = s < 0 ? -1 : (s * SH + tid) * kTileW;
   }
@@ -374,10 +524,10 @@ __global__ void __launch_bounds__(kThreads, 4) nms_kernel(const NmsArgs a) {
           const size_t off = (size_t)plane * a.H * a.W;
           const int y0 = in_plane / a.tiles_x * kTileH;
           const int x0 = in_plane % a.tiles_x * kTileW;
-          if constexpr (kMaxHalo == kDirect)
-            flipped = sweep_tile_direct(a.p + off, a.valid + off, kin + off,
-                                        kout + off, a.H, a.W, y0, x0,
-                                        a.ss.size, a.widths);
+          if constexpr (kMaxHalo == kBanded)
+            flipped = sweep_tile_banded(a.p + off, a.valid + off, kin + off,
+                                        kout + off, a.H, a.W, y0, x0, a.bp,
+                                        dytab, smem);
           else
             flipped = sweep_tile<kMaxHalo>(
                 a.p + off, a.valid + off, kin + off, kout + off, a.H, a.W,
@@ -410,12 +560,16 @@ int g_device = -1;
 size_t g_smem = 0;
 const void* g_kernel = nullptr;
 int g_resident = 0;
+int g_per_sm = 0;
+int g_blocks = 0;                          // blocks of the last launch
+BandPlan g_plan = {};                      // the last launch's band plan
 
-// The fields of NmsArgs both instances share; cudaErrorInvalidValue for a
-// shape the launch cannot index.
+// The fields of NmsArgs both instances share, with the tiles a halo of
+// halo_y rows and halo_x columns reaches; cudaErrorInvalidValue for a shape
+// the launch cannot index.
 int init_args(NmsArgs& a, const float* p, const uint8_t* valid, uint8_t* keep,
               uint8_t* scratch, int* state, int n_planes, int H, int W,
-              int size, int max_w) {
+              int halo_y, int halo_x) {
   if (n_planes <= 0 || H <= 0 || W <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const long long n_tiles = (long long)((H + kTileH - 1) / kTileH) *
@@ -434,10 +588,9 @@ int init_args(NmsArgs& a, const float* p, const uint8_t* valid, uint8_t* keep,
   a.tiles_per_plane = a.tiles_x * ((H + kTileH - 1) / kTileH);
   a.n_tiles = static_cast<int>(n_tiles);
   a.max_sweeps = (long long)H * W;
-  const int hy = size > 1 ? size - 1 : 0;
-  a.reach_y = hy > kTileH ? (hy + kTileH - 1) / kTileH : 1;
-  a.reach_x = max_w > kTileW ? (max_w + kTileW - 1) / kTileW : 1;
-  a.ss.size = size;
+  a.reach_y = halo_y > kTileH ? (halo_y + kTileH - 1) / kTileH : 1;
+  a.reach_x = halo_x > kTileW ? (halo_x + kTileW - 1) / kTileW : 1;
+  a.bp = BandPlan{};
   a.widths = nullptr;
   return 0;
 }
@@ -462,12 +615,14 @@ int launch(const NmsArgs& a, const void* kernel, size_t smem, void* stream) {
     g_device = device;
     g_smem = smem;
     g_kernel = kernel;
+    g_per_sm = per_sm;
     g_resident = per_sm * sms;
   }
   // no resident block (too much shared memory): the launch below is refused
   const int blocks = a.n_tiles < g_resident
                          ? a.n_tiles
                          : (g_resident > 0 ? g_resident : 1);
+  g_blocks = blocks;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   err = cudaMemsetAsync(a.state, 0, 4 * sizeof(int), s);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -481,7 +636,7 @@ int launch(const NmsArgs& a, const void* kernel, size_t smem, void* stream) {
 
 }  // namespace
 
-// Bytes of scratch xp_nms and xp_nms_direct need: the second keep plane and
+// Bytes of scratch xp_nms and xp_nms_banded need: the second keep plane and
 // two tile flags.
 extern "C" long long xp_nms_scratch(int n_planes, int H, int W) {
   const long long tiles = (long long)((H + kTileH - 1) / kTileH) *
@@ -518,8 +673,9 @@ extern "C" int xp_nms(const float* p, const uint8_t* valid, uint8_t* keep,
   for (int d = 0; d < kMaxSize; ++d)
     ss.dy_slot[d] = d < size && widths[d] >= 0 ? slot_of_w[widths[d]] : -1;
   const int err = init_args(a, p, valid, keep, scratch, state, n_planes, H, W,
-                            size, ss.max_w);
+                            size - 1, ss.max_w);
   if (err) return err;
+  ss.size = size;
 
   // boxes up to 8 (every config) take the narrower staged rows
   const int max_halo = size <= 8 ? 7 : 15;
@@ -529,23 +685,75 @@ extern "C" int xp_nms(const float* p, const uint8_t* valid, uint8_t* keep,
   const int SH = kTileH + 2 * (size - 1);
   const size_t smem = sizeof(float) * (size_t)SH *
                       (stage_pitch(max_halo) + (size_t)n_slots * kTileW);
+  g_plan = BandPlan{};
   return launch(a, kernel, smem, stream);
 }
 
-// As xp_nms for any box size, with nothing staged in shared memory (the
-// kDirect instance): widths are `size` ints in device memory, max_w their
-// largest (0 if none is >= 0). A size below 1 has an empty overlap set.
-extern "C" int xp_nms_direct(const float* p, const uint8_t* valid,
+// As xp_nms for boxes above 16 (any size: the banded instance). widths:
+// `size` ints, on the host (to plan the launch) and on the device (for the
+// kernel), equal; a size below 1 has an empty overlap set. A width past the
+// plane (>= W) acts as W - 1, and rows past it (|dy| >= H) hold nothing, so
+// the halo is clamped to the plane. One staged row of one level and the
+// offsets must fit a block's shared memory (227 KB): a box some 18,000
+// pixels across on a plane of over 14,000 in both directions is refused
+// with cudaErrorInvalidValue. Where all levels of a row do not fit, the top
+// levels are dropped and a wide window takes one read every 2^(levels - 1)
+// columns.
+extern "C" int xp_nms_banded(const float* p, const uint8_t* valid,
                              uint8_t* keep, uint8_t* scratch, int* state,
-                             int n_planes, int H, int W, int size, int max_w,
-                             const int* widths, void* stream) {
+                             int n_planes, int H, int W, int size,
+                             const int* widths, const int* widths_device,
+                             void* stream) {
+  BandPlan bp = {};
+  bp.hy = -1;
+  for (int d = 0; d < size; ++d)
+    if (widths[d] >= 0) {
+      bp.hy = d;
+      bp.hx = std::max(bp.hx, std::min(widths[d], W - 1));
+    }
+  bp.hy = std::max(0, std::min(bp.hy, H - 1));  // no strip: never read
   NmsArgs a;
   const int err = init_args(a, p, valid, keep, scratch, state, n_planes, H, W,
-                            size, max_w);
+                            bp.hy, bp.hx);
   if (err) return err;
-  a.widths = widths;
-  return launch(a, reinterpret_cast<const void*>(nms_kernel<kDirect>), 0,
+  int device, smem_max;
+  cudaError_t cerr = cudaGetDevice(&device);
+  if (cerr != cudaSuccess) return static_cast<int>(cerr);
+  cerr = cudaDeviceGetAttribute(&smem_max,
+                                cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                device);
+  if (cerr != cudaSuccess) return static_cast<int>(cerr);
+  bp.span = kTileW + 2 * bp.hx;
+  const int all_levels = 32 - __builtin_clz(2 * bp.hx + 1);
+  const long long offsets = 8LL * (bp.hy + 1);   // an int2 a |dy|
+  const long long room = smem_max - offsets - 4;  // - 4: the table is even
+  bp.levels = all_levels;
+  while (bp.levels > 1 && 4LL * bp.levels * bp.span > room) --bp.levels;
+  const long long row = 4LL * bp.levels * bp.span;
+  if (row > room) return static_cast<int>(cudaErrorInvalidValue);
+  bp.capped = bp.levels < all_levels;
+  long long rows = kBandBytes / row;
+  if (rows >= kWarps) rows -= rows % kWarps;     // whole rows a warp
+  rows = std::min({std::max(rows, 1LL), (long long)(kTileH + 2 * bp.hy),
+                   room / row});
+  bp.rows = static_cast<int>(rows);
+  bp.table = (bp.levels * bp.rows * bp.span + 1) / 2 * 2;
+  a.bp = bp;
+  a.ss.size = size;
+  a.widths = widths_device;
+  g_plan = bp;
+  const size_t smem = 4 * (size_t)bp.table + (size_t)offsets;
+  return launch(a, reinterpret_cast<const void*>(nms_kernel<kBanded>), smem,
                 stream);
+}
+
+// The last launch's shape, for reports: dynamic shared memory bytes a
+// block, resident blocks an SM, blocks launched, and its band rows, table
+// levels and staged columns (0 for the staged instance).
+extern "C" void xp_nms_last_launch(long long* out) {
+  const long long v[6] = {(long long)g_smem, g_per_sm, g_blocks,
+                          g_plan.rows, g_plan.levels, g_plan.span};
+  for (int i = 0; i < 6; ++i) out[i] = v[i];
 }
 
 extern "C" const char* xp_error_string(int err) {

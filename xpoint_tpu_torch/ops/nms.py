@@ -5,10 +5,11 @@ Greedy equal-box NMS runs as a fixed point on the heatmap (see
 launch of the Hopper kernel ``csrc/nms_sweep.cu`` (replacing the TPU kernel
 ``xpoint_tpu/ops/nms.py::_nms_sweep_kernel``), which runs every sweep on the
 device with a grid barrier between sweeps, at any box size (boxes up to 16
-stage their neighbourhood in shared memory, larger ones read it from device
-memory); ``box_nms`` and
-``box_nms_extract`` read nothing back from the device. On a CPU tensor the
-plain PyTorch version below runs the same sweeps.
+stage their neighbourhood and its horizontal maxima in shared memory, larger
+ones stage it a band of rows at a time with a sparse table of horizontal
+maxima); ``box_nms`` and ``box_nms_extract`` read nothing back from the
+device. On a CPU tensor the plain PyTorch version below runs the same
+sweeps.
 """
 import ctypes
 import functools
@@ -36,12 +37,14 @@ def overlap_widths(size, iou):
 
 def _shift(a, d, dim):
     """out[..., i, ...] = a[..., i + d, ...] along ``dim`` (-1 or -2),
-    -inf where i + d leaves the plane."""
+    -inf where i + d leaves the plane (everywhere when |d| >= its size)."""
     n = a.shape[dim]
     fill_shape = list(a.shape)
-    fill_shape[dim] = abs(d)
+    fill_shape[dim] = min(abs(d), n)
     fill = torch.full(fill_shape, float("-inf"), dtype=a.dtype,
                       device=a.device)
+    if abs(d) >= n:
+        return fill
     if d > 0:
         return torch.cat([a.narrow(dim, d, n - d), fill], dim)
     return torch.cat([fill, a.narrow(dim, 0, n + d)], dim)
@@ -87,18 +90,19 @@ def grid_nms_keep_plain(prob, valid, size, iou):
 
 @functools.lru_cache(maxsize=None)
 def _widths_arg(size, iou):
-    return (ctypes.c_int * size)(*overlap_widths(size, iou))
+    widths = overlap_widths(size, iou)        # none for a size below 1
+    return (ctypes.c_int * len(widths))(*widths)
 
 
 @functools.lru_cache(maxsize=None)
 def _widths_device(size, iou, device):
-    """The widths table on ``device`` for the kernel's direct instance
+    """The widths table on ``device`` for the kernel's banded instance
     (copied once, through pinned memory: the host does not wait)."""
     return device_constant(overlap_widths(size, iou), device, torch.int32)
 
 
-# boxes up to this size stage their neighbourhood in shared memory
-# (csrc/nms_sweep.cu kMaxSize); larger ones take the direct instance
+# boxes up to this size take the staged instance (csrc/nms_sweep.cu
+# kMaxSize); larger ones the banded instance
 STAGED_MAX_SIZE = 16
 
 
@@ -110,13 +114,25 @@ def _nms_library():
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
                        + [ctypes.c_void_p] * 2)
-        lib.xp_nms_direct.restype = ctypes.c_int
-        lib.xp_nms_direct.argtypes = ([ctypes.c_void_p] * 5
-                                      + [ctypes.c_int] * 5
-                                      + [ctypes.c_void_p] * 2)
+        lib.xp_nms_banded.restype = ctypes.c_int
+        lib.xp_nms_banded.argtypes = fn.argtypes[:-1] + [ctypes.c_void_p] * 2
         lib.xp_nms_scratch.restype = ctypes.c_longlong
         lib.xp_nms_scratch.argtypes = [ctypes.c_int] * 3
+        lib.xp_nms_last_launch.restype = None
+        lib.xp_nms_last_launch.argtypes = [ctypes.c_void_p]
     return lib
+
+
+def last_launch_shape():
+    """The shape of the kernel's last launch in this process (for
+    reports): dynamic shared memory bytes a block, resident blocks an SM,
+    blocks launched, and its band rows, table levels and staged columns
+    (0 for the staged instance, boxes up to 16)."""
+    out = (ctypes.c_longlong * 6)()
+    _nms_library().xp_nms_last_launch(out)
+    keys = ("smem_bytes", "blocks_per_sm", "blocks", "band_rows",
+            "table_levels", "staged_columns")
+    return dict(zip(keys, out))
 
 
 def _grid_nms_keep_cuda(prob, valid, size, iou):
@@ -138,8 +154,7 @@ def _grid_nms_keep_cuda(prob, valid, size, iou):
     if 1 <= size <= STAGED_MAX_SIZE:
         err = lib.xp_nms(*args, _widths_arg(size, iou), stream)
     else:
-        max_w = max([0, *overlap_widths(size, iou)])
-        err = lib.xp_nms_direct(*args, max_w,
+        err = lib.xp_nms_banded(*args, _widths_arg(size, iou),
                                 _widths_device(size, iou, dev).data_ptr(),
                                 stream)
     build.check(lib, err, "nms_sweep launch")

@@ -9,9 +9,10 @@ benchmark_evaluation.py:16-134) in two forms:
 
   on-device    the serving decomposition: cumulative sub-pipelines of
                ``eval.make_pair_pipeline`` (two_forward -> +nms/top-k ->
-               +interpolate -> +match), each timed over a stream of fresh
-               inputs at the bench batch size with one fence at its end;
-               a stage's cost is the difference of consecutive prefixes.
+               +interpolate -> +match), each timed over streams of fresh
+               inputs at the bench batch size with one fence at the end
+               of each (the median of three, taken in turns); a stage's
+               cost is the difference of consecutive prefixes.
 
     python -m xpoint_tpu_torch.tools.stage_table [--out
         outputs/stage_table.json] [--device cuda]
@@ -110,23 +111,33 @@ def sub_pipelines(module, H, W, k=1024):
             ("interpolate", interpolate), ("match", match)]
 
 
+# streams of fresh inputs timed for each prefix, in turns
+STREAMS = 3
+
+
 @torch.no_grad()
 def on_device_table(module, B, H, W, k=1024, n_iters=10, seed=1):
-    """Stage differences of the cumulative sub-pipelines, each timed over
-    ``n_iters`` fresh inputs with one fence at the end. Returns ({stage:
-    seconds a batch}, {prefix: seconds a batch})."""
+    """Stage differences of the cumulative sub-pipelines. A prefix's time
+    is the median of STREAMS streams of ``n_iters`` fresh inputs, each
+    stream fenced once at its end; the prefixes take their streams in
+    turns, so that a drift of the host's speed reaches all of them and one
+    slow stream does not move a stage. Returns ({stage: seconds a batch},
+    {prefix: seconds a batch})."""
     device = next(module.parameters()).device
     gen = torch.Generator(device=device).manual_seed(seed)
-    cumulative = {}
     prefixes = sub_pipelines(module, H, W, k)
-    for name, fn in prefixes:
+    for _, fn in prefixes:
         fn(*fresh_inputs(gen, 1, B, H, W, device)[0])     # warm-up
-        ins = fresh_inputs(gen, n_iters, B, H, W, device)
-        t0 = time.perf_counter()
-        for a, b in ins:
-            fn(a, b)
-        fence(device)
-        cumulative[name] = (time.perf_counter() - t0) / n_iters
+    streams = {name: [] for name, _ in prefixes}
+    for _ in range(STREAMS):
+        for name, fn in prefixes:
+            ins = fresh_inputs(gen, n_iters, B, H, W, device)
+            t0 = time.perf_counter()
+            for a, b in ins:
+                fn(a, b)
+            fence(device)
+            streams[name].append((time.perf_counter() - t0) / n_iters)
+    cumulative = {name: float(np.median(t)) for name, t in streams.items()}
     stages, prev = {}, 0.0
     for name, _ in prefixes:
         stages[name] = max(cumulative[name] - prev, 0.0)
