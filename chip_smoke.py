@@ -10,7 +10,11 @@ Phases (any failure exits non-zero and prints no result):
      seeded generator; max abs error (limit 2e-2: one bf16 ulp at |y| < 4
      over fp32-carry sums in both) and times (CUDA events, fresh inputs,
      median); a second run on the same inputs must give the same bits; the
-     same checks at two shapes with tails (L = 300 and 64, 240 lanes);
+     same checks at two shapes with tails (L = 300 and 64, 240 lanes); K1's
+     launch at each stage shape (registers, spills and static shared memory
+     from nvcc -Xptxas -v; resident blocks an SM, threads and dynamic
+     shared memory a block, blocks) and the chain's share of a launch at
+     L = 16384 (against the same bytes as spans that need no chain);
   3. serving path: the flagship VMamba XPoint (bf16, port initialisation,
      seed 0) through make_pair_pipeline at 512^2, B=8, on fresh random
      images; launch counts are zeroed just before and read just after (one
@@ -338,9 +342,11 @@ data path, in a scratch directory under build/ that is removed at the end:
      B=8, the on-device stages summing to phase 3's call time (measured
      again just before: the host's speed drifts over a run) within 25%;
      (d) a torch.profiler trace of 3 pipeline calls through
-     tools.parse_trace: 16 K1 and 1 K2 launches a call by kernel name,
-     equal to the wrappers' counts; (e) tools.op_sweep on phase 20's
-     config, model and 32 pairs at two operating points, its processes
+     tools.parse_trace: 16 K1 and 1 K2 launches a call by kernel name
+     (K1's one kernel a call: bidir_chain_kernel, or bidir_span_kernel for
+     a scan of at most 64 tokens), equal to the wrappers' counts; (e)
+     tools.op_sweep on phase 20's config, model and 32 pairs at two
+     operating points, its processes
      python -m xpoint_tpu_torch.cli.benchmark: the first (phase 20's)
      gives phase 20's MAGSAC metrics; (f) the native augmentation engine
      built with g++ on this host: homographic_augmentation through it and
@@ -532,9 +538,48 @@ def phase_scan(dev, stages, blocks_per_stage, batch=B, tails=True):
     return rows, tot, max(max_err, tails["max_abs_err"]), tails
 
 
+def k1_design_report(dev, build_log, stages, batch=B):
+    """K1's launches at the serving stage shapes: registers, spill bytes
+    and static shared memory of its two kernels (nvcc -Xptxas -v), and at
+    each shape the resident blocks an SM, threads and dynamic shared memory
+    a block and blocks of its one launch; then the chain's share of a
+    launch at the first stage (L = 16384): its device time against a launch
+    of the same bytes as spans that need no chain (L = 128, 128 times the
+    lanes), both behind queued work."""
+    from xpoint_tpu_torch.ops.selective_scan_cuda import (
+        selective_scan_bidir, selective_scan_bidir_launch_shape)
+    ptxas = {}
+    for name in ("bidir_chain_kernel", "bidir_span_kernel"):
+        ptxas.update(ptxas_summary(build_log["selective_scan_bidir"], name))
+    shapes = []
+    for L, Dim in stages:
+        M = batch * 2 * Dim
+        shapes.append({"L": L, "Dim": Dim, "M": M,
+                       **selective_scan_bidir_launch_shape(L, M, Dim)})
+    g = torch.Generator(device=dev).manual_seed(2)
+    delay = queued_delay(dev)
+    (L0, Dim0), L1 = stages[0], 128
+    times = {}
+    for L, b in ((L0, batch), (L1, batch * L0 // L1)):
+        inputs = [scan_operands(g, L, Dim0, dev, b) for _ in range(5)]
+        selective_scan_bidir(*inputs[0])
+        times[L] = cuda_ms_queued(selective_scan_bidir, inputs, delay)
+        del inputs
+    share = (times[L0] - times[L1]) / times[L0]
+    res = {"ptxas": ptxas, "launch_shapes": shapes,
+           "chain_share": {"L": L0, "M": batch * 2 * Dim0, "ms": times[L0],
+                           "same_bytes_one_span_ms": times[L1],
+                           "share": share}}
+    print("K1 launch: ptxas " + json.dumps(ptxas) + "; at the serving "
+          "stages " + json.dumps(shapes) + f"; chain share at L={L0}: "
+          f"{times[L0]} ms against {times[L1]} ms for the same bytes as "
+          f"spans of L={L1} (share {share})", flush=True)
+    return res
+
+
 def scan_tail_checks(g, dev, emit_ckpt):
     """K1 where its blocks have tails: L = 300 (three spans, the last of 44
-    tokens) and L = 64 (one span of shorter segments) with B = 3, Dim = 40
+    tokens) and L = 64 (the one-span kernel) with B = 3, Dim = 40
     (240 lanes: no multiple of a block's 32), bf16: against the plain version
     (y 2e-2 abs, checkpoints 1e-4 of max |plain|), and a second run on the
     same inputs bit for bit."""
@@ -4493,8 +4538,9 @@ def _p30_stage_table(dev, module, phase3_latency_ms):
 def _p30_parse_trace(dev, module, workdir):
     """30d: a torch.profiler trace of P30_CALLS pipeline calls through
     tools.parse_trace: K1's and K2's launches by their kernels' names
-    (one span_output_kernel a K1 launch; nms_kernel is K2), against the
-    wrappers' counts (zeroed just before the calls, read just after)."""
+    (one bidir_chain_kernel or bidir_span_kernel a K1 launch; nms_kernel
+    is K2), against the wrappers' counts (zeroed just before the calls,
+    read just after)."""
     from torch.profiler import ProfilerActivity, profile
     from xpoint_tpu_torch.eval import make_pair_pipeline
     from xpoint_tpu_torch.tools import parse_trace
@@ -4518,8 +4564,9 @@ def _p30_parse_trace(dev, module, workdir):
     prof.export_chrome_trace(path)
     total, by_cat, by_name, counts = parse_trace.summarize(
         parse_trace.load_events(parse_trace.find_trace(path)))
-    found = {"selective_scan_bidir": parse_trace.launches(
-                 counts, "span_output_kernel"),
+    found = {"selective_scan_bidir": sum(
+                 parse_trace.launches(counts, name) for name in
+                 ("bidir_chain_kernel", "bidir_span_kernel")),
              "nms_sweep": parse_trace.launches(counts, "nms_kernel")}
     top = sorted(by_name.items(), key=lambda x: -x[1])[:10]
     res = {"calls": P30_CALLS, "device_ms": total,
@@ -4864,6 +4911,7 @@ def main():
     stages = [((H // 4 >> i) * (W // 4 >> i), 96 << i) for i in range(4)]
     scan_rows, scan_tot, scan_err, scan_tails = phase_scan(
         dev, stages, [2 * d for d in depths])
+    k1_design = k1_design_report(dev, build_log, stages)
     main_res, probs, serve_module = phase_main_path(dev)
     nms_res = phase_nms(probs)
     main_res["nms_sweeps_per_call"] = nms_res["sweeps"]
@@ -5222,6 +5270,7 @@ def main():
          "bound_by": nms_res["bound_by"], "library_ms": None}]
     print("details: " + json.dumps(
         {"card": card, "build_s": build_s, "k1_stages": scan_rows,
+         "k1_design": k1_design,
          "k1_tails": scan_tails, "k1_ckpt_tails": tscan_tails,
          "k3_tails": k3_tails, "k3_checkpoint_gap": k3_gap,
          "k5_tails": fused_tails,

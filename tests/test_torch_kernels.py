@@ -19,7 +19,8 @@ from xpoint_tpu_torch.ops.nms import (box_nms, box_nms_extract, grid_nms_keep,
                                       grid_nms_keep_plain)
 from xpoint_tpu_torch.ops.selective_scan_cuda import (
     SelectiveScanBidir, selective_scan_bidir, selective_scan_bidir_bwd,
-    selective_scan_bidir_bwd_plain, selective_scan_bidir_plain,
+    selective_scan_bidir_bwd_plain, selective_scan_bidir_launch_shape,
+    selective_scan_bidir_plain,
     selective_scan_fused_bkld, selective_scan_fused_bkld_plain)
 from torch_env import torch_env  # noqa: F401 (autouse)
 
@@ -90,12 +91,15 @@ def _rel_err(a, b):
 @pytest.mark.parametrize("emit_ckpt", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("Dim", [3, 8, 96, 192])
-@pytest.mark.parametrize("L", [1, 7, 255, 256, 257, 300, 513])
+@pytest.mark.parametrize("L", [1, 7, 255, 256, 257, 300, 513, 63, 64, 65,
+                               127, 128, 129, 383, 384, 385])
 def test_scan_kernel_chunk_grid(cuda, L, Dim, dtype, emit_ckpt):
-    """The chunk-parallel K1 over scans below, at and across the 256-token
-    chunk, lane counts that are and are not multiples of a block's 32 lanes
-    (B=3: M = 18, 48, 576, 1152), with and without the checkpoints
-    returned. Tolerances as test_scan_kernel_matches_plain /
+    """The chained K1 over scans below, at and across the 256-token chunk
+    and its 128-token spans (one span, one span and one token, a last span
+    that enters a chunk from the right alone) and the 64 tokens up to which
+    the one-span kernel runs, lane counts that are and are not multiples
+    of a block's 32 lanes (B=3: M = 18, 48, 576, 1152), with and without
+    the checkpoints returned. Tolerances as test_scan_kernel_matches_plain /
     test_scan_kernel_checkpoints_match_plain; a second run on the same
     inputs gives the same bits (every sum is taken in a fixed order)."""
     args = _scan_operands(L + Dim, L, 3, Dim, dtype, cuda)
@@ -130,6 +134,111 @@ def test_scan_kernel_long_decay(cuda):
     for a, b in zip(out, ref):
         assert bool(torch.isfinite(a).all())
         torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+def _slow_decay(args):
+    """The flagship's smallest dt (delta near 1e-3) and A = -1: the carry
+    crosses every span, so the chain is what the outputs test."""
+    args = list(args)
+    args[4] = -torch.ones_like(args[4])
+    args[6] = torch.full_like(args[6], -6.9)
+    return args
+
+
+def _check_scan(out, ref, dtype):
+    """Outputs as test_scan_kernel_matches_plain, checkpoints 1e-4 of the
+    plain version's max."""
+    atol, rtol = (1e-4, 0) if dtype == torch.float32 else (1e-2, 2 ** -7)
+    for a, b in zip(out[:2], ref[:2]):
+        assert bool(torch.isfinite(a).all())
+        torch.testing.assert_close(a.float(), b.float(), atol=atol, rtol=rtol)
+    for a, b in zip(out[2:], ref[2:]):
+        assert _rel_err(a, b) <= 1e-4
+
+
+@pytest.mark.parametrize("L", [64, 65, 16384])
+def test_scan_kernel_launch_shape(cuda, L):
+    """One launch a call: up to 64 tokens one block a lane group does both
+    directions; beyond, one block a direction, lane group and 128-token
+    span. Every launch has at least one resident block an SM."""
+    M = 8 * 2 * 96
+    groups, spans = -(-M // 32), -(-L // 128)
+    shape = selective_scan_bidir_launch_shape(L, M, 96)
+    assert shape["blocks"] == (groups if L <= 64 else 2 * groups * spans)
+    assert shape["blocks_per_sm"] >= 1 and shape["threads"] in (288, 512)
+
+
+def test_scan_kernel_more_shared_memory_than_the_last_call(cuda):
+    """fp32 calls whose blocks stage B and C of more groups than the call
+    before (Dim 96, then 24, then 1: 2, 3 and 32 groups a block) in one
+    process: each launches and agrees with the plain version."""
+    for Dim, B in ((96, 2), (24, 2), (1, 5)):
+        args = _scan_operands(36 + Dim, 300, B, Dim, torch.float32, cuda)
+        out = selective_scan_bidir(*args, emit_ckpt=True)
+        ref = selective_scan_bidir_plain(*args, emit_ckpt=True)
+        _check_scan(out, ref, torch.float32)
+
+
+def test_scan_kernel_long_chain_few_lanes(cuda):
+    """L = 65536 with one lane group (B = 1, Dim = 16: M = 32): a chain of
+    512 spans a direction on a slow decay, against the plain version."""
+    args = _slow_decay(_scan_operands(31, 65536, 1, 16, torch.float32, cuda))
+    out = selective_scan_bidir(*args, emit_ckpt=True)
+    ref = selective_scan_bidir_plain(*args, emit_ckpt=True)
+    assert float(ref[2][-1].abs().min()) > 0
+    _check_scan(out, ref, torch.float32)
+
+
+def test_scan_kernel_grid_many_times_resident(cuda):
+    """L = 16384, B = 8, Dim = 768 (M = 12288): 384 lane groups x 128 spans
+    x 2 directions, some 90 times the blocks the card holds at once; every
+    block waits only on blocks that started before it, so the launch
+    finishes, and agrees with the plain version (bf16)."""
+    args = _scan_operands(32, 16384, 8, 768, torch.bfloat16, cuda)
+    out = selective_scan_bidir(*args, emit_ckpt=True)
+    ref = selective_scan_bidir_plain(*args, emit_ckpt=True)
+    _check_scan(out, ref, torch.bfloat16)
+
+
+def test_scan_kernel_repeats_bit_equal(cuda):
+    """50 calls on the same inputs (the flagship's first training stage,
+    L = 4096, B = 16, Dim = 96, with checkpoints) give the same bits: the
+    chain composes in a fixed order whatever the timing."""
+    args = _slow_decay(_scan_operands(33, 4096, 16, 96, torch.bfloat16, cuda))
+    first = selective_scan_bidir(*args, emit_ckpt=True)
+    runs = [selective_scan_bidir(*args, emit_ckpt=True) for _ in range(49)]
+    torch.cuda.synchronize()
+    for out in runs:
+        assert all(torch.equal(a, b) for a, b in zip(out, first))
+    _check_scan(first, selective_scan_bidir_plain(*args, emit_ckpt=True),
+                torch.bfloat16)
+
+
+def test_scan_kernel_on_two_streams_at_once(cuda):
+    """Calls on two streams that overlap on the card (each stream has its
+    own chain workspace), alternated ten times without a synchronisation
+    between them, and a call after a larger one on the same stream: every
+    result equals the default stream's bit for bit."""
+    args = _slow_decay(_scan_operands(34, 16384, 2, 96, torch.bfloat16,
+                                      cuda))
+    small = _slow_decay(_scan_operands(35, 300, 3, 40, torch.bfloat16, cuda))
+    want = selective_scan_bidir(*args, emit_ckpt=True)
+    want_small = selective_scan_bidir(*small, emit_ckpt=True)
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    outs = []
+    for i in range(10):
+        for s in streams:
+            with torch.cuda.stream(s):
+                outs.append(selective_scan_bidir(*args, emit_ckpt=True))
+                if i == 9:
+                    outs.append(selective_scan_bidir(*small, emit_ckpt=True))
+    torch.cuda.synchronize()
+    for out in outs[:-4] + outs[-4:-3] + outs[-2:-1]:
+        assert all(torch.equal(a, b) for a, b in zip(out, want))
+    for out in (outs[-3], outs[-1]):
+        assert all(torch.equal(a, b) for a, b in zip(out, want_small))
 
 
 @pytest.mark.parametrize("L,B,Dim", [(64, 2, 24), (513, 2, 64),

@@ -1,12 +1,15 @@
-"""The span-parallel order of the bidirectional selective scan (segment
-summaries -> span carry -> replay), as ``csrc/selective_scan_bidir.cu``
-computes it on the card, held on the CPU against the sequential plain
-version and against the Pallas kernel in interpret mode.
+"""The chained order of the bidirectional selective scan (segment
+summaries -> span summaries -> a chain of spans per direction, each entry
+from the exit K positions back folded with the summaries between -> replay),
+as ``csrc/selective_scan_bidir.cu`` computes it on the card, held on the CPU
+against the sequential plain version and against the Pallas kernel in
+interpret mode.
 
 ``selective_scan_bidir_chunked`` is plain PyTorch and exists for these
 tests: where there is no card they show that the kernel's order of
-operations computes the recurrence and that its carry array is the
-checkpoint array the backward kernel reads.
+operations computes the recurrence, that its look-back gives the strict
+chain's bits, and that its chunk entries are the checkpoint array the
+backward kernel reads.
 """
 import numpy as np
 import pytest
@@ -23,7 +26,7 @@ from xpoint_tpu_torch.ops.selective_scan_cuda import (
 from torch_env import torch_env  # noqa: F401 (autouse)
 
 T = torch.from_numpy
-LENGTHS = [1, 7, 255, 256, 257, 300, 513]
+LENGTHS = [1, 7, 255, 256, 257, 300, 513, 127, 128, 129, 385]
 DIMS = [3, 8]
 
 
@@ -184,3 +187,126 @@ def test_backward_from_chunked_checkpoints_matches_plain_checkpoints():
     want = selective_scan_bidir_bwd_plain(*args, *ref, g_f, g_r)
     for a, b in zip(out, want):
         assert float((a - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+@pytest.mark.parametrize("L", [700, 4096, 4001])
+@pytest.mark.parametrize("lookback", [2, 4, 7])
+def test_chunked_lookback_is_the_strict_chain(L, lookback):
+    """The kernel folds exit(k - K) with the summaries of the K - 1
+    positions between; that is the strict chain entry(k) = A(k-1) entry(k-1)
+    + H(k-1) step for step, so outputs and checkpoints are equal bit for bit
+    to lookback=1 (on a slow decay, where the carry crosses every span)."""
+    u, dt, bc, cc, A, D, bias = _operands(21, L, 1, 4)
+    bias = np.full_like(bias, -6.9)
+    A = -np.ones_like(A)
+    args = tuple(map(T, (u, dt * 0.1, bc, cc, A, D, bias)))
+    strict = selective_scan_bidir_chunked(*args, lookback=1)
+    mine = selective_scan_bidir_chunked(*args, lookback=lookback)
+    assert float(strict[2][-1].abs().min()) > 0     # the chain carries
+    for a, b in zip(mine, strict):
+        assert torch.equal(a, b)
+
+
+def test_chunked_rejects_lookback_below_one():
+    args = tuple(map(T, _operands(0, 300, 1, 3)))
+    with pytest.raises(ValueError):
+        selective_scan_bidir_chunked(*args, lookback=0)
+
+
+@pytest.mark.parametrize("L", [4096, 4001])
+def test_chunked_long_chain_fp64(L):
+    """A chain of 32 spans of 128 (L = 4001: the last of 33 partial) in
+    fp64 on a slow decay: the sequential recurrence to 1e-12."""
+    u, dt, bc, cc, A, D, bias = _operands(23, L, 1, 3)
+    bias = np.full_like(bias, -6.9)
+    A = -np.ones_like(A)
+    args = tuple(T(x.astype(np.float64))
+                 for x in (u, dt * 0.1, bc, cc, A, D, bias))
+    out = selective_scan_bidir_chunked(*args)
+    ref = selective_scan_bidir_plain(*args, emit_ckpt=True)
+    assert float(ref[2][-1].abs().min()) > 1e-4
+    for a, b in zip(out, ref):
+        assert a.dtype == torch.float64 and a.shape == b.shape
+        _close(a, b, rtol=1e-12, atol=1e-12)
+
+
+def test_chunked_long_chain_long_decay():
+    """L = 4096 (32 spans) with large delta and |A| and an exact a = 0:
+    the span products underflow to 0 along the chain; finite and equal to
+    the sequential result (fp32, as test_chunked_long_decay)."""
+    u, dt, bc, cc, A, D, bias = _operands(25, 4096, 1, 8)
+    A = A * 40.0
+    bias = bias + 3.0
+    A[0] = -1e30
+    args = tuple(map(T, (u, dt, bc, cc, A, D, bias)))
+    out = selective_scan_bidir_chunked(*args)
+    ref = selective_scan_bidir_plain(*args, emit_ckpt=True)
+    for a, b in zip(out, ref):
+        assert bool(torch.isfinite(a).all())
+        _close(a, b)
+
+
+class _FakeLib:
+    """The workspace size function of the kernel's library (the words the
+    C entry point reports), for the wrapper's workspace on the CPU."""
+
+    @staticmethod
+    def xp_selective_scan_bidir_workspace(L, M):
+        return 2 + 6 * -(-L // 128) * -(-M // 32) * 32
+
+
+def test_chain_workspace_tags_are_unique_across_threads():
+    """Tags handed out for one stream from 8 threads at once (switching
+    every few microseconds) are 1 .. n with none lost or repeated: no two
+    calls on a stream can take each other's chain words."""
+    import sys
+    import threading
+    from xpoint_tpu_torch.ops import selective_scan_cuda as ssc
+    key = (None, 12345)
+    ssc._CHAIN.pop(key, None)
+    tags, n_threads, per_thread = [], 8, 300
+    lock = threading.Lock()
+
+    def work():
+        mine = [ssc._chain_workspace(_FakeLib, torch.device("cpu"), 12345,
+                                     300, 96)[1] for _ in range(per_thread)]
+        with lock:
+            tags.extend(mine)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=work) for _ in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(interval)
+        ssc._CHAIN.pop(key, None)
+    assert sorted(tags) == list(range(1, n_threads * per_thread + 1))
+
+
+def test_chain_workspace_is_replaced_before_the_tag_wraps(monkeypatch):
+    """A larger call, or the last tag, gets a new zeroed buffer and tag 1;
+    otherwise a stream keeps its buffer and the tag counts up."""
+    from xpoint_tpu_torch.ops import selective_scan_cuda as ssc
+    monkeypatch.setattr(ssc, "_LAST_TAG", 3)
+    key = (None, 777)
+    ssc._CHAIN.pop(key, None)
+    cpu = torch.device("cpu")
+    try:
+        got = [ssc._chain_workspace(_FakeLib, cpu, 777, 300, 96)
+               for _ in range(5)]
+        assert [t for _, t in got] == [1, 2, 3, 1, 2]
+        assert got[0][0] is got[2][0] and got[3][0] is not got[2][0]
+        assert int(got[3][0].abs().sum()) == 0
+        ws, tag = ssc._chain_workspace(_FakeLib, cpu, 777, 4096, 3072)
+        assert tag == 1 and ws.numel() == _FakeLib.\
+            xp_selective_scan_bidir_workspace(4096, 3072)
+        other = ssc._chain_workspace(_FakeLib, cpu, 778, 300, 96)
+        assert other[1] == 1 and other[0] is not ws
+    finally:
+        ssc._CHAIN.pop(key, None)
+        ssc._CHAIN.pop((None, 778), None)

@@ -27,6 +27,8 @@ from the left on forward lanes and from the right on reversed lanes (the
 JAX kernel's (nl, 8, Mp) blocks hold the same values in row 0).
 """
 import ctypes
+import functools
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -93,32 +95,50 @@ def selective_scan_bidir_plain(u_t, dt_t, bc_t, cc_t, A, D, delta_bias,
 
 
 def _segment_steps(L, segments):
-    """Steps per segment as K1 and K5 choose them: 16, fewer for a scan of
-    one short span."""
+    """Steps per segment as K5 chooses them: 16, fewer for a scan of one
+    short span."""
     return 4 if L <= 4 * segments else 8 if L <= 8 * segments else 16
 
 
+def _span_steps(L, segments):
+    """Steps per segment as K1 chooses them: spans of 128 tokens (two to a
+    checkpoint chunk), halved (down to 4 steps) while the scan fits in half
+    a span."""
+    steps = CKPT_CHUNK // 2 // segments
+    while steps > 4 and L <= steps // 2 * segments:
+        steps //= 2
+    return steps
+
+
 def selective_scan_bidir_chunked(u_t, dt_t, bc_t, cc_t, A, D, delta_bias,
-                                 steps=None, segments=8):
+                                 steps=None, segments=8, lookback=4):
     """The function of :func:`selective_scan_bidir_plain` with checkpoints,
     computed in the order of ``csrc/selective_scan_bidir.cu``: L is cut into
-    spans of ``segments`` segments of ``steps`` steps (128 tokens, two to a
-    checkpoint chunk, as the kernel has them); every segment is composed
-    from a zero entry to its (product of a, h) summary, the segment
-    summaries fold to span summaries, a carry over the spans in scan order
-    gives every span's entry state (those through which a chunk is entered
-    are the checkpoints), and every segment is replayed from (span entry
-    folded with the segments before it). Padded steps are the inert (1, 0).
+    spans of ``segments`` segments of ``steps`` steps (8 of 16: 128 tokens,
+    two to a checkpoint chunk, as the kernel has them), each direction on
+    its own chain of spans in its scan order. Every segment is composed
+    from a zero entry to its (product of a, h) summary and the segment
+    summaries fold to the span's summary; chain position k takes its entry
+    e from the exit of position k - ``lookback`` (zero below 0) folded with
+    the summaries of the positions between, in position order, and hands
+    on its own exit (the entries through which a chunk is entered are the
+    checkpoints). Every segment is replayed from the span's zero entry, to
+    h0 and the product P of a since the span's start, and y = (C h0 + D u)
+    + (C P) e: h = h0 + P e. Any ``lookback`` gives the entries of the
+    strict chain (``lookback=1``) bit for bit, as the same products and
+    sums are taken in the same order. Padded steps are the inert (1, 0).
     For the tests: it shows on the CPU that this order computes the
     sequential recurrence."""
     L, B, K2, Dim = u_t.shape
     M = B * K2 * Dim
-    steps = _segment_steps(L, segments) if steps is None else steps
+    steps = _span_steps(L, segments) if steps is None else steps
     span = steps * segments
     if CKPT_CHUNK % span and L > span:
         raise ValueError(f"spans of {segments} segments of {steps} steps do "
                          f"not tile a {CKPT_CHUNK}-token chunk and L={L} "
                          f"needs several")
+    if lookback < 1:
+        raise ValueError(f"lookback must be at least 1, got {lookback}")
     ns = -(-L // span)
     n_chunks = -(-L // CKPT_CHUNK)
     per_chunk = max(CKPT_CHUNK // span, 1)
@@ -147,28 +167,43 @@ def selective_scan_bidir_chunked(u_t, dt_t, bc_t, cc_t, A, D, delta_bias,
         for j in range(segments):
             span_h = seg_a[:, j] * span_h + seg_h[:, j]
             span_a = span_a * seg_a[:, j]
-        entry = torch.zeros(ns, M, dtype=cd, device=dev)
-        for s in range(1, ns):
-            entry[s] = span_a[s - 1] * entry[s - 1] + span_h[s - 1]
-        seg_in = torch.empty(ns, segments, M, dtype=cd, device=dev)
-        x = entry
+        entry = torch.empty(ns, M, dtype=cd, device=dev)
+        exits = torch.empty(ns, M, dtype=cd, device=dev)
+        for k in range(ns):
+            x = (exits[k - lookback] if k >= lookback
+                 else torch.zeros(M, dtype=cd, device=dev))
+            for j in range(max(k - lookback + 1, 0), k):
+                x = span_a[j] * x + span_h[j]
+            entry[k] = x
+            exits[k] = span_a[k] * x + span_h[k]
+        # the replay from the span's zero entry: each segment starts from
+        # the segments before it folded from (1, 0)
+        h0 = torch.empty(ns, segments, steps, M, dtype=cd, device=dev)
+        P = torch.empty_like(h0)
+        x = torch.zeros(ns, M, dtype=cd, device=dev)
+        p = torch.ones(ns, M, dtype=cd, device=dev)
+        seg_x, seg_p = [], []
         for j in range(segments):
-            seg_in[:, j] = x
+            seg_x.append(x)
+            seg_p.append(p)
             x = seg_a[:, j] * x + seg_h[:, j]
-        h = torch.empty(ns, segments, steps, M, dtype=cd, device=dev)
-        x = seg_in
+            p = p * seg_a[:, j]
+        x, p = torch.stack(seg_x, 1), torch.stack(seg_p, 1)
         for i in range(steps):
             x = a[:, :, i] * x + b[:, :, i]
-            h[:, :, i] = x
-        h = h.reshape(ns * span, M)
+            p = p * a[:, :, i]
+            h0[:, :, i] = x
+            P[:, :, i] = p
+        h0, P = h0.reshape(ns * span, M), P.reshape(ns * span, M)
+        e = entry.repeat_interleave(span, 0)
         if r == 1:                       # back to token order
-            h, entry = h.flip(0), entry.flip(0)
+            h0, P, e, entry = h0.flip(0), P.flip(0), e.flip(0), entry.flip(0)
         # the span a chunk is entered through: its first from the left, its
         # last (or the scan's last) from the right
         through = [min(c * per_chunk + (per_chunk - 1) * r, ns - 1)
                    for c in range(n_chunks)]
-        outs.append((ccx * h[:L] + D_l * u).to(dt_t.dtype)
-                    .reshape(L, B, K2, Dim))
+        y = (ccx * h0[:L] + D_l * u) + (ccx * P[:L]) * e[:L]
+        outs.append(y.to(dt_t.dtype).reshape(L, B, K2, Dim))
         ckpts.append(entry[through])
     return outs[0], outs[1], ckpts[0], ckpts[1]
 
@@ -410,17 +445,62 @@ def _device_kind(x, what):
 
 
 def _bidir_library():
-    """The forward kernel's library with its two entry points typed (once:
+    """The forward kernel's library with its entry points typed (once:
     the pipeline is bound by the host, so the launch path stays short)."""
     lib = build.load("selective_scan_bidir")
     fn = lib.xp_selective_scan_bidir
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 15
-                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-        lib.xp_selective_scan_bidir_scratch.restype = ctypes.c_longlong
-        lib.xp_selective_scan_bidir_scratch.argtypes = [ctypes.c_int] * 2
+                       + [ctypes.c_uint] + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p])
+        lib.xp_selective_scan_bidir_workspace.restype = ctypes.c_longlong
+        lib.xp_selective_scan_bidir_workspace.argtypes = [ctypes.c_int] * 2
+        lib.xp_selective_scan_bidir_shape.restype = ctypes.c_int
+        lib.xp_selective_scan_bidir_shape.argtypes = ([ctypes.c_int] * 4
+                                                      + [ctypes.c_void_p])
     return lib
+
+
+@functools.lru_cache(maxsize=256)
+def _workspace_words(lib, L, M):
+    """The 64-bit words of workspace a call on an (L, M) plane needs."""
+    return lib.xp_selective_scan_bidir_workspace(L, M)
+
+
+# The kernel's chain workspace, one a (device, stream): [int64 words, the
+# last tag handed out]. Calls on one stream run one after another, so they
+# never have live words in one buffer at once, and each call's tag is one
+# higher than the last; a buffer is zeroed when it is made (its words then
+# carry tag 0, which no call uses) and replaced before the tag wraps.
+_CHAIN = {}
+_CHAIN_LOCK = threading.Lock()
+_LAST_TAG = 0xFFFFFFFF
+
+
+def _chain_workspace(lib, dev, stream, L, M):
+    """(workspace, tag) for one launch on ``stream``."""
+    n = _workspace_words(lib, L, M)
+    key = (dev.index, stream)
+    with _CHAIN_LOCK:
+        ws = _CHAIN.get(key)
+        if ws is None or ws[0].numel() < n or ws[1] == _LAST_TAG:
+            ws = _CHAIN[key] = [torch.zeros(n, dtype=torch.int64,
+                                            device=dev), 0]
+        ws[1] += 1
+        return ws[0], ws[1]
+
+
+def selective_scan_bidir_launch_shape(L, M, Dim, dtype=torch.bfloat16):
+    """What the kernel launches for an (L, M) plane of ``dtype``: resident
+    blocks an SM, threads and dynamic shared memory bytes a block, blocks
+    (on the current CUDA device; for the measurements)."""
+    lib = _bidir_library()
+    out = (ctypes.c_int * 4)()
+    build.check(lib, lib.xp_selective_scan_bidir_shape(
+        _DTYPE_CODE[dtype], L, M, Dim, out), "selective_scan_bidir shape")
+    return dict(zip(("blocks_per_sm", "threads", "smem_bytes", "blocks"),
+                    out))
 
 
 def _launch(u_t, dt_t, bc_t, cc_t, A, D, delta_bias, emit_ckpt):
@@ -428,14 +508,16 @@ def _launch(u_t, dt_t, bc_t, cc_t, A, D, delta_bias, emit_ckpt):
     L, B, K2, Dim = u_t.shape
     M = B * K2 * Dim
     dev = u_t.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
     y_f = torch.empty_like(u_t)
     y_r = torch.empty_like(u_t)
     # the chunk entry states are part of the scan's own carry between its
-    # spans, so they exist whether or not they are returned; the span
-    # summaries and entry states are scratch between the passes
+    # spans, so they exist whether or not they are returned
     hck = torch.empty(2, -(-L // CKPT_CHUNK), M, device=dev)
-    n_scratch = lib.xp_selective_scan_bidir_scratch(L, M)
-    scratch = torch.empty(n_scratch, device=dev) if n_scratch else None
+    ws, tag = _chain_workspace(lib, dev, stream, L, M)
+    # the kernel copies the planes in 4-byte pieces at least
+    u_t, dt_t = (x if x.data_ptr() % 4 == 0 else x.clone()
+                 for x in (u_t, dt_t))
     # the reversed lanes' halves of dt_t, bc_t, cc_t and hck by address
     dt, bc, cc, ck = (x.data_ptr() for x in (dt_t, bc_t, cc_t, hck))
     half = lambda x: x.stride(0) * x.element_size()  # noqa: E731
@@ -443,8 +525,7 @@ def _launch(u_t, dt_t, bc_t, cc_t, A, D, delta_bias, emit_ckpt):
         _DTYPE_CODE[u_t.dtype], u_t.data_ptr(), dt, dt + half(dt_t), bc, cc,
         bc + half(bc_t), cc + half(cc_t), A.data_ptr(), D.data_ptr(),
         delta_bias.data_ptr(), y_f.data_ptr(), y_r.data_ptr(), ck,
-        ck + half(hck), None if scratch is None else scratch.data_ptr(),
-        L, M, Dim, torch.cuda.current_stream(dev).cuda_stream)
+        ck + half(hck), ws.data_ptr(), tag, L, M, Dim, stream)
     build.check(lib, err, "selective_scan_bidir launch")
     selective_scan_bidir.launches += 1
     if emit_ckpt:

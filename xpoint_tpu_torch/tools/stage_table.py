@@ -111,8 +111,10 @@ def sub_pipelines(module, H, W, k=1024):
             ("interpolate", interpolate), ("match", match)]
 
 
-# streams of fresh inputs timed for each prefix, in turns
-STREAMS = 3
+# streams of fresh inputs timed for each prefix, in turns: a stage is the
+# difference of two prefixes' medians, clamped at 0, so a stream that the
+# host slows moves the sum of the stages unless the median outvotes it
+STREAMS = 7
 
 
 @torch.no_grad()
