@@ -19,8 +19,8 @@ from xpoint_tpu_torch.ops.nms import (box_nms, box_nms_extract, grid_nms_keep,
                                       grid_nms_keep_plain)
 from xpoint_tpu_torch.ops.selective_scan_cuda import (
     SelectiveScanBidir, selective_scan_bidir, selective_scan_bidir_bwd,
-    selective_scan_bidir_bwd_plain, selective_scan_bidir_launch_shape,
-    selective_scan_bidir_plain,
+    selective_scan_bidir_bwd_launch_shape, selective_scan_bidir_bwd_plain,
+    selective_scan_bidir_launch_shape, selective_scan_bidir_plain,
     selective_scan_fused_bkld, selective_scan_fused_bkld_plain)
 from torch_env import torch_env  # noqa: F401 (autouse)
 
@@ -328,6 +328,164 @@ def test_scan_bwd_kernel_repeat_at_train_shapes(cuda, L, B, Dim):
     again = selective_scan_bidir_bwd(*args, *ck, g_f, g_r)
     for a, b in zip(out, again):
         assert torch.equal(a, b)
+
+
+def _bwd_case(seed, L, B, Dim, dtype, dev, slow=False):
+    """K3's operands, K1's own checkpoints of them and cotangents."""
+    args = _scan_operands(seed, L, B, Dim, dtype, dev)
+    if slow:
+        args = _slow_decay(args)
+    ck = selective_scan_bidir(*args, emit_ckpt=True)[2:]
+    g = torch.Generator(device="cpu").manual_seed(seed + 1)
+    gy = [torch.randn(L, B, 2, Dim, generator=g).to(dev, dtype)
+          for _ in range(2)]
+    return (*args, *ck, *gy)
+
+
+def _check_bwd(out, ref, dtype):
+    """The tolerances of test_scan_bwd_kernel_matches_plain, and finite."""
+    for i, (a, b) in enumerate(zip(out, ref)):
+        assert a.dtype == b.dtype and a.shape == b.shape, i
+        assert bool(torch.isfinite(a).all()), i
+        tol = 1e-4 if dtype == torch.float32 else (2e-2 if i < 4 else 1e-3)
+        assert _rel_err(a, b) <= tol, (i, _rel_err(a, b))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Dim", [8, 40, 96])
+@pytest.mark.parametrize("L", [63, 64, 65, 127, 128, 129, 255, 256, 257,
+                               511, 512, 513])
+def test_scan_bwd_kernel_span_boundaries(cuda, L, Dim, dtype):
+    """K3 at and across its 256-token spans (one checkpoint chunk each) and
+    the 32 and 64 tokens up to which its one-span kernel takes 4 and 8
+    steps a thread, with lanes that are and are not multiples of a block's 32
+    (B=3: M = 48, 240, 576; Dim 40's groups straddle 32-lane slices): one
+    launch a call, against the plain version, and a second run bit for
+    bit."""
+    args = _bwd_case(L + Dim, L, 3, Dim, dtype, cuda)
+    before = selective_scan_bidir_bwd.launches
+    out = selective_scan_bidir_bwd(*args)
+    again = selective_scan_bidir_bwd(*args)
+    torch.cuda.synchronize()
+    assert selective_scan_bidir_bwd.launches == before + 2
+    _check_bwd(out, selective_scan_bidir_bwd_plain(*args), dtype)
+    for a, b in zip(out, again):
+        assert torch.equal(a, b)
+
+
+def test_scan_bwd_kernel_long_chain_few_lanes(cuda):
+    """L = 65536 with one lane group (B = 1, Dim = 16: M = 32): a chain of
+    256 spans a direction on a slow decay, which carries the adjoint across
+    every span, against the plain version (fp32)."""
+    args = _bwd_case(40, 65536, 1, 16, torch.float32, cuda, slow=True)
+    out = selective_scan_bidir_bwd(*args)
+    _check_bwd(out, selective_scan_bidir_bwd_plain(*args), torch.float32)
+
+
+def test_scan_bwd_kernel_grid_many_times_resident(cuda):
+    """L = 16384, B = 8, Dim = 768 (M = 12288): 384 lane groups x 64 spans
+    x 2 directions, some 190 times the blocks the card holds at once; a
+    block waits only on blocks that started before it, so the launch
+    finishes, and agrees with the plain version (bf16)."""
+    args = _bwd_case(41, 16384, 8, 768, torch.bfloat16, cuda)
+    out = selective_scan_bidir_bwd(*args)
+    _check_bwd(out, selective_scan_bidir_bwd_plain(*args), torch.bfloat16)
+
+
+def test_scan_bwd_kernel_repeats_bit_equal(cuda):
+    """50 K3 calls on the same inputs (the flagship's first training stage,
+    L = 4096, B = 16, Dim = 96, bf16, slow decay) give the same bits: the
+    chain composes in a fixed order whatever the timing, and du, dB, dC,
+    dA, dD and dbias are summed in fixed orders."""
+    args = _bwd_case(42, 4096, 16, 96, torch.bfloat16, cuda, slow=True)
+    first = selective_scan_bidir_bwd(*args)
+    runs = [selective_scan_bidir_bwd(*args) for _ in range(49)]
+    torch.cuda.synchronize()
+    for out in runs:
+        assert all(torch.equal(a, b) for a, b in zip(out, first))
+    _check_bwd(first, selective_scan_bidir_bwd_plain(*args), torch.bfloat16)
+
+
+def test_scan_bwd_kernel_on_two_streams_at_once(cuda):
+    """K3 calls on two streams that overlap on the card (each stream has its
+    own chain workspace), alternated ten times without a synchronisation
+    between them, and a one-span call after a chained one on the same
+    stream: every result equals the default stream's bit for bit."""
+    args = _bwd_case(43, 16384, 2, 96, torch.bfloat16, cuda, slow=True)
+    small = _bwd_case(44, 300, 3, 40, torch.bfloat16, cuda)
+    want = selective_scan_bidir_bwd(*args)
+    want_small = selective_scan_bidir_bwd(*small)
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    outs = []
+    for i in range(10):
+        for s in streams:
+            with torch.cuda.stream(s):
+                outs.append(selective_scan_bidir_bwd(*args))
+                if i == 9:
+                    outs.append(selective_scan_bidir_bwd(*small))
+    torch.cuda.synchronize()
+    for out in outs[:-4] + outs[-4:-3] + outs[-2:-1]:
+        assert all(torch.equal(a, b) for a, b in zip(out, want))
+    for out in (outs[-3], outs[-1]):
+        assert all(torch.equal(a, b) for a, b in zip(out, want_small))
+
+
+def test_scan_bwd_on_autograd_thread_beside_a_forward_stream(cuda):
+    """SelectiveScanBidir's backward (K3, run by autograd's device thread)
+    started from a second thread while the main thread runs K1 forwards on
+    another stream, with no synchronisation between them: the gradients
+    equal those of a run alone and the forwards their outputs alone, bit
+    for bit (the workspaces are per stream and kernel, the tags handed out
+    under one lock)."""
+    import threading
+    args = _slow_decay(_scan_operands(45, 4096, 4, 96, torch.bfloat16, cuda))
+    other = _slow_decay(_scan_operands(46, 16384, 2, 96, torch.bfloat16,
+                                       cuda))
+
+    def grads():
+        xs = [x.detach().clone().requires_grad_() for x in args]
+        y_f, y_r = SelectiveScanBidir.apply(*xs)
+        ((y_f.float() ** 2).sum() + (y_r.float() * 0.5).sum()).backward()
+        return [x.grad for x in xs]
+
+    before = selective_scan_bidir_bwd.launches
+    want = grads()
+    want_fwd = selective_scan_bidir(*other, emit_ckpt=True)
+    torch.cuda.synchronize()
+    got = {}
+    worker = threading.Thread(target=lambda: got.update(g=grads()))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    worker.start()
+    fwds = []
+    with torch.cuda.stream(side):
+        for _ in range(10):
+            fwds.append(selective_scan_bidir(*other, emit_ckpt=True))
+    worker.join(timeout=120)
+    assert not worker.is_alive()
+    torch.cuda.synchronize()
+    assert selective_scan_bidir_bwd.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got["g"], want))
+    for out in fwds:
+        assert all(torch.equal(a, b) for a, b in zip(out, want_fwd))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L", [64, 65, 128, 256, 257, 16384])
+def test_scan_bwd_kernel_launch_shape(cuda, L, dtype):
+    """One recurrence launch a call: up to 64 tokens one 512-thread block a
+    lane group does both directions; beyond, one 544-thread block (16 scan
+    warps and a chain warp) a direction, lane group and 256-token span.
+    Every launch has at least one resident block an SM."""
+    M = 8 * 2 * 96
+    groups, spans = -(-M // 32), -(-L // 256)
+    shape = selective_scan_bidir_bwd_launch_shape(L, M, 96, dtype)
+    one_block = L <= 64
+    assert shape["blocks"] == (groups if one_block else 2 * groups * spans)
+    assert shape["threads"] == (512 if one_block else 544)
+    assert shape["blocks_per_sm"] >= 1 and shape["smem_bytes"] > 0
 
 
 def test_scan_autograd_on_card_matches_cpu(cuda):

@@ -1,9 +1,10 @@
 """The span-parallel orders of the bidirectional scan's backward
-(``csrc/selective_scan_bidir_bwd.cu``: adjoint span summaries -> carry ->
-replay, partial sums in a fixed order) and of the single-direction fused
-scan (``csrc/selective_scan_fused.cu``: span summaries -> carry -> replay),
-held on the CPU against the sequential plain versions and against the
-Pallas kernels in interpret mode.
+(``csrc/selective_scan_bidir_bwd.cu``: 256-token spans, segment summaries,
+the adjoint chained over the spans with a fixed-distance look-back, the
+replay from a zero adjoint entry, partial sums in a fixed order) and of the
+single-direction fused scan (``csrc/selective_scan_fused.cu``: span
+summaries -> carry -> replay), held on the CPU against the sequential plain
+versions and against the Pallas kernels in interpret mode.
 
 ``selective_scan_bidir_bwd_chunked`` and ``selective_scan_fused_chunked``
 are plain PyTorch and exist for these tests: where there is no card they
@@ -11,7 +12,8 @@ show that the kernels' orders of operations compute the same functions.
 The tail shapes are the kernels': L in {1, 64, 129, 300, 513} (one span,
 whole spans, a last span of one token, a short last checkpoint chunk) with
 B = 3, Dim = 40 (M = 240 lanes, no multiple of a block's 32, groups that
-straddle 32-lane slices).
+straddle 32-lane slices); the backward's also cross its 256-token span
+and chunk (255, 256, 257, 511, 512).
 """
 import numpy as np
 import pytest
@@ -32,6 +34,7 @@ from torch_env import torch_env  # noqa: F401 (autouse)
 
 T = torch.from_numpy
 LENGTHS = [1, 64, 129, 300, 513]
+BWD_LENGTHS = LENGTHS + [255, 256, 257, 511, 512]
 B, DIM = 3, 40
 NAMES = ("du_t", "ddt_t", "dbc_t", "dcc_t", "dA", "dD", "ddelta_bias")
 
@@ -71,7 +74,7 @@ def _bwd_both(args, gy, dtype=torch.float32):
             selective_scan_bidir_bwd_plain(*targs, *ck, *g))
 
 
-@pytest.mark.parametrize("L", LENGTHS)
+@pytest.mark.parametrize("L", BWD_LENGTHS)
 def test_bwd_chunked_matches_plain(L):
     """fp32: all seven cotangents within rtol 1e-4 / atol 1e-5 of the
     sequential version (only the rounding of the segment and span products
@@ -82,7 +85,7 @@ def test_bwd_chunked_matches_plain(L):
         _close(a, b, name=name)
 
 
-@pytest.mark.parametrize("L", LENGTHS)
+@pytest.mark.parametrize("L", BWD_LENGTHS)
 def test_bwd_chunked_matches_pallas_vjp(L):
     """Against jax.vjp of selective_scan_fused_bidir_tok, which runs the
     Pallas forward with checkpoints and the Pallas backward
@@ -166,6 +169,115 @@ def test_bwd_chunked_slow_decay_carries_over_spans_and_chunks():
     out, ref = _bwd_both(args, gy)
     for name, a, b in zip(NAMES, out, ref):
         _close(a, b, name=name)
+
+
+@pytest.mark.parametrize("steps", [None, 2])
+@pytest.mark.parametrize("lookback", [2, 4, 7])
+def test_bwd_chunked_lookback_is_the_strict_chain(lookback, steps):
+    """Any look-back gives the adjoint entries of the strict chain
+    (look-back 1) bit for bit, so every output is equal: the kernel's 256-
+    token spans over L = 1300 (6 spans a direction) and 32-token spans (41
+    spans), on a slow decay that carries the adjoint over every span."""
+    args, gy = _bidir_operands(23, 1300, batch=1, Dim=8)
+    u, dt, bc, cc, A, D, bias = args
+    args = (u, dt * 0.1, bc, cc, -np.ones_like(A), D,
+            np.full_like(bias, -6.9))
+    targs, g = tuple(map(T, args)), tuple(map(T, gy))
+    ck = selective_scan_bidir_plain(*targs, emit_ckpt=True)[2:]
+    strict = selective_scan_bidir_bwd_chunked(*targs, *ck, *g, steps=steps,
+                                              lookback=1)
+    out = selective_scan_bidir_bwd_chunked(*targs, *ck, *g, steps=steps,
+                                           lookback=lookback)
+    for name, a, b in zip(NAMES, out, strict):
+        assert torch.equal(a, b), name
+
+
+def test_bwd_chunked_rejects_lookback_below_one():
+    args, gy = _bidir_operands(0, 300, batch=1, Dim=3)
+    targs, g = tuple(map(T, args)), tuple(map(T, gy))
+    ck = selective_scan_bidir_plain(*targs, emit_ckpt=True)[2:]
+    with pytest.raises(ValueError):
+        selective_scan_bidir_bwd_chunked(*targs, *ck, *g, lookback=0)
+
+
+@pytest.mark.parametrize("L", [4096, 4001])
+def test_bwd_chunked_long_chain_fp64(L):
+    """A chain of 16 spans a direction (4001: a last span of 161 tokens) on a
+    slow decay, in fp64: the kernel's order is the backward to 1e-12."""
+    args, gy = _bidir_operands(25, L, batch=1, Dim=4)
+    u, dt, bc, cc, A, D, bias = args
+    args = (u, dt * 0.1, bc, cc, -np.ones_like(A), D,
+            np.full_like(bias, -6.9))
+    targs = [T(x.astype(np.float64)) for x in args]
+    g = [T(x.astype(np.float64)) for x in gy]
+    ck = selective_scan_bidir_plain(*targs, emit_ckpt=True)[2:]
+    out = selective_scan_bidir_bwd_chunked(*targs, *ck, *g)
+    ref = selective_scan_bidir_bwd_plain(*targs, *ck, *g)
+    for name, a, b in zip(NAMES, out, ref):
+        _close(a, b, rtol=1e-12, atol=1e-12, name=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bwd_chunked_du_is_forward_plus_reversed(dtype):
+    """du is the fp32 forward term plus the fp32 reversed term, rounded once
+    to the operands' dtype: with g_r = 0 the reversed term is 0 and du is
+    the forward term (and the same with g_f = 0), so du of both equals the
+    fp32 sum of the two one-sided du's, cast once. The planes hold values of
+    ``dtype``, so the fp32 runs do the arithmetic of the ``dtype`` run. (For
+    two terms the order of the addition cannot change the bits; the kernel
+    adds the forward term first.)"""
+    args, (gf, gr) = _bidir_operands(27, 600, batch=2, Dim=8)
+    targs = [T(x) for x in args]
+    targs[:4] = [x.to(dtype).float() for x in targs[:4]]
+    gf, gr = (T(x).to(dtype).float() for x in (gf, gr))
+    ck = selective_scan_bidir_plain(*targs, emit_ckpt=True)[2:]
+    zero = torch.zeros_like(gf)
+    f32 = [selective_scan_bidir_bwd_chunked(*targs, *ck, a, b)[0]
+           for a, b in ((gf, zero), (zero, gr))]
+    targs[:4] = [x.to(dtype) for x in targs[:4]]
+    both = selective_scan_bidir_bwd_chunked(*targs, *ck, gf.to(dtype),
+                                            gr.to(dtype))[0]
+    assert both.dtype == dtype
+    assert torch.equal(both, (f32[0] + f32[1]).to(dtype))
+
+
+class _FakeBwdLib:
+    """The workspace size functions of both kernels' libraries (the words
+    their C entry points report), for the wrapper on the CPU."""
+
+    @staticmethod
+    def xp_selective_scan_bidir_workspace(L, M):
+        return 2 + 6 * -(-L // 128) * -(-M // 32) * 32
+
+    @staticmethod
+    def xp_selective_scan_bidir_bwd_workspace(L, M, Dim):
+        pairs = -(-L // 256) * -(-M // 32)
+        return 2 + 2 * pairs + 6 * pairs * 32
+
+
+def test_bwd_chain_workspace_is_its_own_buffer():
+    """K3's calls take a buffer of their own on each stream, sized by K3's
+    words, with tags 1, 2, ... of their own: never K1's buffer, so K1 and
+    K3 never hand out one tag on one buffer."""
+    from xpoint_tpu_torch.ops import selective_scan_cuda as ssc
+    cpu = torch.device("cpu")
+    keys = [(None, 4242), (None, 4242, "bwd")]
+    for key in keys:
+        ssc._CHAIN.pop(key, None)
+    try:
+        k1 = [ssc._chain_workspace(_FakeBwdLib, cpu, 4242, 4096, 3072)
+              for _ in range(3)]
+        k3 = [ssc._chain_workspace(_FakeBwdLib, cpu, 4242, 4096, 3072, 96)
+              for _ in range(2)]
+        assert [t for _, t in k1] == [1, 2, 3]
+        assert [t for _, t in k3] == [1, 2]
+        assert k3[0][0] is k3[1][0] and k3[0][0] is not k1[0][0]
+        assert k3[0][0].numel() == _FakeBwdLib.\
+            xp_selective_scan_bidir_bwd_workspace(4096, 3072, 96)
+        assert int(k3[0][0].abs().sum()) == 0
+    finally:
+        for key in keys:
+            ssc._CHAIN.pop(key, None)
 
 
 def test_bwd_wrapper_on_cpu_runs_the_plain_version():

@@ -80,7 +80,8 @@
 //   predecessor happens to be done). The chain's critical path is spans / K
 //   hops instead of spans, and two runs give the same bits, as every sum
 //   in a block is taken in a fixed order too.
-//   Memory ordering. A published value and its flag are one 64-bit word:
+//   Memory ordering (the helpers live in scan_chain.cuh, shared with the
+//   backward). A published value and its flag are one 64-bit word:
 //   the call's tag (high 32 bits, never 0) and the fp32 value (low 32
 //   bits), stored with st.relaxed.gpu.b64 and polled with
 //   ld.relaxed.gpu.b64 (__nanosleep between polls), both single-copy
@@ -106,17 +107,22 @@
 #include <stdint.h>
 
 #include <initializer_list>
-#include <mutex>
 
+#include "scan_chain.cuh"
 #include "scan_common.cuh"
 
 namespace {
 
+using xp::barrier;
+using xp::copy_async;
 using xp::ex2_approx;
 using xp::from_f32;
 using xp::kLog2e;
+using xp::prepare;
+using xp::publish;
 using xp::softplus_approx;
 using xp::to_f32;
+using xp::wait_async;
 
 constexpr int kLanes = 32;          // lanes per block, a warp's width
 constexpr int kWarps = 8;           // segments per span: the scan warps
@@ -155,55 +161,6 @@ struct Chain {
   unsigned tag;
   int spans, groups;
 };
-
-__device__ __forceinline__ void publish(unsigned long long* p, unsigned tag,
-                                        float v) {
-  const unsigned long long w =
-      (static_cast<unsigned long long>(tag) << 32) | __float_as_uint(v);
-  asm volatile("st.relaxed.gpu.b64 [%0], %1;" ::"l"(p), "l"(w) : "memory");
-}
-
-__device__ __forceinline__ unsigned long long peek(
-    const unsigned long long* p) {
-  unsigned long long w;
-  asm volatile("ld.relaxed.gpu.b64 %0, [%1];" : "=l"(w) : "l"(p) : "memory");
-  return w;
-}
-
-__device__ __forceinline__ bool tagged(unsigned long long w, unsigned tag) {
-  return static_cast<unsigned>(w >> 32) == tag;
-}
-
-__device__ __forceinline__ float value_of(unsigned long long w) {
-  return __uint_as_float(static_cast<unsigned>(w));
-}
-
-// A barrier of the whole block (kBlock threads) that may sit in code that
-// its warps reach by different paths (barrier 0 is __syncthreads').
-template <int kBlock>
-__device__ __forceinline__ void barrier() {
-  asm volatile("bar.sync 1, %0;" ::"n"(kBlock) : "memory");
-}
-
-// kChunk bytes from global to shared memory, zero-filled where !valid (src
-// must still be a valid address).
-template <int kChunk>
-__device__ __forceinline__ void copy_async(void* dst, const void* src,
-                                           bool valid) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = valid ? kChunk : 0;
-  if constexpr (kChunk == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-                 "l"(src), "r"(n));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d),
-                 "l"(src), "n"(kChunk), "r"(n));
-}
-
-__device__ __forceinline__ void wait_async() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" ::
-                   : "memory");
-}
 
 // A bidir_chain_kernel block's dynamic shared memory: the (span, 32) tiles
 // of u and dt and the (span, max_groups) tiles of B and C.
@@ -376,41 +333,6 @@ struct Steps {
   }
 };
 
-// The chain for one lane: entry(k) from exit(k - K) and the summaries of
-// positions k - K + 1 .. k - 1, once all carry this call's tag, folded in
-// position order (the strict chain's fmafs).
-__device__ __forceinline__ float chain_entry(const Chain& c, size_t lane_at,
-                                             size_t plane, int k) {
-  if (k == 0) return 0.f;
-  const int first = max(k - kLookback + 1, 0);
-  unsigned long long wa[kLookback - 1], wh[kLookback - 1], we = 0;
-  for (;;) {
-    bool ready = true;
-#pragma unroll
-    for (int i = 0; i < kLookback - 1; ++i)
-      if (first + i < k) {
-        const size_t at = lane_at + static_cast<size_t>(first + i) * plane;
-        wa[i] = peek(c.agg_a + at);
-        wh[i] = peek(c.agg_h + at);
-      }
-    if (k >= kLookback)
-      we = peek(c.exit + lane_at +
-                static_cast<size_t>(k - kLookback) * plane);
-#pragma unroll
-    for (int i = 0; i < kLookback - 1; ++i)
-      if (first + i < k)
-        ready = ready && tagged(wa[i], c.tag) && tagged(wh[i], c.tag);
-    if (k >= kLookback) ready = ready && tagged(we, c.tag);
-    if (ready) break;
-    __nanosleep(32);
-  }
-  float x = k >= kLookback ? value_of(we) : 0.f;
-#pragma unroll
-  for (int i = 0; i < kLookback - 1; ++i)
-    if (first + i < k) x = fmaf(value_of(wa[i]), x, value_of(wh[i]));
-  return x;
-}
-
 // One direction (kRev: reversed lanes, right to left) of span s, chain
 // position k, lane group `group`: the scan warps form the steps and replay
 // them from a zero entry while the chain warp folds the segment summaries,
@@ -434,12 +356,12 @@ __device__ __forceinline__ void chain_span(const Operands<T>& p,
   if (scan_warp) {
     Steps<T, kFull, kRev> st;
     st.form(p, x, tl, sh, threadIdx.y);
-    barrier<kThreads>();                            // summaries shared
+    barrier<1, kThreads>();                            // summaries shared
     st.replay_from_zero(p, tl, sh, threadIdx.y);
-    barrier<kThreads>();                            // entry known
+    barrier<1, kThreads>();                            // entry known
     st.store_y(p, x, sh.entry[threadIdx.x]);
   } else {
-    barrier<kThreads>();
+    barrier<1, kThreads>();
     const int lane = threadIdx.x;
     float A = 1.f, H = 0.f;
 #pragma unroll
@@ -456,7 +378,8 @@ __device__ __forceinline__ void chain_span(const Operands<T>& p,
       publish(c.agg_a + at, c.tag, A);
       publish(c.agg_h + at, c.tag, H);
     }
-    const float e = chain_entry(c, lane_at, plane, k);
+    const float e = xp::chain_entry<kLookback>(c.agg_a, c.agg_h, c.exit,
+                                                 c.tag, lane_at, plane, k);
     if (k + kLookback < c.spans) publish(c.exit + at, c.tag, fmaf(A, e, H));
     sh.entry[lane] = e;
     // the span through which a chunk is entered: its first from the left,
@@ -467,7 +390,7 @@ __device__ __forceinline__ void chain_span(const Operands<T>& p,
     if (enters_chunk && x.m0 + lane < p.M)
       p.hck[dir][static_cast<size_t>(s / kSpansPerChunk) * p.M + x.m0 +
                  lane] = e;
-    barrier<kThreads>();
+    barrier<1, kThreads>();
   }
 }
 
@@ -561,7 +484,7 @@ __device__ __forceinline__ void one_span(const Operands<T>& p, Shared& sh,
     sh.seg_h[dir][w][lane] = h;
   }
   if (w == 0 && live) p.hck[dir][m] = 0.f;
-  barrier<2 * kScanThreads>();
+  barrier<1, 2 * kScanThreads>();
   float h = 0.f;
 #pragma unroll
   for (int j = 0; j < kWarps; ++j) {
@@ -603,52 +526,6 @@ bidir_span_kernel(Operands<T> p) {
 long long spans_of(int L) { return (L + kSpan - 1) / kSpan; }
 long long groups_of(int M) { return (M + kLanes - 1) / kLanes; }
 int max_groups_of(int Dim) { return min(kLanes, (kLanes - 1) / Dim + 2); }
-
-// Resident blocks an SM of one instance at one dynamic shared memory size,
-// counted once a device. The instance's shared memory attribute is set,
-// the first time, to the most any call of it takes (max_smem), so that a
-// later call with more than an earlier one still launches.
-struct Resident {
-  int device;
-  const void* fn;
-  size_t smem;
-  int per_sm;
-};
-std::mutex g_resident_lock;
-Resident g_resident[64];
-int g_n_resident = 0;
-
-template <typename F>
-int prepare(F fn, int threads, size_t smem, size_t max_smem, int* per_sm) {
-  int device;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const void* key = reinterpret_cast<const void*>(fn);
-  std::lock_guard<std::mutex> guard(g_resident_lock);
-  bool seen = false;
-  for (int i = 0; i < g_n_resident; ++i) {
-    const Resident& r = g_resident[i];
-    if (r.device == device && r.fn == key) {
-      seen = true;
-      if (r.smem == smem) {
-        *per_sm = r.per_sm;
-        return 0;
-      }
-    }
-  }
-  if (!seen) {
-    err = cudaFuncSetAttribute(fn,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(max_smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(per_sm, fn, threads,
-                                                      smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (g_n_resident < 64)
-    g_resident[g_n_resident++] = {device, key, smem, *per_sm};
-  return 0;
-}
 
 // What a launch is made of: resident blocks an SM, threads and dynamic
 // shared memory a block, blocks; for the measurements.

@@ -24,77 +24,149 @@
 //
 // Bound: bytes. The function reads u, dt_f, dt_r, g_f, g_r and writes du,
 // ddt_f, ddt_r: 16 bytes per (t, m) in bf16 (the compact B/C and dB/dC are
-// 1/Dim of that), a few tens of flops each. The sequential design (one
-// thread per lane and direction walking all of L twice) was bound by
-// latency, with only 2 M threads. This one is K1's span design applied to
-// the adjoint: with e_t = a_t dh_t the adjoint is the linear recurrence
-// e_t = a_t gC_t + a_t e_next, run in the opposite order to h, so it
-// composes by spans like the forward. L is cut into spans of 32 tokens
-// (eight to a checkpoint chunk); a block owns 32 neighbouring lanes and one
-// span, as 8 warps x 4 steps in registers.
-//   1. span_summary_kernel: from u, dt, g, B, C of both directions a thread
-//      forms its segment's (product of a, h from a zero entry in scan
-//      order, e from a zero entry in adjoint order); the segments meet in
-//      shared memory and four warps fold them into the span's summaries,
-//      fp32 (6, spans, M).
-//   2. span_carry_kernel: per lane and direction, the span summaries
-//      composed in adjoint order into every span's adjoint entry (as K1's
-//      carry, up to 32 threads a lane), and each chunk's checkpoint carried
-//      over the chunk's spans in scan order into every span's h entry: a
-//      span that does not start its chunk takes h from the fold of the
-//      spans before it; a block on a whole chunk would need 8 times pass
-//      3's registers.
-//   3. span_output_kernel, same grid: per direction, one after the other
-//      (u and the du sum stay in registers between them), the segment
-//      summaries meet in shared memory, a thread folds the segments before
-//      its own onto the span's h entry and adjoint entry, rebuilds h
-//      forward and dh backward, and forms ddt, the du term and the dB/dC
-//      and dA/dD/dbias terms. du is summed over both directions in
-//      registers (fp32, forward first) and stored once in the operands'
-//      dtype.
-//   4. finish_kernel: the partial sums below, in a fixed order.
-// Pass 3 is the kernel's time (two thirds of it), and a chain of
-// latencies, not bytes or issue, binds it: h and dh are rebuilt in four
-// dependent folds a direction with barriers between, and the lanes of a
-// step are summed for dB/dC. So blocks are small and many: 4 steps a
-// thread hold pass 3 at 64 registers (a 36-byte spill), four 256-thread
-// blocks an SM. Measured on an H100 at the training shapes: 8 warps x 8
-// steps with two blocks an SM took 1.17x the time, 16 x 4 or 4 x 4 1.06x;
-// a serial sum of each step's lanes in place of the two-level one below
-// added 0.35 ms to the 3 ms of a train step.
-// No float is added atomically: dB/dC of one warp's step are summed over
-// its lanes (each group's lanes apart) in a fixed order, per 32-lane slice,
-// into scratch, and pass 4 sums a group's slices in slice order; dA/dD/
-// dbias are summed over a block's segments in segment order into one
-// partial per span, and pass 4 sums the spans in span order. Two runs on
-// the same inputs give the same bits. Tokens beyond L are inert (dt = -inf
-// gives a = 1, b = 0, sigmoid 0, and g = 0 there); lanes beyond M compute
-// on a clamped lane and store nothing. A launch of one span (L <= 32) runs
-// pass 3 alone from the checkpoint and a zero adjoint entry. Passes 1 and 3
-// both read the operands: 26 bytes per (t, m) against the bound's 16.
+// 1/Dim of that), a few tens of flops and five transcendentals each.
+//
+// Design: one launch for the recurrence, spans chained by the adjoint carry
+// (K1's design, selective_scan_bidir.cu, run on the adjoint), and a small
+// finishing launch over the partial sums. With e_t = a_t dh_t the adjoint
+// is the linear recurrence e_t = a_t (gC_t + e_next) in the opposite order
+// to h, so it composes by spans like h: (P1, E1) then (P2, E2) = (P1 P2,
+// P2 E1 + E2), P the product of a.
+//   Spans are 256 tokens, the checkpoint chunk: a span's h entry is its
+//   checkpoint, so h needs no carry and no wait, and only the adjoint
+//   chains. A scan of more than 64 tokens runs bwd_chain_kernel (one span
+//   up to 256 tokens); a shorter one runs bwd_span_kernel.
+//   Blocks of bwd_chain_kernel: 32 neighbouring lanes x 17 warps, 16 scan
+//   warps (warp w the segment of steps 16 w .. 16 w + 15 of the span) and
+//   one chain warp, two blocks an SM; a block does ONE direction of one
+//   span. Each scan warp
+//   copies its segment's rows of u, dt and g into shared memory with
+//   cp.async (16 bytes a copy where every row is 16-byte aligned, else 4),
+//   and of the compact B and C, and starts as soon as they are in (no block
+//   barrier), so each operand element is read from device memory once a
+//   direction. Each thread then makes three passes over its 16 steps from
+//   shared memory (the instructions a step, not the bytes, set the time:
+//   delta is formed twice, in passes 1 and 3, a from it in every pass, the
+//   sigmoid in pass 3; 16 steps of them do not fit in registers beside the
+//   rest):
+//     1. in scan order, its segment's summaries from zero entries: P, h,
+//        and the adjoint e = sum_t gC_t (product of a up to t); delta of
+//        every step into a shared fp32 tile;
+//     2. once the 16 summaries are shared, h from the segment's h entry
+//        (the checkpoint with the segments before it folded on), with
+//        delta from the tile (no softplus again) and h_prev of every step
+//        into the tile in its place (in registers they spilled); dC needs
+//        no adjoint;
+//     3. once the span's adjoint entry is known, the adjoint in adjoint
+//        order from the segment's entry (q e + e0: e0 and q the segments
+//        after it in adjoint order folded from zero, formed before the
+//        wait), storing ddt from registers and the du term over h_prev.
+//   Meanwhile the chain warp folds the segments' adjoint summaries into
+//   the span's (P, E), publishes them, waits for the span's entry e,
+//   publishes its exit and takes the block's part in du (below): pass 2
+//   and the entry folds overlap the wait.
+//   bwd_span_kernel (L <= 64; no chain, no ticket): block i does both
+//   directions of lane group i, forward on warps 0 .. 7 and reversed on
+//   warps 8 .. 15 at once, from one staged copy of u (4 or 8 steps a
+//   thread), the adjoint entry of the span 0; the reversed warps hand their
+//   du terms to the forward warps through shared memory. Two blocks share
+//   an SM.
+//   Bytes per (t, m): a chain launch reads u once a direction, dt and g
+//   once and writes ddt once (16 bytes for both directions); du passes one
+//   fp32 term between the two blocks of a span (8 bytes) and is written
+//   once: 26, against the three-pass design's 26 with every operand read
+//   twice and every transcendental evaluated in two launches. A span launch
+//   moves the bound's 16.
+//   The chain and its tickets. The grid holds 2 x groups x spans blocks;
+//   blockIdx.x & 1 is the direction, and each direction hands out its work
+//   from its own atomic ticket, in the order the blocks start: ticket t is
+//   chain position k = t / groups of lane group t % groups, and position k
+//   is span spans - 1 - k on forward lanes and span k on reversed lanes
+//   (the adjoint chains run opposite to K1's). A block waits for its entry
+//   only on lower positions of its own chain, which hold lower tickets of
+//   its direction, drawn by blocks that have started. Entry(k) is folded
+//   from exit(k - K) (K = 4) and the summaries between, in position order:
+//   the strict chain's fmafs, so the bits do not depend on the timing
+//   (scan_chain.cuh). Chain words are tagged 64-bit words as K1's.
+//   du over both directions. The two blocks of a span (one a direction)
+//   pass one fp32 du term over. Once its entry is known, a block's chain
+//   warp arrives at the span's pair counter (a tagged 64-bit word raised by
+//   atomicCAS: a word of an earlier call counts 0, so the counters, whose
+//   place depends on the call's shape, need no clearing; only the tickets,
+//   at a fixed place, are set back to 0). The first block to arrive hands
+//   its terms over: its pass 3 writes them to scratch, then it fences and
+//   publishes a tagged flag. The second adds them: if the flag is up when
+//   it arrives (the usual case: the two chains reach a span at different
+//   times), its pass 3 reads the other term (fetched to L2 during its
+//   pass 2) beside its own and stores du; else it keeps its terms in shared
+//   memory, waits for the flag after its pass 3 and then stores du. du is
+//   stored once in the operands' dtype, the forward term first (for two
+//   fp32 terms the order cannot change the bits). Why the launch finishes
+//   at any grid size: a block waits only (a) for chain entries, on blocks
+//   of lower tickets of its direction, which have started, and whose
+//   oldest waiting block waits on finished blocks; and (b) as the second
+//   of a pair, on a block that arrived at the counter after its own last
+//   chain wait and publishes with no further wait. A block that waits is
+//   never waited on by a block that has not started.
+//   Workspace. The wrapper passes a zeroed buffer it keeps per device and
+//   stream (xp_selective_scan_bidir_bwd_workspace words of 64 bits: the
+//   tickets, the pair counters and flags, then per direction, position and
+//   lane the words P, E and exit; every word after the tickets is tagged)
+//   and a tag one higher than the last call on that buffer's stream; calls
+//   on one stream run one after another and other streams have other
+//   buffers. Nothing is cleared between calls.
+//   No float is added atomically, and every sum is taken in a fixed order,
+//   so two runs on the same inputs give the same bits: dB and dC of a step
+//   are summed over a warp's lanes (each group's lanes apart) in a fixed
+//   tree, one partial per 32-lane slice, into scratch; dA, dD and dbias per
+//   thread in adjoint order, over the span's segments in order into one
+//   partial per span; finish_kernel sums a group's slices in slice order
+//   and the spans in span order.
+// Tokens beyond L are inert (dt = -inf gives a = 1, b = 0, sigmoid 0, and
+// g = 0 there); lanes beyond M compute on lane M - 1's constants and zeros
+// (their terms are 0), keep their own chain words and store nothing.
 #include <math.h>
+#include <stdint.h>
 
+#include <initializer_list>
+
+#include "scan_chain.cuh"
 #include "scan_common.cuh"
 
 namespace {
 
+using xp::barrier;
+using xp::copy_async;
 using xp::ex2_approx;
 using xp::from_f32;
 using xp::kLog2e;
+using xp::prepare;
+using xp::publish;
 using xp::softplus_approx;
 using xp::to_f32;
+using xp::wait_async;
 
 constexpr int kLanes = 32;          // lanes per block, a warp's width
-constexpr int kWarps = 8;           // segments per span
-constexpr int kSteps = 4;           // steps per segment
-constexpr int kSpan = kWarps * kSteps;
+constexpr int kWarps = 16;          // segments per span: a direction's warps
+constexpr int kScanThreads = kLanes * kWarps;
+constexpr int kThreads = kScanThreads + kLanes;     // and the chain warp
+constexpr int kMaxSteps = 16;       // steps per segment
+constexpr int kSpan = kWarps * kMaxSteps;
 constexpr int kCkptChunk = 256;     // the forward kernel's checkpoint chunk
-constexpr int kSpansPerChunk = kCkptChunk / kSpan;
-constexpr int kCarryRuns = 32;      // most runs of spans per lane in pass 2
-constexpr int kSums = 6;            // P_f, H_f, E_f, P_r, H_r, E_r
-constexpr int kBlocksPerSM = 4;     // passes 1 and 3: 64 registers a thread
-static_assert(kCkptChunk % kSpan == 0, "spans tile a checkpoint chunk");
+static_assert(kSpan == kCkptChunk, "a span is one checkpoint chunk");
+constexpr int kLookback = 4;        // K: a block waits for exit(k - K)
+constexpr int kChainBlocksPerSM = 2;
+constexpr int kTicketWords = 2;     // the two tickets, padded to 16 bytes
+constexpr int kSums = 6;            // dA, dD, dbias of each direction
+constexpr int kBatch = 8;           // steps whose dB (dC) are summed together
+constexpr int kShortSegs = 8;       // bwd_span_kernel: segments a direction
+constexpr int kShortSpan = kShortSegs * 8;          // its longest scan
+constexpr int kShortThreads = 2 * kLanes * kShortSegs;
 constexpr int kFinishThreads = 256;
+// What a block does with its du terms (see the header): keeps them in
+// shared memory until its pair's other block has handed its own over,
+// hands them over, or adds the other block's, handed over already.
+constexpr int kKeep = 0, kHand = 1, kAdd = 2;
 
 __device__ __forceinline__ float rcp_approx(float x) {
   float y;
@@ -117,452 +189,635 @@ struct Operands {
   const float* A;
   const float* Dv;
   const float* bias;
-  int L, M, Dim, n_spans;
-};
-
-template <typename T>
-struct Outputs {
   T* du;
   T* ddt[2];
-  T* dbcc;          // (4, L, G): dB_f, dB_r, dC_f, dC_r
-  float* dconst;    // (6, M): dA_f, dD_f, dbias_f, dA_r, dD_r, dbias_r
+  int L, M, Dim, G, spans;
+  int slices, J;    // 32-lane slices of M; most groups a slice touches
+  int max_groups;   // most groups 32 neighbouring lanes touch
 };
 
-// Scratch between the passes (fp32): span summaries (6, spans, M), the h
-// and adjoint entries of every span (2, spans, M) each, the dA/dD/dbias
-// partials (spans, 6, M) and the dB/dC partials (4, L, slices, J), J the
-// most groups a 32-lane slice touches.
+// A direction's shared tiles of one span: u, dt and g (rows x 32 lanes),
+// B and C (rows x max_groups: the groups of the block's lanes) and an fp32
+// value of every step (rows x 32): delta after pass 1, h_prev after pass
+// 2, the du term after pass 3.
+template <typename T>
+struct Tiles {
+  const T* u;
+  const T* dt;
+  const T* g;
+  const T* bc;
+  const T* cc;
+  float* h;
+};
+
+// Scratch (fp32): du terms passed between the two blocks of a span (L, M;
+// chain launches only), the dA/dD/dbias partials (spans, 6, M) and the
+// dB/dC partials (4, L, slices, J): dB_f, dB_r, dC_f, dC_r.
 struct Scratch {
-  float* sums;
-  float* hent;
-  float* eent;
+  float* duterm;
   float* cpart;
   float* bcpart;
-  int slices, J;
+};
+
+// The chain words: P, E and exit, each (2, spans, groups * 32) words of
+// (tag << 32 | fp32 bits), indexed by direction, chain position, lane; the
+// pair counters and du flags, (spans, groups) each.
+struct Chain {
+  unsigned* tickets;
+  unsigned long long* pairs;
+  unsigned long long* flags;
+  unsigned long long* agg_p;
+  unsigned long long* agg_e;
+  unsigned long long* exit;
+  unsigned tag;
+  int groups;
+};
+
+// Segment summaries of one direction (P, h, e from zero entries), shared
+// between the scan warps and the chain warp; later the dA/dD/dbias partials.
+template <int kS>
+struct Sums {
+  float p[kS][kLanes];
+  float h[kS][kLanes];
+  float e[kS][kLanes];
 };
 
 int groups_per_slice(int Dim) {
   return Dim % kLanes == 0 ? 1 : (Dim + kLanes - 2) / Dim + 1;
 }
 
-// One thread's lane (m clamped into the plane; live says whether it stores)
-// and the lane constants of both directions.
-struct Lane {
-  int m, g;
-  bool live;
-  float A2[2], A[2], bias[2], D[2];
-};
-
-template <typename T>
-__device__ __forceinline__ Lane lane_of(const Operands<T>& p) {
-  Lane l;
-  const int m = blockIdx.x * kLanes + threadIdx.x;
-  l.live = m < p.M;
-  l.m = min(m, p.M - 1);
-  l.g = l.m / p.Dim;
-  const int c = l.m % (2 * p.Dim);
+// Sums each of v[0 .. V-1] over the warp's 32 lanes in a fixed tree (V / 2
+// values exchanged at offset 16, V / 4 at 8, ..., then a butterfly) and
+// returns in lane l the total of v[l / (32 / V)].
+template <int V>
+__device__ __forceinline__ float warp_sums(float (&v)[V]) {
+  const int lane = threadIdx.x;
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l.A[r] = __ldg(p.A + 2 * r * p.Dim + c);
-    l.A2[r] = l.A[r] * kLog2e;
-    l.bias[r] = __ldg(p.bias + 2 * r * p.Dim + c);
-    l.D[r] = __ldg(p.Dv + 2 * r * p.Dim + c);
+  for (int n = V / 2, o = 16; n >= 1; n >>= 1, o >>= 1) {
+    const bool hi = lane & o;
+#pragma unroll
+    for (int i = 0; i < n; ++i) {
+      const float send = hi ? v[i] : v[i + n];
+      const float keep = hi ? v[i + n] : v[i];
+      v[i] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+    }
   }
-  return l;
+  float s = v[0];
+#pragma unroll
+  for (int o = 16 / V; o >= 1; o >>= 1)
+    s += __shfl_xor_sync(0xffffffffu, s, o);
+  return s;
 }
 
-// A thread's tokens t0 .. t0 + kS - 1: a token at or beyond L reads row
-// L - 1 (a valid address; its values are discarded), so no load is
-// predicated. e0 / s0 are the element offsets of row `first` in the (L, M)
-// and (L, G) planes.
-struct Rows {
-  size_t e0, s0;
-  int t0, first, last;
-  __device__ __forceinline__ int row(int i) const {
-    return min(t0 + i, last) - first;
+// Rows t0 .. t0 + rows - 1 (clamped to the scan) of lanes m0 .. m0 + 31 of
+// an (L, M) plane into a (rows, 32) tile, kChunk bytes a copy, by kBy
+// threads; rows beyond L and lanes beyond M are zero.
+template <typename T, int kChunk, int kBy>
+__device__ __forceinline__ void stage_plane(T* tile, const T* plane, int L,
+                                            int M, int t0, int m0, int rows,
+                                            int tid) {
+  constexpr int kPer = kChunk / static_cast<int>(sizeof(T));
+  constexpr int kPerRow = kLanes / kPer;
+  for (int c = tid; c < rows * kPerRow; c += kBy) {
+    const int t = c / kPerRow;
+    const int m = m0 + (c % kPerRow) * kPer;
+    const bool valid = t0 + t < L && m < M;
+    const T* src = plane + static_cast<size_t>(min(t0 + t, L - 1)) * M +
+                   (valid ? m : 0);
+    copy_async<kChunk>(tile + t * kLanes + (m - m0), src, valid);
+  }
+}
+
+// The span's B and C of one direction (rows t0 .. t0 + rows - 1, clamped
+// to the scan; the groups of lanes m0 .. m0 + 31) into their tiles, by kBy
+// threads.
+template <typename T, int kBy>
+__device__ __forceinline__ void stage_compact(T* tb, T* tc, const T* bc,
+                                              const T* cc,
+                                              const Operands<T>& p, int t0,
+                                              int m0, int rows, int tid) {
+  const int g_lo = m0 / p.Dim;
+  const int n_g = (min(m0 + kLanes, p.M) - 1) / p.Dim - g_lo + 1;
+  for (int i = tid; i < rows * n_g; i += kBy) {
+    const int t = i / n_g;
+    const int j = i - t * n_g;
+    const size_t at =
+        static_cast<size_t>(min(t0 + t, p.L - 1)) * p.G + g_lo + j;
+    tb[t * p.max_groups + j] = __ldg(bc + at);
+    tc[t * p.max_groups + j] = __ldg(cc + at);
+  }
+}
+
+// One direction (kRev: reversed lanes, scanned right to left) of one
+// segment of a span for one thread: warp w's steps w kSteps .. w kSteps +
+// kSteps - 1 of the span's tiles (step i is row r0 + i), lane m0 + lane.
+template <typename T, int kS, int kSteps, bool kFull, bool kRev>
+struct Segment {
+  static constexpr int dir = kRev ? 1 : 0;
+  static constexpr int kB = kSteps < kBatch ? kSteps : kBatch;
+  const Operands<T>& p;
+  const Tiles<T> tl;
+  int lane, w, m0, m, g, gl, t0, r0;
+  bool live;
+  float A, A2, bias, Dv;
+
+  __device__ __forceinline__ Segment(const Operands<T>& p_,
+                                     const Tiles<T>& tl_, int m0_, int t0_,
+                                     int w_)
+      : p(p_), tl(tl_), lane(threadIdx.x), w(w_), m0(m0_), t0(t0_),
+        r0(w_ * kSteps) {
+    live = m0 + lane < p.M;
+    m = min(m0 + lane, p.M - 1);
+    g = m / p.Dim;
+    gl = g - m0 / p.Dim;
+    const int cix = dir * 2 * p.Dim + m % (2 * p.Dim);
+    A = __ldg(p.A + cix);
+    A2 = A * kLog2e;
+    bias = __ldg(p.bias + cix);
+    Dv = __ldg(p.Dv + cix);
+  }
+
+  static __device__ __forceinline__ int scan(int j) {
+    return kRev ? kSteps - 1 - j : j;
+  }
+  static __device__ __forceinline__ int adjoint(int j) {
+    return kRev ? j : kSteps - 1 - j;
   }
   __device__ __forceinline__ bool inside(int i) const {
-    return t0 + i <= last;
+    return kFull || t0 + r0 + i < p.L;
   }
-};
+  __device__ __forceinline__ float uval(int i) const {
+    return to_f32(tl.u[(r0 + i) * kLanes + lane]);
+  }
+  __device__ __forceinline__ float gval(int i) const {
+    return to_f32(tl.g[(r0 + i) * kLanes + lane]);
+  }
+  __device__ __forceinline__ float bval(int i) const {
+    return to_f32(tl.bc[(r0 + i) * p.max_groups + gl]);
+  }
+  __device__ __forceinline__ float cval(int i) const {
+    return to_f32(tl.cc[(r0 + i) * p.max_groups + gl]);
+  }
+  // x = dt + bias (-inf beyond L), delta and a of step i
+  __device__ __forceinline__ void step(int i, float& x, float& d,
+                                       float& a) const {
+    x = inside(i) ? to_f32(tl.dt[(r0 + i) * kLanes + lane]) + bias
+                  : -INFINITY;
+    d = softplus_approx(x);
+    a = ex2_approx(d * A2);
+  }
 
-template <typename T>
-__device__ __forceinline__ Rows rows_of(const Operands<T>& p, const Lane& l,
-                                        int t0) {
-  Rows r;
-  r.t0 = t0;
-  r.last = p.L - 1;
-  r.first = min(t0, r.last);
-  r.e0 = static_cast<size_t>(r.first) * p.M + l.m;
-  r.s0 = static_cast<size_t>(r.first) * (p.M / p.Dim) + l.g;
-  return r;
-}
-
-template <typename T, int kS>
-__device__ __forceinline__ void load_u(const Operands<T>& p, const Rows& r,
-                                       float (&uu)[kS]) {
-  T ru[kS];
+  // Pass 1: the segment's (P, h, e) from zero entries in scan order; delta
+  // of every step into the tile (pass 2 takes it from there).
+  __device__ __forceinline__ void summarise(Sums<kS>& sm) const {
+    float P = 1.f, H = 0.f, E = 0.f;
 #pragma unroll
-  for (int i = 0; i < kS; ++i) ru[i] = __ldg(p.u + r.e0 + r.row(i) * p.M);
-#pragma unroll
-  for (int i = 0; i < kS; ++i) uu[i] = to_f32(ru[i]);
-}
-
-// One direction's steps: delta, a, sigmoid(x), B, g (0 beyond L) and gC.
-template <typename T, int kS, int kDir>
-struct Steps {
-  float delta[kS], a[kS], sig[kS], bv[kS], gv[kS], gc[kS];
-
-  __device__ __forceinline__ void form(const Operands<T>& p, const Lane& l,
-                                       const Rows& r, bool with_sig) {
-    const int G = p.M / p.Dim;
-    T rdt[kS], rg[kS], rb[kS], rc[kS];
-#pragma unroll
-    for (int i = 0; i < kS; ++i) {
-      rdt[i] = __ldg(p.dt[kDir] + r.e0 + r.row(i) * p.M);
-      rg[i] = __ldg(p.g[kDir] + r.e0 + r.row(i) * p.M);
-      rb[i] = __ldg(p.bc[kDir] + r.s0 + r.row(i) * G);
-      rc[i] = __ldg(p.cc[kDir] + r.s0 + r.row(i) * G);
+    for (int j = 0; j < kSteps; ++j) {
+      const int i = scan(j);
+      float x, d, a;
+      step(i, x, d, a);
+      hp(i) = d;
+      P *= a;
+      H = fmaf(a, H, d * uval(i) * bval(i));
+      E = fmaf(gval(i) * cval(i), P, E);
     }
-#pragma unroll
-    for (int i = 0; i < kS; ++i) {
-      const float x =
-          r.inside(i) ? to_f32(rdt[i]) + l.bias[kDir] : -INFINITY;
-      delta[i] = softplus_approx(x);
-      a[i] = ex2_approx(delta[i] * l.A2[kDir]);
-      if (with_sig) sig[i] = sigmoid_approx(x);
-      bv[i] = to_f32(rb[i]);
-      gv[i] = r.inside(i) ? to_f32(rg[i]) : 0.f;
-      gc[i] = gv[i] * to_f32(rc[i]);
-    }
+    sm.p[w][lane] = P;
+    sm.h[w][lane] = H;
+    sm.e[w][lane] = E;
   }
 
-  // step k of the scan order (forward lanes left to right) and of the
-  // adjoint order (the opposite)
-  static __device__ __forceinline__ int scan(int k) {
-    return kDir == 0 ? k : kS - 1 - k;
-  }
-  static __device__ __forceinline__ int adjoint(int k) {
-    return kDir == 0 ? kS - 1 - k : k;
-  }
-
-  // (product of a, h from a zero entry, e from a zero entry)
-  __device__ __forceinline__ void summary(const float (&uu)[kS], float& P,
-                                          float& H, float& E) const {
-    P = 1.f;
-    H = 0.f;
-    E = 0.f;
+  // The segment's h entry (the segments before it in scan order folded
+  // onto the span's h entry h) and the zero-entry part of its adjoint entry
+  // (e0, and q the product of a of the segments after it in adjoint order).
+  __device__ __forceinline__ void entries(const Sums<kS>& sm, float& h,
+                                          float& e0, float& q) const {
+    e0 = 0.f;
+    q = 1.f;
 #pragma unroll
     for (int k = 0; k < kS; ++k) {
-      const int i = scan(k);
-      H = a[i] * H + delta[i] * uu[i] * bv[i];
-      P *= a[i];
-    }
-#pragma unroll
-    for (int k = 0; k < kS; ++k) {
-      const int i = adjoint(k);
-      E = a[i] * (gc[i] + E);
-    }
-  }
-};
-
-// Segment j's position in direction kDir's scan order is before w's.
-template <int kDir>
-__device__ __forceinline__ bool scan_before(int j, int w) {
-  return kDir == 0 ? j < w : j > w;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kLanes * kWarps, kBlocksPerSM)
-span_summary_kernel(Operands<T> p, float* __restrict__ sums) {
-  __shared__ float seg[kSums][kWarps][kLanes];
-  const Lane l = lane_of(p);
-  const int w = threadIdx.y;
-  const int lane = threadIdx.x;
-  const int s = blockIdx.y;
-  const Rows r = rows_of(p, l, s * kSpan + w * kSteps);
-  float uu[kSteps];
-  load_u<T, kSteps>(p, r, uu);
-  {
-    Steps<T, kSteps, 0> f;
-    f.form(p, l, r, false);
-    f.summary(uu, seg[0][w][lane], seg[1][w][lane], seg[2][w][lane]);
-  }
-  {
-    Steps<T, kSteps, 1> b;
-    b.form(p, l, r, false);
-    b.summary(uu, seg[3][w][lane], seg[4][w][lane], seg[5][w][lane]);
-  }
-  __syncthreads();
-  if (!l.live) return;
-  // fold q = 0: forward (P, H) in scan order, q = 1: forward E in adjoint
-  // order, q = 2 and 3 the same for the reversed lanes; warp w folds q = w,
-  // w + kWarps, ...
-  const size_t plane = static_cast<size_t>(p.n_spans) * p.M;
-  const size_t at = static_cast<size_t>(s) * p.M + l.m;
-  for (int q = w; q < 4; q += kWarps) {
-    const int dir = q / 2;
-    const bool adj = q % 2 == 1;
-    const bool ascending = (dir == 0) != adj;
-    float prod = 1.f, x = 0.f;
-#pragma unroll
-    for (int k = 0; k < kWarps; ++k) {
-      const int j = ascending ? k : kWarps - 1 - k;
-      const float a = seg[3 * dir][j][lane];
-      x = a * x + seg[3 * dir + (adj ? 2 : 1)][j][lane];
-      prod *= a;
-    }
-    if (adj) {
-      sums[(3 * dir + 2) * plane + at] = x;
-    } else {
-      sums[3 * dir * plane + at] = prod;
-      sums[(3 * dir + 1) * plane + at] = x;
-    }
-  }
-}
-
-// Pass 2. A block owns 32 lanes of one direction; thread (lane, j) the j-th
-// of blockDim.y <= 32 runs of spans in adjoint order: it composes its run,
-// the run summaries meet in shared memory, it folds the runs before its own
-// and replays its run, writing each span's adjoint entry. Then thread j
-// carries the checkpoints of chunks j, j + runs, ... over their spans in
-// scan order, writing each span's h entry.
-__global__ void __launch_bounds__(kLanes * kCarryRuns)
-span_carry_kernel(const float* __restrict__ sums,
-                  const float* __restrict__ hck_f,
-                  const float* __restrict__ hck_r, float* __restrict__ hent,
-                  float* __restrict__ eent, int n_spans, int M) {
-  __shared__ float run_a[kCarryRuns][kLanes];
-  __shared__ float run_e[kCarryRuns][kLanes];
-  const int lane = threadIdx.x;
-  const int j = threadIdx.y;
-  const int m = blockIdx.x * kLanes + lane;
-  const bool live = m < M;
-  const int dir = blockIdx.y;
-  const size_t plane = static_cast<size_t>(n_spans) * M;
-  const float* __restrict__ pP = sums + 3 * dir * plane + min(m, M - 1);
-  const float* __restrict__ pH = pP + plane;
-  const float* __restrict__ pE = pP + 2 * plane;
-  const int runs = blockDim.y;
-  const int per = (n_spans + runs - 1) / runs;
-  const int k0 = min(j * per, n_spans);
-  const int k1 = min(k0 + per, n_spans);
-  // adjoint order: forward lanes from the last span, reversed from the first
-  float prod = 1.f, x = 0.f;
-  for (int k = k0; k < k1; ++k) {
-    const size_t at = static_cast<size_t>(dir == 0 ? n_spans - 1 - k : k) * M;
-    const float a = __ldg(pP + at);
-    x = a * x + __ldg(pE + at);
-    prod *= a;
-  }
-  run_a[j][lane] = prod;
-  run_e[j][lane] = x;
-  __syncthreads();
-  x = 0.f;
-#pragma unroll
-  for (int i = 0; i < kCarryRuns; ++i)
-    if (i < j) x = run_a[i][lane] * x + run_e[i][lane];
-  if (!live) return;
-  float* __restrict__ pe = eent + dir * plane + m;
-  for (int k = k0; k < k1; ++k) {
-    const size_t at = static_cast<size_t>(dir == 0 ? n_spans - 1 - k : k) * M;
-    pe[at] = x;
-    x = __ldg(pP + at) * x + __ldg(pE + at);
-  }
-  const float* __restrict__ hck = (dir == 0 ? hck_f : hck_r) + m;
-  float* __restrict__ ph = hent + dir * plane + m;
-  const int n_chunks = (n_spans + kSpansPerChunk - 1) / kSpansPerChunk;
-  for (int c = j; c < n_chunks; c += runs) {
-    const int s0 = c * kSpansPerChunk;
-    const int n = min(kSpansPerChunk, n_spans - s0);
-    x = __ldg(hck + static_cast<size_t>(c) * M);
-    for (int i = 0; i < n; ++i) {
-      const size_t at = static_cast<size_t>(dir == 0 ? s0 + i
-                                                     : s0 + n - 1 - i) * M;
-      ph[at] = x;
-      x = __ldg(pP + at) * x + __ldg(pH + at);
-    }
-  }
-}
-
-// One direction of pass 3 for one thread: h and dh rebuilt over its
-// segment, ddt stored, the du term added into du, the dB/dC terms summed
-// over the warp's lanes into scratch, dA/dD/dbias into acc.
-template <typename T, int kS, int kDir>
-__device__ __forceinline__ void output_direction(
-    const Operands<T>& p, const Outputs<T>& o, const Scratch& sc,
-    const Lane& l, const Rows& r, const float (&uu)[kS], float (&du)[kS],
-    float (&acc)[3], float (&seg)[3][kWarps][kLanes],
-    float (&red)[2][kS][kLanes + 1]) {
-  const int w = threadIdx.y;
-  const int lane = threadIdx.x;
-  const int s = blockIdx.y;
-  Steps<T, kS, kDir> st;
-  st.form(p, l, r, true);
-  st.summary(uu, seg[0][w][lane], seg[1][w][lane], seg[2][w][lane]);
-  __syncthreads();
-  float h, e = 0.f;
-  if (p.n_spans > 1) {
-    const size_t at =
-        (static_cast<size_t>(kDir) * p.n_spans + s) * p.M + l.m;
-    h = __ldg(sc.hent + at);
-    e = __ldg(sc.eent + at);
-  } else {
-    h = __ldg(p.hck[kDir] + l.m);
-  }
-  // the segments before this one: in scan order onto h, in adjoint order
-  // onto e
-#pragma unroll
-  for (int k = 0; k < kWarps; ++k) {
-    const int jh = kDir == 0 ? k : kWarps - 1 - k;
-    const int je = kWarps - 1 - jh;
-    if (scan_before<kDir>(jh, w)) h = seg[0][jh][lane] * h + seg[1][jh][lane];
-    if (scan_before<kDir>(w, je)) e = seg[0][je][lane] * e + seg[2][je][lane];
-  }
-  const float h_in = h;
-  float hv[kS];
-#pragma unroll
-  for (int k = 0; k < kS; ++k) {
-    const int i = st.scan(k);
-    h = st.a[i] * h + st.delta[i] * uu[i] * st.bv[i];
-    hv[i] = h;
-  }
-  T* __restrict__ pddt = o.ddt[kDir] + r.e0;
-  float dA = 0.f, dD = 0.f, dbias = 0.f;
-#pragma unroll
-  for (int k = 0; k < kS; ++k) {
-    const int i = st.adjoint(k);
-    const float dh = st.gc[i] + e;
-    e = st.a[i] * dh;
-    const float hp = kDir == 0 ? (i > 0 ? hv[i - 1] : h_in)
-                               : (i < kS - 1 ? hv[i + 1] : h_in);
-    const float da = dh * hp;
-    const float ddt = (dh * uu[i] * st.bv[i] + da * l.A[kDir] * st.a[i])
-                      * st.sig[i];
-    dA += da * st.a[i] * st.delta[i];
-    dD += st.gv[i] * uu[i];
-    dbias += ddt;
-    const float term = st.gv[i] * l.D[kDir] + dh * st.delta[i] * st.bv[i];
-    du[i] = kDir == 0 ? term : du[i] + term;
-    red[0][i][lane] = l.live ? dh * st.delta[i] * uu[i] : 0.f;
-    red[1][i][lane] = l.live ? st.gv[i] * hv[i] : 0.f;
-    if (l.live && r.inside(i)) pddt[r.row(i) * p.M] = from_f32<T>(ddt);
-  }
-  acc[0] = dA;
-  acc[1] = dD;
-  acc[2] = dbias;
-  __syncwarp();
-  // dB (q = 0) and dC (q = 1) of step i summed over the warp's lanes: one
-  // partial per group the 32-lane slice touches
-  if (p.Dim % kLanes == 0) {
-    // the slice lies in one group (J = 1, every flagship width): row
-    // (q, i) = lane % 2 kS is summed in 32 / 2kS parts of 2 kS lanes, one
-    // part a thread, and the parts are added by shuffles in a fixed order
-    constexpr int kRows = 2 * kS;
-    const int row = lane % kRows;
-    const int part = lane / kRows;
-    const int q = row / kS;
-    const int i = row % kS;
-    float sum = 0.f;
-#pragma unroll
-    for (int k = 0; k < kRows; ++k) sum += red[q][i][part * kRows + k];
-#pragma unroll
-    for (int o = kLanes / 2; o >= kRows; o >>= 1)
-      sum += __shfl_down_sync(0xffffffffu, sum, o);
-    if (part == 0 && r.inside(i))
-      sc.bcpart[(static_cast<size_t>(2 * q + kDir) * p.L + r.t0 + i) *
-                    sc.slices + blockIdx.x] = sum;
-  } else if (lane < 2 * kS) {
-    // in lane order, a partial closed at each group's end
-    const int q = lane / kS;
-    const int i = lane % kS;
-    if (r.inside(i)) {
-      const int t = r.t0 + i;
-      const int m0 = blockIdx.x * kLanes;
-      const int n_live = min(kLanes, p.M - m0);
-      float* __restrict__ part =
-          sc.bcpart +
-          ((static_cast<size_t>(2 * q + kDir) * p.L + t) * sc.slices +
-           blockIdx.x) * sc.J;
-      int next = (m0 / p.Dim + 1) * p.Dim;    // first lane of the next group
-      int j = 0;
-      float sum = 0.f;
-#pragma unroll
-      for (int k = 0; k < kLanes; ++k) {
-        if (k < n_live) {
-          sum += red[q][i][k];
-          if (m0 + k + 1 == next || k == n_live - 1) {
-            part[j++] = sum;
-            sum = 0.f;
-            next += p.Dim;
-          }
-        }
+      const int js = kRev ? kS - 1 - k : k;           // scan order
+      if (kRev ? js > w : js < w) h = fmaf(sm.p[js][lane], h, sm.h[js][lane]);
+      const int ja = kS - 1 - js;                     // adjoint order
+      if (kRev ? ja < w : ja > w) {
+        e0 = fmaf(sm.p[ja][lane], e0, sm.e[ja][lane]);
+        q *= sm.p[ja][lane];
       }
     }
   }
-  __syncwarp();
+
+  // dB (kind 0) or dC (kind 1) of kB steps, v[b] of step step_of(j0 + b),
+  // summed over the lanes of each group of the warp's slice into scratch.
+  template <bool kAdj>
+  __device__ __forceinline__ void slice_sums(float (&v)[kB], int kind,
+                                             int j0, const Scratch& sc) const {
+    const int slice = m0 / kLanes;
+    float* part = sc.bcpart + (static_cast<size_t>(2 * kind + dir) * p.L) *
+                                  p.slices * p.J;
+    if (p.Dim % kLanes == 0) {
+      // the slice lies in one group: a transposing tree, one step a lane
+      const float s = warp_sums<kB>(v);
+      constexpr int kPer = kLanes / kB;
+      if (lane % kPer == 0) {
+        const int j = j0 + lane / kPer;
+        const int i = kAdj ? adjoint(j) : scan(j);
+        if (inside(i))
+          part[static_cast<size_t>(t0 + r0 + i) * p.slices + slice] = s;
+      }
+      return;
+    }
+    // groups that do not fill slices: an inclusive scan over each group's
+    // run of lanes, closed at its last live lane
+    const int n_live = min(kLanes, p.M - m0);
+    const int first = max(g * p.Dim - m0, 0);
+    const int last = min((g + 1) * p.Dim - 1 - m0, n_live - 1);
+    const int jg = g - m0 / p.Dim;
+#pragma unroll
+    for (int b = 0; b < kB; ++b) {
+      float s = v[b];
+#pragma unroll
+      for (int o = 1; o < kLanes; o <<= 1) {
+        const float up = __shfl_up_sync(0xffffffffu, s, o);
+        if (lane - o >= first) s += up;
+      }
+      const int i = kAdj ? adjoint(j0 + b) : scan(j0 + b);
+      if (live && lane == last && inside(i))
+        part[(static_cast<size_t>(t0 + r0 + i) * p.slices + slice) * p.J +
+             jg] = s;
+    }
+  }
+
+  __device__ __forceinline__ float& hp(int i) const {
+    return tl.h[(r0 + i) * kLanes + lane];
+  }
+
+  // Pass 2: h in scan order from the segment's entry h, with delta from
+  // the tile and a formed from it, h_prev of every step into the tile in
+  // its place; dC = g h summed over the group into scratch.
+  __device__ __forceinline__ void replay_h(float h, const Scratch& sc) const {
+    float dc[kB];
+#pragma unroll
+    for (int j = 0; j < kSteps; ++j) {
+      const int i = scan(j);
+      const float d = hp(i);
+      const float a = ex2_approx(d * A2);
+      hp(i) = h;
+      h = fmaf(a, h, d * uval(i) * bval(i));
+      dc[j % kB] = gval(i) * h;
+      if (j % kB == kB - 1) slice_sums<false>(dc, 1, j - kB + 1, sc);
+    }
+  }
+
+  // Pass 3: the adjoint in adjoint order from the segment's entry e: ddt
+  // stored, dB summed over the group into scratch, dA / dD / dbias into
+  // acc; the du term of step i by `role`: kKeep over the tile's h_prev of
+  // step i (used at step i), kHand into the pair's fp32 terms (`terms`,
+  // this lane's of row t0 + r0), kAdd added to the terms there and du
+  // stored.
+  __device__ __forceinline__ void replay_adjoint(float e, float (&acc)[3],
+                                                 const Scratch& sc, int role,
+                                                 float* terms) const {
+    float db[kB];
+    float dA = 0.f, dD = 0.f, dbias = 0.f;
+    T* __restrict__ pddt = p.ddt[dir] + m;
+#pragma unroll
+    for (int j = 0; j < kSteps; ++j) {
+      const int i = adjoint(j);
+      float x, d, a;
+      step(i, x, d, a);
+      const float sig = sigmoid_approx(x);
+      const float uu = uval(i), gg = gval(i), bb = bval(i);
+      const float dh = gg * cval(i) + e;
+      e = a * dh;
+      const float da = dh * hp(i);
+      const float ddt = (dh * uu * bb + da * A * a) * sig;
+      dA += da * a * d;
+      dD += gg * uu;
+      dbias += ddt;
+      const float term = gg * Dv + dh * d * bb;
+      if (role == kKeep) {
+        hp(i) = term;
+      } else if (live && inside(i)) {
+        float* at = terms + static_cast<size_t>(i) * p.M;
+        if (role == kHand) {
+          *at = term;
+        } else {
+          const float o = __ldcg(at);
+          p.du[static_cast<size_t>(t0 + r0 + i) * p.M + m] =
+              from_f32<T>(kRev ? o + term : term + o);
+        }
+      }
+      db[j % kB] = dh * d * uu;
+      if (j % kB == kB - 1) slice_sums<true>(db, 0, j - kB + 1, sc);
+      if (live && inside(i))
+        pddt[static_cast<size_t>(t0 + r0 + i) * p.M] = from_f32<T>(ddt);
+    }
+    acc[0] = dA;
+    acc[1] = dD;
+    acc[2] = dbias;
+  }
+
+  // du = forward term + reversed term of the live steps, stored once; the
+  // other block's terms (kGlobal) are read from L2, written by another SM.
+  template <bool kGlobal>
+  __device__ __forceinline__ void store_du(const float* other,
+                                           size_t stride) const {
+    if (!live) return;
+#pragma unroll
+    for (int i = 0; i < kSteps; ++i)
+      if (inside(i)) {
+        const float o = kGlobal ? __ldcg(other + i * stride)
+                                : other[i * stride];
+        const float du = kRev ? o + hp(i) : hp(i) + o;
+        p.du[static_cast<size_t>(t0 + r0 + i) * p.M + m] = from_f32<T>(du);
+      }
+  }
+};
+
+// dA / dD / dbias of a direction's segments (acc of warp w in sm, summed
+// in warp order) into the span's partial, by warps 0 .. 2.
+template <typename T>
+__device__ __forceinline__ void span_partial(const Operands<T>& p,
+                                             const Scratch& sc,
+                                             const Sums<kWarps>& sm, int dir,
+                                             int s, int w, int m) {
+  if (w >= 3 || m >= p.M) return;
+  const float(*src)[kLanes] = w == 0 ? sm.p : w == 1 ? sm.h : sm.e;
+  float sum = 0.f;
+#pragma unroll
+  for (int j = 0; j < kWarps; ++j) sum += src[j][threadIdx.x];
+  sc.cpart[(static_cast<size_t>(s) * kSums + 3 * dir + w) * p.M + m] = sum;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kLanes * kWarps, kBlocksPerSM)
-span_output_kernel(Operands<T> p, Outputs<T> o, Scratch sc) {
-  constexpr int kS = kSteps;
-  __shared__ float seg[2][3][kWarps][kLanes];
-  __shared__ float red[kWarps][2][kS][kLanes + 1];
-  const Lane l = lane_of(p);
+// One direction of span s, chain position k, lane group `group`: each scan
+// warp stages and summarises its segment, and rebuilds h while the chain
+// warp folds, publishes and waits for the span's adjoint entry, then
+// arrives at the span's pair counter (its role for du, in `role`); then
+// the adjoint pass, the span's dA/dD/dbias partial and du as the role
+// says.
+template <typename T, int kChunk, bool kFull, bool kRev>
+__device__ __forceinline__ void chain_span(const Operands<T>& p,
+                                           const Scratch& sc, const Chain& c,
+                                           Sums<kWarps>& sm, float* entry,
+                                           int& role, unsigned char* dyn,
+                                           int group, int k, int s) {
+  constexpr int dir = kRev ? 1 : 0;
+  const int m0 = group * kLanes;
+  const int t0 = s * kSpan;
+  float* th = reinterpret_cast<float*>(dyn);
+  T* tu = reinterpret_cast<T*>(th + kSpan * kLanes);
+  T* tdt = tu + kSpan * kLanes;
+  T* tg = tdt + kSpan * kLanes;
+  T* tb = tg + kSpan * kLanes;
+  T* tc = tb + kSpan * p.max_groups;
   const int w = threadIdx.y;
   const int lane = threadIdx.x;
-  const int s = blockIdx.y;
-  const Rows r = rows_of(p, l, s * (kWarps * kS) + w * kS);
-  float uu[kS], du[kS], acc_f[3], acc_r[3];
-  load_u<T, kS>(p, r, uu);
-  output_direction<T, kS, 0>(p, o, sc, l, r, uu, du, acc_f, seg[0], red[w]);
-  output_direction<T, kS, 1>(p, o, sc, l, r, uu, du, acc_r, seg[1], red[w]);
-  if (l.live) {
-    T* __restrict__ pdu = o.du + r.e0;
+  const size_t pair = static_cast<size_t>(s) * c.groups + group;
+  if (w == kWarps) {
+    // the chain warp
+    barrier<1, kThreads>();                          // summaries shared
+    float P = 1.f, E = 0.f;
 #pragma unroll
-    for (int i = 0; i < kS; ++i)
-      if (r.inside(i)) pdu[r.row(i) * p.M] = from_f32<T>(du[i]);
+    for (int j = 0; j < kWarps; ++j) {
+      const int ja = kRev ? j : kWarps - 1 - j;      // adjoint order
+      E = fmaf(sm.p[ja][lane], E, sm.e[ja][lane]);
+      P *= sm.p[ja][lane];
+    }
+    const size_t plane = static_cast<size_t>(c.groups) * kLanes;
+    const size_t lane_at =
+        static_cast<size_t>(dir) * p.spans * plane + m0 + lane;
+    const size_t at = lane_at + static_cast<size_t>(k) * plane;
+    if (k + 1 < p.spans) {
+      publish(c.agg_p + at, c.tag, P);
+      publish(c.agg_e + at, c.tag, E);
+    }
+    const float e = xp::chain_entry<kLookback>(c.agg_p, c.agg_e, c.exit,
+                                               c.tag, lane_at, plane, k);
+    if (k + kLookback < p.spans) publish(c.exit + at, c.tag, fmaf(P, e, E));
+    entry[lane] = e;
+    if (lane == 0) {
+      // past the block's last chain wait: the first block of the pair
+      // hands its terms over, the second adds them if they are there
+      int r = kHand;
+      if (xp::arrive(c.pairs + pair, c.tag) != 0) {
+        r = kKeep;
+        if (xp::tagged(xp::peek(c.flags + pair), c.tag)) {
+          __threadfence();
+          r = kAdd;
+        }
+      }
+      role = r;
+    }
+    barrier<1, kThreads>();                          // entry known
+    return;
   }
-  // dA/dD/dbias over the block's segments in segment order: one partial
-  // per span and lane
-  __syncthreads();
-  // seg viewed as [6][kWarps][kLanes]
-  float(*cf)[kWarps][kLanes] =
-      reinterpret_cast<float(*)[kWarps][kLanes]>(&seg[0][0][0][0]);
-#pragma unroll
-  for (int q = 0; q < 3; ++q) {
-    cf[q][w][lane] = acc_f[q];
-    cf[3 + q][w][lane] = acc_r[q];
-  }
-  __syncthreads();
-  if (!l.live) return;
-  for (int q = w; q < kSums; q += kWarps) {
-    float sum = 0.f;
-#pragma unroll
-    for (int j = 0; j < kWarps; ++j) sum += cf[q][j][lane];
-    sc.cpart[(static_cast<size_t>(s) * kSums + q) * p.M + l.m] = sum;
+  // each scan warp stages its own segment's rows
+  const int r0 = w * kMaxSteps;
+  stage_plane<T, kChunk, kLanes>(tu + r0 * kLanes, p.u, p.L, p.M, t0 + r0,
+                                 m0, kMaxSteps, lane);
+  stage_plane<T, kChunk, kLanes>(tdt + r0 * kLanes, p.dt[dir], p.L, p.M,
+                                 t0 + r0, m0, kMaxSteps, lane);
+  stage_plane<T, kChunk, kLanes>(tg + r0 * kLanes, p.g[dir], p.L, p.M,
+                                 t0 + r0, m0, kMaxSteps, lane);
+  stage_compact<T, kLanes>(tb + r0 * p.max_groups, tc + r0 * p.max_groups,
+                           p.bc[dir], p.cc[dir], p, t0 + r0, m0, kMaxSteps,
+                           lane);
+  wait_async();
+  __syncwarp();
+  Segment<T, kWarps, kMaxSteps, kFull, kRev> seg(
+      p, {tu, tdt, tg, tb, tc, th}, m0, t0, w);
+  seg.summarise(sm);
+  barrier<1, kThreads>();                            // summaries shared
+  float h = seg.live ? __ldg(p.hck[dir] + static_cast<size_t>(s) * p.M +
+                             seg.m)
+                     : 0.f;
+  float* terms =
+      sc.duterm + static_cast<size_t>(t0 + r0) * p.M + m0 + lane;
+  // the other block's du terms, if it has handed them over already (then
+  // this block adds them in pass 3), on their way to L2 while pass 2 runs
+  // (measured faster at the flagship's train shapes)
+  if (lane < kMaxSteps &&
+      xp::tagged(xp::peek(c.flags + pair), c.tag) && seg.inside(lane))
+    asm volatile("prefetch.global.L2 [%0];" ::"l"(
+        terms - lane + static_cast<size_t>(lane) * p.M));
+  float e0, q;
+  seg.entries(sm, h, e0, q);
+  seg.replay_h(h, sc);
+  barrier<1, kThreads>();                            // entry known
+  const int how = role;
+  float acc[3];
+  seg.replay_adjoint(fmaf(q, entry[lane], e0), acc, sc, how, terms);
+  // every thread is past its reads of the summaries (the chain warp before
+  // the last barrier): they take the dA/dD/dbias partials
+  sm.p[w][lane] = acc[0];
+  sm.h[w][lane] = acc[1];
+  sm.e[w][lane] = acc[2];
+  if (how == kHand) __threadfence();
+  barrier<2, kScanThreads>();
+  span_partial(p, sc, sm, dir, s, w, m0 + lane);
+  if (how == kHand) {
+    if (w == 0 && lane == 0) {
+      __threadfence();
+      publish(c.flags + pair, c.tag, 0.f);
+    }
+  } else if (how == kKeep) {
+    if (w == 0 && lane == 0) {
+      while (!xp::tagged(xp::peek(c.flags + pair), c.tag)) __nanosleep(32);
+      __threadfence();
+    }
+    barrier<2, kScanThreads>();
+    seg.template store_du<true>(terms, p.M);
   }
 }
 
-// Pass 4: dconst (6, M) = the span partials summed in span order; compact
-// dB/dC (4, L, G) = each group's slice partials summed in slice order and
+// Block (32 lanes) x (16 scan warps + 1 chain warp) of a scan of several
+// spans: blockIdx.x & 1 is the direction, and the block's span and lane
+// group come from the direction's ticket.
+template <typename T, int kChunk>
+__global__ void __launch_bounds__(kThreads, kChainBlocksPerSM)
+bwd_chain_kernel(Operands<T> p, Scratch sc, Chain c) {
+  __shared__ Sums<kWarps> sm;
+  __shared__ float entry[kLanes];
+  __shared__ int ticket, role;
+  extern __shared__ __align__(16) unsigned char dyn[];
+  const int dir = blockIdx.x & 1;
+  if (threadIdx.x == 0 && threadIdx.y == kWarps) {
+    const unsigned per_dir =
+        static_cast<unsigned>(c.groups) * static_cast<unsigned>(p.spans);
+    const unsigned t = atomicAdd(c.tickets + dir, 1u);
+    if (t == per_dir - 1) atomicExch(c.tickets + dir, 0u);
+    ticket = static_cast<int>(t);
+  }
+  __syncthreads();
+  const int k = ticket / c.groups;
+  const int group = ticket - k * c.groups;
+  const int s = dir ? k : p.spans - 1 - k;
+  const bool full = (s + 1) * kSpan <= p.L;
+  if (dir == 0) {
+    if (full)
+      chain_span<T, kChunk, true, false>(p, sc, c, sm, entry, role, dyn,
+                                         group, k, s);
+    else
+      chain_span<T, kChunk, false, false>(p, sc, c, sm, entry, role, dyn,
+                                          group, k, s);
+  } else {
+    if (full)
+      chain_span<T, kChunk, true, true>(p, sc, c, sm, entry, role, dyn,
+                                        group, k, s);
+    else
+      chain_span<T, kChunk, false, true>(p, sc, c, sm, entry, role, dyn,
+                                         group, k, s);
+  }
+}
+
+// bwd_span_kernel's static shared memory: both directions' segment
+// summaries and dA/dD/dbias partials.
+struct SpanShared {
+  Sums<kShortSegs> sm[2];
+  float accs[2][3][kShortSegs][kLanes];
+};
+
+// A scan of at most 64 tokens (one span: no chain, adjoint entries zero,
+// no ticket): one direction of lane group blockIdx.x on warps w + 8 dir.
+template <typename T, int kSteps, bool kRev>
+__device__ __forceinline__ void one_span(const Operands<T>& p,
+                                         const Scratch& sc, SpanShared& sh,
+                                         const Tiles<T>& tl,
+                                         const float* th_other, int w) {
+  constexpr int dir = kRev ? 1 : 0;
+  const int lane = threadIdx.x;
+  Segment<T, kShortSegs, kSteps, false, kRev> seg(p, tl, blockIdx.x * kLanes,
+                                                  0, w);
+  seg.summarise(sh.sm[dir]);
+  barrier<1, kShortThreads>();                       // summaries shared
+  float h = seg.live ? __ldg(p.hck[dir] + seg.m) : 0.f;
+  float e0, q;
+  seg.entries(sh.sm[dir], h, e0, q);
+  seg.replay_h(h, sc);
+  float acc[3];
+  seg.replay_adjoint(e0, acc, sc, kKeep, nullptr);
+#pragma unroll
+  for (int n = 0; n < 3; ++n) sh.accs[dir][n][w][lane] = acc[n];
+  barrier<1, kShortThreads>();                       // terms shared
+  // the reversed lanes' du terms are in their tile
+  if (!kRev)
+    seg.template store_du<false>(th_other + seg.r0 * kLanes + lane, kLanes);
+  if (w < 3 && seg.live) {
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < kShortSegs; ++j) sum += sh.accs[dir][w][j][lane];
+    sc.cpart[static_cast<size_t>(3 * dir + w) * p.M + seg.m0 + lane] = sum;
+  }
+}
+
+// Its dynamic shared memory: the two directions' fp32 tiles (delta, h_prev,
+// du terms), the tiles of u, dt_f, dt_r, g_f and g_r, and both
+// directions' B and C.
+template <typename T>
+size_t span_smem(int steps, int max_groups) {
+  return static_cast<size_t>(kShortSegs) * steps *
+         (kLanes * (2 * sizeof(float) + 5 * sizeof(T)) +
+          4 * max_groups * sizeof(T));
+}
+
+// Block i: both directions of lane group i, the forward ones on warps
+// 0 .. 7 and the reversed ones on warps 8 .. 15 at once, from one staged
+// copy of u, dt_f, dt_r, g_f and g_r (4-byte copies).
+template <typename T, int kSteps>
+__global__ void __launch_bounds__(kShortThreads, 2)
+bwd_span_kernel(Operands<T> p, Scratch sc) {
+  constexpr int kRows = kShortSegs * kSteps;
+  __shared__ SpanShared sh;
+  extern __shared__ __align__(16) unsigned char dyn[];
+  float* th = reinterpret_cast<float*>(dyn);     // h_f, h_r
+  T* tu = reinterpret_cast<T*>(th + 2 * kRows * kLanes);
+  T* tdt = tu + kRows * kLanes;                   // dt_f, dt_r
+  T* tg = tdt + 2 * kRows * kLanes;               // g_f, g_r
+  T* tb = tg + 2 * kRows * kLanes;                // bc_f, bc_r
+  T* tc = tb + 2 * kRows * p.max_groups;          // cc_f, cc_r
+  const int m0 = blockIdx.x * kLanes;
+  const int tid = threadIdx.y * kLanes + threadIdx.x;
+  stage_plane<T, 4, kShortThreads>(tu, p.u, p.L, p.M, 0, m0, kRows, tid);
+  for (int r = 0; r < 2; ++r) {
+    stage_plane<T, 4, kShortThreads>(tdt + r * kRows * kLanes, p.dt[r], p.L,
+                                     p.M, 0, m0, kRows, tid);
+    stage_plane<T, 4, kShortThreads>(tg + r * kRows * kLanes, p.g[r], p.L,
+                                     p.M, 0, m0, kRows, tid);
+    stage_compact<T, kShortThreads>(tb + r * kRows * p.max_groups,
+                                    tc + r * kRows * p.max_groups, p.bc[r],
+                                    p.cc[r], p, 0, m0, kRows, tid);
+  }
+  wait_async();
+  __syncthreads();
+  const int w = threadIdx.y % kShortSegs;
+  const int r = threadIdx.y / kShortSegs;
+  const Tiles<T> tl{tu, tdt + r * kRows * kLanes, tg + r * kRows * kLanes,
+                    tb + r * kRows * p.max_groups,
+                    tc + r * kRows * p.max_groups, th + r * kRows * kLanes};
+  // the forward warps read the reversed lanes' du terms from their tile
+  const float* th_r = th + kRows * kLanes;
+  if (r == 0)
+    one_span<T, kSteps, false>(p, sc, sh, tl, th_r, w);
+  else
+    one_span<T, kSteps, true>(p, sc, sh, tl, th_r, w);
+}
+
+// dconst (6, M) = the span partials summed in span order; compact dB/dC
+// (4, L, G) = each group's slice partials summed in slice order and
 // rounded once to the operands' dtype.
 template <typename T>
 __global__ void __launch_bounds__(kFinishThreads)
-finish_kernel(Outputs<T> o, Scratch sc, int L, int M, int Dim,
-              int n_spans) {
+finish_kernel(Operands<T> p, Scratch sc, T* dbcc, float* dconst) {
   const size_t idx =
       static_cast<size_t>(blockIdx.x) * kFinishThreads + threadIdx.x;
+  const int L = p.L, M = p.M, Dim = p.Dim, G = p.G;
   const size_t n_const = static_cast<size_t>(kSums) * M;
-  const int G = M / Dim;
   if (idx < n_const) {
     const int q = static_cast<int>(idx / M);
     const int m = static_cast<int>(idx % M);
     float sum = 0.f;
-    for (int s = 0; s < n_spans; ++s)
+    for (int s = 0; s < p.spans; ++s)
       sum += sc.cpart[(static_cast<size_t>(s) * kSums + q) * M + m];
-    o.dconst[idx] = sum;
+    dconst[idx] = sum;
     return;
   }
   const size_t k = idx - n_const;                 // (q, t, g) flat
@@ -571,104 +826,250 @@ finish_kernel(Outputs<T> o, Scratch sc, int L, int M, int Dim,
   const size_t qt = k / G;                        // q * L + t
   const int first = g * Dim / kLanes;
   const int last = ((g + 1) * Dim - 1) / kLanes;
-  const float* __restrict__ part =
-      sc.bcpart + qt * sc.slices * sc.J;
+  const float* __restrict__ part = sc.bcpart + qt * p.slices * p.J;
   float sum = 0.f;
   for (int bx = first; bx <= last; ++bx)
-    sum += part[static_cast<size_t>(bx) * sc.J + (g - bx * kLanes / Dim)];
-  o.dbcc[k] = from_f32<T>(sum);
+    sum += part[static_cast<size_t>(bx) * p.J + (g - bx * kLanes / Dim)];
+  dbcc[k] = from_f32<T>(sum);
 }
 
-size_t n_spans_of(int L) { return (L + kSpan - 1) / kSpan; }
+long long spans_of(int L) { return (L + kSpan - 1) / kSpan; }
+long long groups_of(int M) { return (M + kLanes - 1) / kLanes; }
+// steps a segment of the one-span kernel: 4, 8 or 16
+int span_steps(int L) { return L <= 4 * kShortSegs ? 4 : 8; }
+
+// What the recurrence's launch is made of: resident blocks an SM, threads
+// and dynamic shared memory a block, blocks; for the measurements.
+struct Shape {
+  int per_sm, threads, smem, blocks;
+};
+
+template <typename T, int kSteps>
+int launch_span(const Operands<T>& p, const Scratch& sc, cudaStream_t stream,
+                Shape* shape) {
+  const size_t smem = span_smem<T>(kSteps, p.max_groups);
+  int per_sm = 0;
+  int err = prepare(bwd_span_kernel<T, kSteps>, kShortThreads, smem,
+                    span_smem<T>(kSteps, kLanes), &per_sm);
+  if (shape != nullptr) {
+    *shape = {per_sm, kShortThreads, static_cast<int>(smem), p.slices};
+  } else if (err == 0) {
+    bwd_span_kernel<T, kSteps>
+        <<<p.slices, dim3(kLanes, 2 * kShortSegs), smem, stream>>>(p, sc);
+    err = static_cast<int>(cudaGetLastError());
+  }
+  return err;
+}
+
+// bwd_chain_kernel's dynamic shared memory: the span's fp32 tile (delta,
+// h_prev, du terms), its tiles of u, dt and g, and its B and C.
+template <typename T>
+size_t chain_smem(int max_groups) {
+  return static_cast<size_t>(kSpan) *
+         (kLanes * (sizeof(float) + 3 * sizeof(T)) +
+          2 * max_groups * sizeof(T));
+}
+
+int max_groups_of(int Dim) { return min(kLanes, (kLanes - 1) / Dim + 2); }
+
+template <typename T, int kChunk>
+int launch_chain(const Operands<T>& p, const Scratch& sc, const Chain& c,
+                 cudaStream_t stream, Shape* shape) {
+  const size_t smem = chain_smem<T>(p.max_groups);
+  const unsigned blocks = 2u * c.groups * p.spans;
+  int per_sm = 0;
+  int err = prepare(bwd_chain_kernel<T, kChunk>, kThreads, smem,
+                    chain_smem<T>(kLanes), &per_sm);
+  if (shape != nullptr) {
+    *shape = {per_sm, kThreads, static_cast<int>(smem),
+              static_cast<int>(blocks)};
+  } else if (err == 0) {
+    bwd_chain_kernel<T, kChunk>
+        <<<blocks, dim3(kLanes, kWarps + 1), smem, stream>>>(p, sc, c);
+    err = static_cast<int>(cudaGetLastError());
+  }
+  return err;
+}
+
+bool aligned16(const void* x) {
+  return reinterpret_cast<uintptr_t>(x) % 16 == 0;
+}
+
+// The recurrence's launch (L <= 64: bwd_span_kernel; longer:
+// bwd_chain_kernel), or (shape != null) only what it would be.
+template <typename T>
+int launch_recurrence(const Operands<T>& p, const Scratch& sc,
+                      const Chain& c, cudaStream_t stream, Shape* shape) {
+  if (p.L <= kShortSpan)
+    return span_steps(p.L) == 4 ? launch_span<T, 4>(p, sc, stream, shape)
+                                : launch_span<T, 8>(p, sc, stream, shape);
+  // 16-byte copies where every row of u, dt and g starts 16-byte aligned
+  const void* planes[] = {p.u, p.dt[0], p.dt[1], p.g[0], p.g[1]};
+  bool wide = (static_cast<size_t>(p.M) * sizeof(T)) % 16 == 0;
+  for (const void* x : planes) wide = wide && aligned16(x);
+  return wide ? launch_chain<T, 16>(p, sc, c, stream, shape)
+              : launch_chain<T, 4>(p, sc, c, stream, shape);
+}
+
+// Scratch and workspace layouts of a call: fp32 values and 64-bit words.
+struct Layout {
+  long long duterm, cpart, bcpart, scratch;      // fp32 offsets, total
+  long long pairs, flags, agg, words;            // word offsets, total
+};
+
+Layout layout_of(int L, int M, int Dim) {
+  Layout y;
+  const long long spans = spans_of(L), groups = groups_of(M);
+  y.duterm = 0;
+  y.cpart = L <= kShortSpan ? 0 : static_cast<long long>(L) * M;
+  y.bcpart = y.cpart + kSums * spans * M;
+  y.scratch = y.bcpart + 4LL * L * groups * groups_per_slice(Dim);
+  const long long pairs = spans * groups;
+  y.pairs = kTicketWords;
+  y.flags = y.pairs + pairs;
+  y.agg = y.flags + pairs;
+  y.words = y.agg + 3 * 2 * pairs * kLanes;
+  return y;
+}
 
 template <typename T>
-int launch(const Operands<T>& p, const Outputs<T>& o, float* scratch,
-           cudaStream_t stream) {
-  const int L = p.L, M = p.M, Dim = p.Dim, ns = p.n_spans;
-  const size_t plane = static_cast<size_t>(ns) * M;
-  Scratch sc;
-  sc.slices = (M + kLanes - 1) / kLanes;
-  sc.J = groups_per_slice(Dim);
-  const bool multi = ns > 1;
-  sc.sums = multi ? scratch : nullptr;
-  sc.hent = multi ? scratch + kSums * plane : nullptr;
-  sc.eent = multi ? sc.hent + 2 * plane : nullptr;
-  sc.cpart = scratch + (multi ? (kSums + 4) * plane : 0);
-  sc.bcpart = sc.cpart + kSums * plane;
-  const dim3 block(kLanes, kWarps);
-  const dim3 grid(sc.slices, ns);
-  if (multi) {
-    span_summary_kernel<T><<<grid, block, 0, stream>>>(p, sc.sums);
-    span_carry_kernel<<<dim3(sc.slices, 2),
-                        dim3(kLanes, ns < kCarryRuns ? ns : kCarryRuns), 0,
-                        stream>>>(sc.sums, p.hck[0], p.hck[1], sc.hent,
-                                  sc.eent, ns, M);
-  }
-  span_output_kernel<T><<<grid, block, 0, stream>>>(p, o, sc);
+int launch(const void* const* in, const float* const* consts, void* du,
+           void* ddt_f, void* ddt_r, void* dbcc, float* dconst,
+           float* scratch, unsigned long long* ws, unsigned tag, int L,
+           int M, int Dim, cudaStream_t stream, Shape* shape) {
+  const auto op = [](const void* x) { return static_cast<const T*>(x); };
+  Operands<T> p;
+  p.u = op(in[0]);
+  p.dt[0] = op(in[1]);
+  p.dt[1] = op(in[2]);
+  p.bc[0] = op(in[3]);
+  p.cc[0] = op(in[4]);
+  p.bc[1] = op(in[5]);
+  p.cc[1] = op(in[6]);
+  p.g[0] = op(in[7]);
+  p.g[1] = op(in[8]);
+  p.hck[0] = consts[0];
+  p.hck[1] = consts[1];
+  p.A = consts[2];
+  p.Dv = consts[3];
+  p.bias = consts[4];
+  p.du = static_cast<T*>(du);
+  p.ddt[0] = static_cast<T*>(ddt_f);
+  p.ddt[1] = static_cast<T*>(ddt_r);
+  p.L = L;
+  p.M = M;
+  p.Dim = Dim;
+  p.G = M / Dim;
+  p.spans = static_cast<int>(spans_of(L));
+  p.slices = static_cast<int>(groups_of(M));
+  p.J = groups_per_slice(Dim);
+  p.max_groups = max_groups_of(Dim);
+  const Layout y = layout_of(L, M, Dim);
+  const Scratch sc{scratch + y.duterm, scratch + y.cpart, scratch + y.bcpart};
+  Chain c;
+  c.tickets = reinterpret_cast<unsigned*>(ws);
+  c.pairs = ws + y.pairs;
+  c.flags = ws + y.flags;
+  const size_t plane = 2 * static_cast<size_t>(p.spans) * p.slices * kLanes;
+  c.agg_p = ws + y.agg;
+  c.agg_e = c.agg_p + plane;
+  c.exit = c.agg_e + plane;
+  c.tag = tag;
+  c.groups = p.slices;
+  int err = launch_recurrence<T>(p, sc, c, stream, shape);
+  if (shape != nullptr || err != 0) return err;
   const size_t items = static_cast<size_t>(kSums) * M +
-                       static_cast<size_t>(4) * L * (M / Dim);
+                       static_cast<size_t>(4) * L * p.G;
   finish_kernel<T><<<static_cast<unsigned>(
                          (items + kFinishThreads - 1) / kFinishThreads),
-                     kFinishThreads, 0, stream>>>(o, sc, L, M, Dim, ns);
+                     kFinishThreads, 0, stream>>>(p, sc,
+                                                  static_cast<T*>(dbcc),
+                                                  dconst);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_typed(const void* u, const void* dt_f, const void* dt_r,
-                 const void* bc_f, const void* cc_f, const void* bc_r,
-                 const void* cc_r, const void* g_f, const void* g_r,
-                 const float* hck_f, const float* hck_r, const float* A,
-                 const float* Dv, const float* bias, void* du, void* ddt_f,
-                 void* ddt_r, void* dbcc, float* dconst, float* scratch,
-                 int L, int M, int Dim, cudaStream_t stream) {
-  const auto in = [](const void* x) { return static_cast<const T*>(x); };
-  const Operands<T> p{in(u), {in(dt_f), in(dt_r)}, {in(bc_f), in(bc_r)},
-                      {in(cc_f), in(cc_r)}, {in(g_f), in(g_r)},
-                      {hck_f, hck_r}, A, Dv, bias, L, M, Dim,
-                      static_cast<int>(n_spans_of(L))};
-  const Outputs<T> o{static_cast<T*>(du),
-                     {static_cast<T*>(ddt_f), static_cast<T*>(ddt_r)},
-                     static_cast<T*>(dbcc), dconst};
-  return launch<T>(p, o, scratch, stream);
+int check_sizes(int L, int M, int Dim) {
+  if (L <= 0 || M <= 0 || Dim <= 0 || M % (2 * Dim) != 0 || M > (1 << 26) ||
+      2 * spans_of(L) * groups_of(M) > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return 0;
 }
 
 }  // namespace
 
-// The fp32 values of scratch a call with these L, M and Dim needs.
-extern "C" long long xp_selective_scan_bidir_bwd_scratch(int L, int M,
-                                                         int Dim) {
-  const long long ns = static_cast<long long>(n_spans_of(L));
-  const long long slices = (M + kLanes - 1) / kLanes;
-  return (ns > 1 ? (kSums + 4) * ns * M : 0) + kSums * ns * M +
-         4LL * L * slices * groups_per_slice(Dim);
+// The fp32 values of scratch a call with these dtype, L, M and Dim needs.
+extern "C" long long xp_selective_scan_bidir_bwd_scratch(int dtype, int L,
+                                                         int M, int Dim) {
+  return dtype == 0 || dtype == 1 ? layout_of(L, M, Dim).scratch : 0;
+}
+
+// The 64-bit words of workspace a call with these L, M and Dim needs: the
+// two tickets, the pair counters and du flags, then the P, E and exit
+// words per direction, chain position and lane (M rounded up to the
+// block's 32 lanes).
+extern "C" long long xp_selective_scan_bidir_bwd_workspace(int L, int M,
+                                                           int Dim) {
+  return layout_of(L, M, Dim).words;
+}
+
+// The recurrence's launch for these dtype, L, M and Dim (16-byte-aligned
+// operands), for the measurements: out[0 .. 3] = resident blocks an SM,
+// threads a block, dynamic shared memory bytes a block, blocks.
+extern "C" int xp_selective_scan_bidir_bwd_shape(int dtype, int L, int M,
+                                                 int Dim, int* out) {
+  int err = check_sizes(L, M, Dim);
+  if (err != 0) return err;
+  Shape shape{};
+  alignas(16) static char probe[16];
+  const void* in[9] = {probe, probe, probe, probe, probe,
+                       probe, probe, probe, probe};
+  const float* consts[5] = {nullptr, nullptr, nullptr, nullptr, nullptr};
+  err = dtype == 0
+            ? launch<float>(in, consts, probe, probe, probe, probe, nullptr,
+                            nullptr, nullptr, 1, L, M, Dim, nullptr, &shape)
+            : launch<__nv_bfloat16>(in, consts, probe, probe, probe, probe,
+                                    nullptr, nullptr, nullptr, 1, L, M, Dim,
+                                    nullptr, &shape);
+  out[0] = shape.per_sm;
+  out[1] = shape.threads;
+  out[2] = shape.smem;
+  out[3] = shape.blocks;
+  return err;
 }
 
 // dtype: 0 = float32, 1 = bfloat16 (u, dt, bc, cc, g and the outputs du,
-// ddt, dbcc share it). du, ddt_f, ddt_r: (L, M); dbcc: (4, L, M / Dim) =
-// dB_f, dB_r, dC_f, dC_r; dconst: fp32 (2, 3, M) = [direction][dA, dD,
-// dbias][lane]; scratch: fp32, xp_selective_scan_bidir_bwd_scratch(L, M,
-// Dim) values. Every output is written; nothing needs zeroing.
+// ddt, dbcc share it; u, dt_f, dt_r, g_f and g_r at least 4-byte aligned).
+// du, ddt_f, ddt_r: (L, M); dbcc: (4, L, M / Dim) = dB_f, dB_r, dC_f, dC_r;
+// dconst: fp32 (2, 3, M) = [direction][dA, dD, dbias][lane]; scratch: fp32,
+// xp_selective_scan_bidir_bwd_scratch(L, M, Dim) values; workspace:
+// xp_selective_scan_bidir_bwd_workspace(L, M, Dim) 64-bit words, zeroed
+// before the first call and reused only by calls on the same stream, each
+// with a tag (never 0) higher than the last one given with it. Every output
+// is written; nothing needs zeroing.
 extern "C" int xp_selective_scan_bidir_bwd(
     int dtype, const void* u, const void* dt_f, const void* dt_r,
     const void* bc_f, const void* cc_f, const void* bc_r, const void* cc_r,
     const void* g_f, const void* g_r, const float* hck_f, const float* hck_r,
     const float* A, const float* Dv, const float* bias, void* du,
     void* ddt_f, void* ddt_r, void* dbcc, float* dconst, float* scratch,
-    int L, int M, int Dim, void* stream) {
-  if (L <= 0 || M <= 0 || Dim <= 0 || M % (2 * Dim) != 0)
+    void* workspace, unsigned tag, int L, int M, int Dim, void* stream) {
+  int err = check_sizes(L, M, Dim);
+  if (err != 0) return err;
+  if (scratch == nullptr || workspace == nullptr || tag == 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (M > (1 << 26) || n_spans_of(L) > 65535 || scratch == nullptr)
-    return static_cast<int>(cudaErrorInvalidValue);
+  for (const void* x : {u, dt_f, dt_r, g_f, g_r})
+    if (reinterpret_cast<uintptr_t>(x) % 4 != 0)
+      return static_cast<int>(cudaErrorMisalignedAddress);
+  const void* in[9] = {u, dt_f, dt_r, bc_f, cc_f, bc_r, cc_r, g_f, g_r};
+  const float* consts[5] = {hck_f, hck_r, A, Dv, bias};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  unsigned long long* ws = static_cast<unsigned long long*>(workspace);
   if (dtype == 0)
-    return launch_typed<float>(u, dt_f, dt_r, bc_f, cc_f, bc_r, cc_r, g_f,
-                               g_r, hck_f, hck_r, A, Dv, bias, du, ddt_f,
-                               ddt_r, dbcc, dconst, scratch, L, M, Dim, s);
+    return launch<float>(in, consts, du, ddt_f, ddt_r, dbcc, dconst, scratch,
+                         ws, tag, L, M, Dim, s, nullptr);
   if (dtype == 1)
-    return launch_typed<__nv_bfloat16>(u, dt_f, dt_r, bc_f, cc_f, bc_r, cc_r,
-                                       g_f, g_r, hck_f, hck_r, A, Dv, bias,
-                                       du, ddt_f, ddt_r, dbcc, dconst,
-                                       scratch, L, M, Dim, s);
+    return launch<__nv_bfloat16>(in, consts, du, ddt_f, ddt_r, dbcc, dconst,
+                                 scratch, ws, tag, L, M, Dim, s, nullptr);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -275,119 +275,155 @@ def _group_sums_by_slice(v, Dim, lanes=32):
 
 
 def selective_scan_bidir_bwd_chunked(u_t, dt_t, bc_t, cc_t, A, D, delta_bias,
-                                     hck_f, hck_r, g_f, g_r, steps=4,
-                                     segments=8):
+                                     hck_f, hck_r, g_f, g_r, steps=None,
+                                     segments=None, lookback=4):
     """The function of :func:`selective_scan_bidir_bwd_plain`, computed in
-    the order of ``csrc/selective_scan_bidir_bwd.cu``: L is cut into spans of
-    ``segments`` segments of ``steps`` steps (32 tokens, eight to a
-    checkpoint chunk, as the kernel has them). Per direction every segment
-    is composed from a zero entry to (product of a, h in scan order, e =
-    a dh in adjoint order); the segment summaries fold to span summaries; a
-    carry over the spans in adjoint order gives every span's adjoint entry,
-    and each chunk's checkpoint carried over its spans in scan order every
-    span's h entry; every segment is replayed from its span's entries folded
-    with the segments before it. du is summed forward first; dB/dC per
-    32-lane slice, then over slices; dA/dD/dbias per segment in adjoint
-    order, over segments, then over spans. Padded steps are inert. For the
-    tests: it shows on the CPU that this order computes the backward."""
+    the order of ``csrc/selective_scan_bidir_bwd.cu``: L is cut into spans
+    of ``segments`` segments of ``steps`` steps (by default as the kernel
+    has them: 16 of 16, one 256-token checkpoint chunk; a scan of at most
+    64 tokens, one span of 8 segments of 4 or 8 steps), each direction on
+    its own chain of spans in its adjoint order (right to left on forward
+    lanes, left to right on reversed ones).
+
+    Per direction every segment is composed from zero entries in one pass
+    in scan order: the product P of a, h, and the adjoint e = sum of gC_t
+    times the product of a up to t. The segments fold in adjoint order to
+    the span's adjoint summary; chain position k (span spans - 1 - k on
+    forward lanes, span k on reversed lanes) takes its adjoint entry from
+    the exit of position k - ``lookback`` (zero below 0) folded with the
+    summaries of the positions between, in position order, and any
+    ``lookback`` gives the entries of the strict chain (``lookback=1``) bit
+    for bit. A span's h entry is its chunk's checkpoint (a shorter span that
+    tiles the chunk carries it over the chunk's spans before it in scan
+    order). Every segment replays from its h entry (the segments before it
+    in scan order folded onto the span's) and from the span's zero adjoint
+    entry: the segments after it in adjoint order folded from zero to e0,
+    with the product q of their a, and its adjoint entry is q e + e0. Then
+    h runs in scan order and dh = gC + e, e = a dh in adjoint order.
+
+    du is the fp32 sum of the forward lanes' term and the reversed lanes'
+    term, rounded once; dB / dC per 32-lane slice, then over the slices in
+    slice order; dA / dD / dbias per segment in adjoint order, over the
+    segments in token order, then over the spans in token order. Padded
+    steps are inert. For the tests: it shows on the CPU that this order
+    computes the backward."""
     L, B, K2, Dim = u_t.shape
     M = B * K2 * Dim
+    if segments is None:
+        segments = 8 if L <= 64 else 16
+    if steps is None:
+        steps = 16 if L > 64 else 8 if L > 32 else 4
     span = steps * segments
     if CKPT_CHUNK % span and L > span:
         raise ValueError(f"spans of {segments} segments of {steps} steps do "
                          f"not tile a {CKPT_CHUNK}-token chunk and L={L} "
                          f"needs several")
+    if lookback < 1:
+        raise ValueError(f"lookback must be at least 1, got {lookback}")
     ns = -(-L // span)
     Lp = ns * span
     per_chunk = max(CKPT_CHUNK // span, 1)
     cd = _compute_dtype(u_t.dtype)
     dev = u_t.device
     pad = lambda x, v=0.0: F.pad(x, (0, 0, 0, Lp - L), value=v)  # noqa: E731
-    u = pad(u_t.reshape(L, M).to(cd))
-    du = torch.zeros(Lp, M, dtype=cd, device=dev)
-    ddt, dbc, dcc, dconst = [], [], [], []
+    u = u_t.reshape(L, M).to(cd)
+    terms, ddt, dbc, dcc, dconst = [], [], [], [], []
     for r, hck, gy in ((0, hck_f, g_f), (1, hck_r, g_r)):
         x, delta, a, bcx, ccx, A_l, D_l = _lane_set(r, u_t, dt_t, bc_t, cc_t,
                                                     A, D, delta_bias)
         g = gy.reshape(L, M).to(cd)
-        gc = pad(g * ccx)
-        sig, delta = pad(torch.sigmoid(x)), pad(delta)
-        bcx, g = pad(bcx), pad(g)
-        a = pad(a, 1.0)
-        b = delta * u * bcx
-        # (spans, segments, steps, M) in token order; scan order runs left to
-        # right on forward lanes, the adjoint order the other way
-        a4, b4, gc4 = (v.reshape(ns, segments, steps, M) for v in (a, b, gc))
-        fwd = lambda n: range(n) if r == 0 else range(n - 1, -1, -1)  # noqa
-        bwd = lambda n: reversed(fwd(n))  # noqa: E731
-        P = torch.ones(ns, segments, M, dtype=cd, device=dev)
-        H = torch.zeros_like(P)
-        E = torch.zeros_like(P)
-        for i in fwd(steps):
-            H = a4[:, :, i] * H + b4[:, :, i]
+        # padded in token order, then turned into scan order (the reversed
+        # lanes' planes flipped): below, index order is scan order and the
+        # adjoint runs against it
+        planes = [pad(v) for v in (delta, u, bcx, g, g * ccx,
+                                   torch.sigmoid(x))] + [pad(a, 1.0)]
+        if r == 1:
+            planes = [v.flip(0) for v in planes]
+        d4, u4, b4, g4, gc4, sig4, a4 = (v.reshape(ns, segments, steps, M)
+                                         for v in planes)
+        bb4 = d4 * u4 * b4
+        ones = lambda *s: torch.ones(*s, M, dtype=cd, device=dev)  # noqa
+        zeros = lambda *s: torch.zeros(*s, M, dtype=cd, device=dev)  # noqa
+        P, H, E = ones(ns, segments), zeros(ns, segments), zeros(ns, segments)
+        for i in range(steps):
             P = P * a4[:, :, i]
-        for i in bwd(steps):
-            E = a4[:, :, i] * (gc4[:, :, i] + E)
-        Ps = torch.ones(ns, M, dtype=cd, device=dev)
-        Hs = torch.zeros_like(Ps)
-        Es = torch.zeros_like(Ps)
-        for j in fwd(segments):
-            Hs = P[:, j] * Hs + H[:, j]
-            Ps = Ps * P[:, j]
-        for j in bwd(segments):
-            Es = P[:, j] * Es + E[:, j]
-        eent = torch.empty_like(Ps)
-        xe = torch.zeros(M, dtype=cd, device=dev)
-        for s in bwd(ns):
-            eent[s] = xe
-            xe = Ps[s] * xe + Es[s]
-        hent = torch.empty_like(Ps)
+            H = a4[:, :, i] * H + bb4[:, :, i]
+            E = gc4[:, :, i] * P + E
+        # span summaries: adjoint (segments in adjoint order) and h (in
+        # scan order)
+        As, Es, Ph, Hh = ones(ns), zeros(ns), ones(ns), zeros(ns)
+        for j in range(segments):
+            Hh = P[:, j] * Hh + H[:, j]
+            Ph = Ph * P[:, j]
+            Es = P[:, -1 - j] * Es + E[:, -1 - j]
+            As = As * P[:, -1 - j]
+        # the adjoint chain: position k is scan-order span ns - 1 - k
+        entry, exits = zeros(ns), zeros(ns)
+        for k in range(ns):
+            xe = exits[k - lookback] if k >= lookback else zeros()
+            for j in range(max(k - lookback + 1, 0), k):
+                xe = As[ns - 1 - j] * xe + Es[ns - 1 - j]
+            entry[ns - 1 - k] = xe
+            exits[k] = As[ns - 1 - k] * xe + Es[ns - 1 - k]
+        # h entries: the checkpoint of the span's chunk, carried over the
+        # chunk's spans before it in scan order
+        hent = zeros(ns)
         for c in range(hck.shape[0]):
-            s0, n = c * per_chunk, min(per_chunk, ns - c * per_chunk)
+            first, n = c * per_chunk, min(per_chunk, ns - c * per_chunk)
+            order = (range(first, first + n) if r == 0 else
+                     range(ns - first - n, ns - first))
             xh = hck[c].to(cd)
-            for i in fwd(n):
-                hent[s0 + i] = xh
-                xh = Ps[s0 + i] * xh + Hs[s0 + i]
-        h_in, e_in = torch.empty_like(P), torch.empty_like(P)
-        xh, xe = hent, eent
-        for j in fwd(segments):
+            for s in order:
+                hent[s] = xh
+                xh = Ph[s] * xh + Hh[s]
+        h_in, e0, q = (ones(ns, segments) for _ in range(3))
+        xh, xe, qe = hent, zeros(ns), ones(ns)
+        for j in range(segments):
             h_in[:, j] = xh
             xh = P[:, j] * xh + H[:, j]
-        for j in bwd(segments):
-            e_in[:, j] = xe
-            xe = P[:, j] * xe + E[:, j]
-        h4, hp4, dh4 = (torch.empty_like(a4) for _ in range(3))
-        xh, xe = h_in, e_in
-        for i in fwd(steps):
+            e0[:, -1 - j], q[:, -1 - j] = xe, qe
+            xe = P[:, -1 - j] * xe + E[:, -1 - j]
+            qe = qe * P[:, -1 - j]
+        hp4, hv4, dh4 = (torch.empty_like(a4) for _ in range(3))
+        xh, xe = h_in, q * entry[:, None] + e0
+        for i in range(steps):
             hp4[:, :, i] = xh
-            xh = a4[:, :, i] * xh + b4[:, :, i]
-            h4[:, :, i] = xh
-        for i in bwd(steps):
+            xh = a4[:, :, i] * xh + bb4[:, :, i]
+            hv4[:, :, i] = xh
+        for i in reversed(range(steps)):
             dh4[:, :, i] = gc4[:, :, i] + xe
             xe = a4[:, :, i] * dh4[:, :, i]
-        h, hp, dh = (v.reshape(Lp, M) for v in (h4, hp4, dh4))
-        da = dh * hp
-        ddt_raw = (dh * u * bcx + da * A_l * a) * sig
-        du = du + (g * D_l + dh * delta * bcx)
-        ddt.append(ddt_raw[:L])
-        dbc.append(_group_sums_by_slice((dh * delta * u)[:L], Dim))
-        dcc.append(_group_sums_by_slice((g * h)[:L], Dim))
+        da = dh4 * hp4
+        ddt4 = (dh4 * u4 * b4 + da * A_l * a4) * sig4
+        seg = []
+        for v in (da * a4 * d4, g4 * u4, ddt4):
+            acc = zeros(ns, segments)
+            for i in reversed(range(steps)):
+                acc = acc + v[:, :, i]
+            # back to token order of spans and segments
+            seg.append(acc.flip(0).flip(1) if r == 1 else acc)
         sums = []
-        for v in (da * a * delta, g * u, ddt_raw):
-            v4 = v.reshape(ns, segments, steps, M)
-            seg = torch.zeros(ns, segments, M, dtype=cd, device=dev)
-            for i in bwd(steps):
-                seg = seg + v4[:, :, i]
-            per_span = torch.zeros(ns, M, dtype=cd, device=dev)
+        for acc in seg:
+            per_span = zeros(ns)
             for j in range(segments):
-                per_span = per_span + seg[:, j]
-            total = torch.zeros(M, dtype=cd, device=dev)
+                per_span = per_span + acc[:, j]
+            total = zeros()
             for s in range(ns):
                 total = total + per_span[s]
             sums.append(total)
+
+        def token_order(v):
+            v = v.reshape(Lp, M)
+            return (v.flip(0) if r == 1 else v)[:L]
+
+        terms.append(token_order(g4 * D_l + dh4 * d4 * b4))
+        ddt.append(token_order(ddt4))
+        dbc.append(_group_sums_by_slice(token_order(dh4 * d4 * u4), Dim))
+        dcc.append(_group_sums_by_slice(token_order(g4 * hv4), Dim))
         dconst.append(torch.stack(sums))
-    return _cotangents(u_t, dt_t, bc_t, A, du[:L], torch.stack(ddt),
-                       torch.stack(dbc), torch.stack(dcc), torch.stack(dconst))
+    return _cotangents(u_t, dt_t, bc_t, A, terms[0] + terms[1],
+                       torch.stack(ddt), torch.stack(dbc), torch.stack(dcc),
+                       torch.stack(dconst))
 
 
 def _cotangents(u_t, dt_t, bc_t, A, du, ddt, dbc, dcc, dconst):
@@ -463,25 +499,32 @@ def _bidir_library():
 
 
 @functools.lru_cache(maxsize=256)
-def _workspace_words(lib, L, M):
-    """The 64-bit words of workspace a call on an (L, M) plane needs."""
-    return lib.xp_selective_scan_bidir_workspace(L, M)
+def _workspace_words(lib, L, M, Dim):
+    """The 64-bit words of chain workspace a call of K1 (``Dim`` None) or K3
+    on an (L, M) plane needs."""
+    if Dim is None:
+        return lib.xp_selective_scan_bidir_workspace(L, M)
+    return lib.xp_selective_scan_bidir_bwd_workspace(L, M, Dim)
 
 
-# The kernel's chain workspace, one a (device, stream): [int64 words, the
-# last tag handed out]. Calls on one stream run one after another, so they
-# never have live words in one buffer at once, and each call's tag is one
-# higher than the last; a buffer is zeroed when it is made (its words then
-# carry tag 0, which no call uses) and replaced before the tag wraps.
+# The kernels' chain workspaces, one a (kernel, device, stream): [int64
+# words, the last tag handed out]. Calls on one stream run one after
+# another, so they never have live words in one buffer at once, and each
+# call's tag is one higher than the last; a buffer is zeroed when it is
+# made (its words then carry tag 0, which no call uses) and replaced before
+# the tag wraps. K1 and K3 never share a buffer, so never a tag on one.
+# The lock covers every thread that launches, autograd's backward threads
+# among them.
 _CHAIN = {}
 _CHAIN_LOCK = threading.Lock()
 _LAST_TAG = 0xFFFFFFFF
 
 
-def _chain_workspace(lib, dev, stream, L, M):
-    """(workspace, tag) for one launch on ``stream``."""
-    n = _workspace_words(lib, L, M)
-    key = (dev.index, stream)
+def _chain_workspace(lib, dev, stream, L, M, Dim=None):
+    """(workspace, tag) for one launch on ``stream`` of K1 (``Dim`` None) or
+    K3."""
+    n = _workspace_words(lib, L, M, Dim)
+    key = (dev.index, stream) if Dim is None else (dev.index, stream, "bwd")
     with _CHAIN_LOCK:
         ws = _CHAIN.get(key)
         if ws is None or ws[0].numel() < n or ws[1] == _LAST_TAG:
@@ -559,11 +602,31 @@ def _bwd_library():
     fn = lib.xp_selective_scan_bidir_bwd
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 20
-                       + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-        lib.xp_selective_scan_bidir_bwd_scratch.restype = ctypes.c_longlong
-        lib.xp_selective_scan_bidir_bwd_scratch.argtypes = [ctypes.c_int] * 3
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 21
+                       + [ctypes.c_uint] + [ctypes.c_int] * 3
+                       + [ctypes.c_void_p])
+        for name, n_args in (("scratch", 4), ("workspace", 3)):
+            f = getattr(lib, f"xp_selective_scan_bidir_bwd_{name}")
+            f.restype = ctypes.c_longlong
+            f.argtypes = [ctypes.c_int] * n_args
+        lib.xp_selective_scan_bidir_bwd_shape.restype = ctypes.c_int
+        lib.xp_selective_scan_bidir_bwd_shape.argtypes = ([ctypes.c_int] * 4
+                                                          + [ctypes.c_void_p])
     return lib
+
+
+def selective_scan_bidir_bwd_launch_shape(L, M, Dim, dtype=torch.bfloat16):
+    """What the backward kernel launches for the recurrence of an (L, M)
+    plane of ``dtype``: resident blocks an SM, threads and dynamic shared
+    memory bytes a block, blocks (on the current CUDA device; for the
+    measurements)."""
+    lib = _bwd_library()
+    out = (ctypes.c_int * 4)()
+    build.check(lib, lib.xp_selective_scan_bidir_bwd_shape(
+        _DTYPE_CODE[dtype], L, M, Dim, out),
+        "selective_scan_bidir_bwd shape")
+    return dict(zip(("blocks_per_sm", "threads", "smem_bytes", "blocks"),
+                    out))
 
 
 def _launch_bwd(u_t, dt_t, bc_t, cc_t, A, D, delta_bias, hck_f, hck_r, g_f,
@@ -572,14 +635,19 @@ def _launch_bwd(u_t, dt_t, bc_t, cc_t, A, D, delta_bias, hck_f, hck_r, g_f,
     L, B, K2, Dim = u_t.shape
     M, G = B * K2 * Dim, B * K2
     dev = u_t.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
     # every output is written whole, in the operands' dtype: du summed over
     # both directions, dB/dC over each group, by the kernel in a fixed order
     du = torch.empty(L, M, dtype=u_t.dtype, device=dev)
     ddt = torch.empty(2, L, M, dtype=dt_t.dtype, device=dev)
     dbcc = torch.empty(2, 2, L, G, dtype=bc_t.dtype, device=dev)  # dB, dC
     dconst = torch.empty(2, 3, M, device=dev)
-    scratch = torch.empty(lib.xp_selective_scan_bidir_bwd_scratch(L, M, Dim),
-                          device=dev)
+    scratch = torch.empty(lib.xp_selective_scan_bidir_bwd_scratch(
+        _DTYPE_CODE[u_t.dtype], L, M, Dim), device=dev)
+    ws, tag = _chain_workspace(lib, dev, stream, L, M, Dim)
+    # the kernel copies the planes in 4-byte pieces at least
+    u_t, dt_t, g_f, g_r = (x if x.data_ptr() % 4 == 0 else x.clone()
+                           for x in (u_t, dt_t, g_f, g_r))
     err = lib.xp_selective_scan_bidir_bwd(
         _DTYPE_CODE[u_t.dtype], u_t.data_ptr(), dt_t[0].data_ptr(),
         dt_t[1].data_ptr(), bc_t[0].data_ptr(), cc_t[0].data_ptr(),
@@ -587,8 +655,8 @@ def _launch_bwd(u_t, dt_t, bc_t, cc_t, A, D, delta_bias, hck_f, hck_r, g_f,
         g_r.data_ptr(), hck_f.data_ptr(), hck_r.data_ptr(), A.data_ptr(),
         D.data_ptr(), delta_bias.data_ptr(), du.data_ptr(),
         ddt[0].data_ptr(), ddt[1].data_ptr(), dbcc.data_ptr(),
-        dconst.data_ptr(), scratch.data_ptr(), L, M, Dim,
-        torch.cuda.current_stream(dev).cuda_stream)
+        dconst.data_ptr(), scratch.data_ptr(), ws.data_ptr(), tag, L, M, Dim,
+        stream)
     build.check(lib, err, "selective_scan_bidir_bwd launch")
     selective_scan_bidir_bwd.launches += 1
     return _cotangents(u_t, dt_t, bc_t, A, du, ddt, dbcc[0], dbcc[1], dconst)
