@@ -348,12 +348,14 @@ data path, in a scratch directory under build/ that is removed at the end:
      block's SS2D, downsamples, heads) with its bound from the H100's
      peaks and an exp rate calibrated here, no stage above 105% of its
      bound; (c) tools.stage_table: host-staged at B=1 and on the device at
-     B=8, the on-device stages summing to phase 3's call time (measured
-     again just before: the host's speed drifts over a run) within 25%;
+     B=8, the on-device stages summing to phase 3's call time (its
+     synchronised calls timed again in the same rounds as the stages'
+     prefix streams: the host's speed drifts within seconds) within 25%;
      (d) a torch.profiler trace of 3 pipeline calls through
      tools.parse_trace: 16 K1 and 1 K2 launches a call by kernel name
      (K1's one kernel a call: bidir_chain_kernel, or bidir_span_kernel for
-     a scan of at most 64 tokens), equal to the wrappers' counts; (e)
+     a scan of at most 64 tokens; K2's nms_resident_kernel), equal to the
+     wrappers' counts; (e)
      tools.op_sweep on phase 20's config, model and 32 pairs at two
      operating points, its processes
      python -m xpoint_tpu_torch.cli.benchmark: the first (phase 20's)
@@ -680,17 +682,24 @@ def phase_main_path(dev):
 def phase_nms(probs):
     from xpoint_tpu_torch.kernels import cost
     from xpoint_tpu_torch.ops.nms import (_grid_nms_keep_cuda, box_nms_extract,
-                                          grid_nms_keep, grid_nms_keep_plain)
+                                          grid_nms_keep, grid_nms_keep_plain,
+                                          last_launch_shape)
     valid = probs > 0.015
     before = grid_nms_keep.launches
     keep, sweeps = grid_nms_keep(probs, valid, 8, 0.1)
+    serve_shape = last_launch_shape()
+    print(f"K2 serving launch: {serve_shape}", flush=True)
     again, again_sweeps = grid_nms_keep(probs, valid, 8, 0.1)
     ref, ref_sweeps = grid_nms_keep_plain(probs, valid, 8, 0.1)
-    # a ramp along each row: every box suppresses the next, ~2 sweeps a box
-    ramp = torch.linspace(1.0, 0.5, W, device=probs.device).expand(
-        1, H, W).contiguous()
-    ramp_keep, ramp_sweeps = grid_nms_keep(ramp, ramp > 0, 8, 0.1)
-    ramp_ref, ramp_ref_sweeps = grid_nms_keep_plain(ramp, ramp > 0, 8, 0.1)
+    # a ramp along each row (every box suppresses the next, ~2 sweeps a box)
+    # beside three of the heatmaps: enough planes for the resident instance,
+    # each stopping at its own fixed point
+    ramp = torch.cat([torch.linspace(1.0, 0.5, W, device=probs.device)
+                      .expand(1, H, W), probs[:3]])
+    ramp_keep, ramp_sweeps = grid_nms_keep(ramp, ramp > 0.015, 8, 0.1)
+    ramp_shape = last_launch_shape()
+    ramp_ref, ramp_ref_sweeps = grid_nms_keep_plain(ramp, ramp > 0.015, 8,
+                                                    0.1)
     torch.cuda.synchronize()
     launches = grid_nms_keep.launches - before
     n_diff = int((keep != ref).sum())
@@ -698,12 +707,13 @@ def phase_nms(probs):
     print(f"K2 {probs.shape[0]} planes {H}x{W}: sweeps={sweeps} "
           f"(plain {ref_sweeps}) pixels differing={n_diff} bit-equal repeat="
           f"{torch.equal(keep, again) and sweeps == again_sweeps}; ramp "
-          f"1x{H}x{W}: sweeps={ramp_sweeps} (plain {ramp_ref_sweeps}) pixels "
-          f"differing={ramp_diff}; launches={launches}", flush=True)
+          f"and 3 heatmaps 4x{H}x{W}: sweeps={ramp_sweeps} (plain "
+          f"{ramp_ref_sweeps}) pixels differing={ramp_diff} launch "
+          f"{ramp_shape}; launches={launches}", flush=True)
     if (n_diff or sweeps != ref_sweeps or not torch.equal(keep, again)
             or again_sweeps != sweeps or ramp_diff
             or ramp_sweeps != ramp_ref_sweeps or ramp_sweeps < 100
-            or launches != 3):
+            or ramp_shape["cluster"] == 0 or launches != 3):
         raise SystemExit("K2 disagrees with its plain version, with itself "
                          "or with one launch a call")
 
@@ -734,12 +744,166 @@ def phase_nms(probs):
            "ms_with_host_launch": launch_ms, "plain_ms": plain_ms,
            "bound_ms": b_ms, "bound_by": b_by,
            "bound_sweep_bytes_ms": sweep_bytes_ms,
-           "compares_per_px_sweep": compares, "no_host_read": True}
+           "compares_per_px_sweep": compares, "no_host_read": True,
+           "launch_shape": serve_shape}
     print(f"K2 times: kernel_ms={ms} (with the host's launch path "
           f"{launch_ms}) plain_ms={plain_ms} bound_ms={b_ms} ({b_by}; "
           f"every sweep's bytes through device memory {sweep_bytes_ms})",
           flush=True)
+    res["edges"] = k2_edge_checks(probs)
+    res["shapes"] = k2_shape_times(probs)
     return res
+
+
+def k2_edge_checks(probs):
+    """K2 exactly against its plain version at the edges of its design: 1 x
+    W row ramps at size 2 that are still changing at the H * W sweep cap (W
+    = 64 and 65), 40 a call (the resident instance) and one (the staged
+    one), and a plane that does not fit a cluster (the serving heatmaps
+    tiled to 2048^2, size 8), each one launch with its shape."""
+    from xpoint_tpu_torch.ops.nms import (grid_nms_keep, grid_nms_keep_plain,
+                                          last_launch_shape)
+    dev = probs.device
+    cases = [(torch.linspace(1.0, 0.5, n, device=dev).expand(m, 1, n)
+              .contiguous(), 2, f"sweep cap {m}x1x{n}", m > 1)
+             for m, n in ((40, 64), (40, 65), (1, 65))]
+    cases.append((probs[:1].repeat(1, 4, 4), 8, "no fit 1x2048x2048", False))
+    rows = []
+    for p, size, tag, resident_expected in cases:
+        valid = p > 0.015
+        before = grid_nms_keep.launches
+        keep, sweeps = grid_nms_keep(p, valid, size, 0.1)
+        shape = last_launch_shape()
+        launches = grid_nms_keep.launches - before
+        ref, ref_sweeps = grid_nms_keep_plain(p, valid, size, 0.1)
+        n_diff = int((keep != ref).sum())
+        rows.append({"case": tag, "size": size, "sweeps": sweeps,
+                     "plain_sweeps": ref_sweeps, "pixels_differing": n_diff,
+                     "launches": launches, "launch_shape": shape})
+        print(f"K2 {tag}, size {size}: {rows[-1]}", flush=True)
+        cap = p.shape[1] * p.shape[2] if tag.startswith("sweep cap") else None
+        resident = shape["cluster"] > 0
+        if (n_diff or sweeps != ref_sweeps or launches != 1
+                or (cap is not None and sweeps != cap)
+                or resident != resident_expected):
+            raise SystemExit(f"K2 {tag}: disagrees with its plain version, "
+                             f"its sweep cap or its instance: {rows[-1]}")
+    return rows
+
+
+# K2's shapes on the paths (PERF.md's rows), cut from the serving heatmaps:
+# (planes, rows, columns), box
+K2_SHAPES = (((16, 512, 512), 8), ((16, 512, 512), 4), ((8, 512, 512), 8),
+             ((2, 512, 512), 4), ((1, 512, 512), 8), ((1, 512, 512), 4),
+             ((1, 256, 256), 8), ((1, 256, 256), 4))
+
+
+def sparse_plane(dev):
+    """A masked (1, 256, 256) plane of isolated responses 12 pixels apart
+    (none in another's box at size 8), like the SIFT sweep's: one sweep."""
+    g = torch.Generator().manual_seed(14)
+    p = torch.zeros(1, 256, 256)
+    p[0, 6::12, 6::12] = 0.02 + torch.rand(21, 21, generator=g)
+    return p.to(dev)
+
+
+def k2_earlier(src):
+    """K2 of another tree, built here from its csrc/nms_sweep.cu, for boxes
+    up to 16; returns fn(prob, valid, size, iou) -> (keep, sweeps on the
+    device), as ops.nms._grid_nms_keep_cuda. A source from before the
+    resident instance (no xp_nms_fit_rows) sizes its scratch by the shape
+    alone, a later one by the shape and the box."""
+    import ctypes
+    import hashlib
+    from xpoint_tpu_torch.kernels import build
+    from xpoint_tpu_torch.ops.nms import _widths_arg
+    with open(src, "rb") as f:
+        tag = hashlib.sha256(f.read()).hexdigest()[:12]
+    out = os.path.join(build.BUILD_DIR, f"libnms_sweep_earlier-{tag}.so")
+    if not os.path.exists(out):
+        os.makedirs(build.BUILD_DIR, exist_ok=True)
+        subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", out, src],
+                       check=True, capture_output=True)
+    lib = ctypes.CDLL(out)
+    lib.xp_nms.restype = ctypes.c_int
+    lib.xp_nms.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                           + [ctypes.c_void_p] * 2)
+    resident = hasattr(lib, "xp_nms_fit_rows")
+    lib.xp_nms_scratch.restype = ctypes.c_longlong
+    lib.xp_nms_scratch.argtypes = ([ctypes.c_int] * 4 + [ctypes.c_void_p]
+                                   if resident else [ctypes.c_int] * 3)
+
+    def run(prob, valid, size, iou):
+        B, H_, W_ = prob.shape
+        keep = torch.empty_like(valid)
+        box = (size, _widths_arg(size, iou)) if resident else ()
+        scratch = torch.empty(lib.xp_nms_scratch(B, H_, W_, *box),
+                              dtype=torch.uint8, device=prob.device)
+        state = torch.empty(4, dtype=torch.int32, device=prob.device)
+        err = lib.xp_nms(prob.data_ptr(), valid.data_ptr(), keep.data_ptr(),
+                         scratch.data_ptr(), state.data_ptr(), B, H_, W_,
+                         size, _widths_arg(size, iou),
+                         torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise SystemExit(f"the earlier K2 failed to launch: {err}")
+        return keep, state[3]
+    return run
+
+
+def k2_shape_times(probs, earlier=None):
+    """K2 at K2_SHAPES cut from the serving heatmaps and on sparse_plane:
+    exactly the plain version's mask and sweeps, device time behind queued
+    work (median of 5), bound and launch shape. With ``earlier`` (an
+    earlier tree's nms_sweep.cu, ``python3 chip_smoke.py --k2-shape-times
+    SRC``) that tree's K2 on the same inputs too, exact as well, the two
+    timed in turns: earlier, this, this, earlier."""
+    from xpoint_tpu_torch.kernels import cost
+    from xpoint_tpu_torch.ops.nms import (_grid_nms_keep_cuda,
+                                          grid_nms_keep_plain,
+                                          last_launch_shape)
+    old = k2_earlier(earlier) if earlier else None
+    delay = queued_delay(probs.device)
+    cases = [(probs[:n, :h, :w].contiguous(), size)
+             for (n, h, w), size in K2_SHAPES]
+    cases.append((sparse_plane(probs.device), 8))
+    rows = []
+    for p, size in cases:
+        valid = p > 0.015
+        ref, ref_sweeps = grid_nms_keep_plain(p, valid, size, 0.1)
+        runs = {"this": _grid_nms_keep_cuda, "earlier": old}
+        for who in ("this", "earlier") if old else ("this",):
+            keep, sweeps = runs[who](p, valid, size, 0.1)
+            if not torch.equal(keep, ref) or int(sweeps) != ref_sweeps:
+                raise SystemExit(f"K2 ({who}) at {tuple(p.shape)}, size "
+                                 f"{size}: not the plain version's answer")
+        _grid_nms_keep_cuda(p, valid, size, 0.1)
+        shape = last_launch_shape()
+        args = [(p, valid, size, 0.1)] * 5
+        times = {"this": [], "earlier": []}
+        for who in (("earlier", "this", "this", "earlier") if old
+                    else ("this",)):
+            times[who].append(cuda_ms_queued(runs[who], args, delay))
+        b_ms, b_by = bound(cost.nms(p.numel(), ref_sweeps, size, 0.1))
+        rows.append({"shape": list(p.shape), "size": size,
+                     "sweeps": ref_sweeps, "ms": times["this"],
+                     "earlier_ms": times["earlier"], "bound_ms": b_ms,
+                     "bound_by": b_by, "launch_shape": shape})
+        print(f"K2 at {tuple(p.shape)}, size {size}: {rows[-1]}", flush=True)
+    return rows
+
+
+def serving_heatmaps(dev):
+    """The 16 heatmaps of one flagship serving call (seed-0 model and
+    images, 512^2, B=8), as phase 3 hands them to K2."""
+    from xpoint_tpu_torch.eval import make_pair_pipeline
+    from xpoint_tpu_torch.models import VMAMBA_MODEL_CFG, build_xpoint
+    module, _ = build_xpoint(VMAMBA_MODEL_CFG, device=dev, seed=0)
+    run = make_pair_pipeline(module, (H, W), k=1024, nms_size=8,
+                             detection_threshold=0.015)
+    g = torch.Generator(device=dev).manual_seed(0)
+    out = run(torch.rand(B, H, W, 1, generator=g, device=dev),
+              torch.rand(B, H, W, 1, generator=g, device=dev))
+    return torch.cat([out["prob_optical"], out["prob_thermal"]])
 
 
 def phase_reference(dev):
@@ -1242,9 +1406,13 @@ K4_CALLS = (("image warp", True, "bilinear", "reflection", 2),
             ("mask unwarp", False, "nearest", "zeros", 1))
 
 
-def phase_warp(dev, S=HA_S, n=HA_WB, calls=K4_CALLS, odd_size=True):
+def phase_warp(dev, S=HA_S, n=HA_WB, calls=K4_CALLS, odd_size=True,
+               turns=False):
     """K4 against its plain version at the calls of one HA step (n warps
-    at S^2), then at an odd size."""
+    at S^2), then at an odd size. With ``turns`` the kernel and
+    F.grid_sample are also timed in turns (kernel, library, library,
+    kernel, each a median over the 5 timing sets), so that both see the
+    same state of the card."""
     import torch.nn.functional as F
     from xpoint_tpu_torch.geometry.homography import (
         compute_valid_mask_device)
@@ -1318,6 +1486,14 @@ def phase_warp(dev, S=HA_S, n=HA_WB, calls=K4_CALLS, odd_size=True):
         library_ms = cuda_ms_queued(library, grids[1:], delay)
         library_with_grid_ms = cuda_ms_queued(library_with_grid,
                                               with_grid[1:], delay)
+        in_turns = None
+        if turns:
+            in_turns = {"kernel_ms": [], "library_ms": []}
+            for who in ("kernel_ms", "library_ms", "library_ms",
+                        "kernel_ms"):
+                fn, sets = ((kernel, inputs[1:]) if who == "kernel_ms"
+                            else (library, grids[1:]))
+                in_turns[who].append(cuda_ms_queued(fn, sets, delay))
         # the whole entry point (inverse included), for the record
         entry_ms = None if multi else cuda_ms(
             lambda img, hs: warp_batch(img, hs, mode, padding),
@@ -1336,7 +1512,7 @@ def phase_warp(dev, S=HA_S, n=HA_WB, calls=K4_CALLS, odd_size=True):
                      "library_mean_abs_diff": lib_mean,
                      "library_max_abs_diff": lib_max,
                      "library_share_differing": lib_share,
-                     "entry_point_ms": entry_ms})
+                     "entry_point_ms": entry_ms, "in_turns": in_turns})
         print(f"K4 {name} {mode}/{padding} {list(inputs[0][0].shape)} x {n} "
               f"-> {list(out.shape)}: max_abs_err={err} differing={n_diff} "
               f"kernel_ms={ms} (with the host's launch path {launch_ms}) "
@@ -1344,7 +1520,8 @@ def phase_warp(dev, S=HA_S, n=HA_WB, calls=K4_CALLS, odd_size=True):
               f"library_ms={library_ms} library_with_grid_ms="
               f"{library_with_grid_ms} (grid_sample against the kernel: "
               f"mean {lib_mean} max {lib_max} share differing {lib_share}) "
-              f"entry_point_ms={entry_ms}", flush=True)
+              f"entry_point_ms={entry_ms}"
+              + (f" in turns {in_turns}" if turns else ""), flush=True)
         if not finite or (n_diff if mode == "nearest" else err > 1e-5):
             raise SystemExit(f"K4 disagrees with its plain version in the "
                              f"{name}: {err}, {n_diff} values differ")
@@ -2982,7 +3159,7 @@ def phase_cycle(dev, workdir):
     # K4 at the calls of one HA step of the cycle's export: 4 warps at 256^2
     k4_rows, _ = phase_warp(dev, S=256, n=CYCLE_WARPS, odd_size=False,
                             calls=[c for c in K4_CALLS
-                                   if c[0] != "prob unwarp"])
+                                   if c[0] != "prob unwarp"], turns=True)
     return {"total_s": total_s, "stage_s": stage_s, "report": rep,
             "launches": got, "k2": k2[0], "k2_thermal": k2[1],
             "k4": k4_rows, "classical_h_correctness@3": classical[
@@ -4562,66 +4739,48 @@ def _p30_roofline(module):
     return res
 
 
-def _serve_latencies(dev, module):
-    """Phase 3's call time, measured again: the serving pipeline at 512^2,
-    B=8 on N_CALLS fresh image pairs after a warm-up, each call
-    synchronised; the ms of each call."""
-    from xpoint_tpu_torch.eval import make_pair_pipeline
-    run = make_pair_pipeline(module, (H, W), k=1024, nms_size=8,
-                             detection_threshold=0.015)
-    g = torch.Generator(device=dev).manual_seed(3)
-    images = [(torch.rand(B, H, W, 1, generator=g, device=dev),
-               torch.rand(B, H, W, 1, generator=g, device=dev))
-              for _ in range(N_CALLS + 1)]
-    run(*images[0])
-    torch.cuda.synchronize()
-    lat = []
-    for img_o, img_t in images[1:]:
-        t0 = time.perf_counter()
-        run(img_o, img_t)
-        torch.cuda.synchronize()
-        lat.append((time.perf_counter() - t0) * 1e3)
-    return lat
-
-
 def _p30_stage_table(dev, module, phase3_latency_ms):
     """30c: both stage tables; the on-device stages' sum against phase
-    3's call time, measured again just before and just after them and
-    taken as the median of both sets of calls (the host's speed drifts
-    over a run: phase 3 ran minutes earlier, and one set taken before the
-    table alone was once 26% faster than the table; phase 3's own figure
-    is printed beside)."""
+    3's call (the serving pipeline at 512^2, B=8, each call synchronised),
+    timed in the same rounds as the stages' prefix streams
+    (stage_table.CALLS_PER_ROUND after each round), and taken as their
+    median: the host's speed drifts within seconds (phase 3 ran minutes
+    earlier, and calls timed before and after the table once read 30%
+    apart from it); phase 3's own figure is printed beside."""
+    from xpoint_tpu_torch.eval import make_pair_pipeline
     from xpoint_tpu_torch.tools import stage_table
     host = stage_table.host_staged_table(module, H, W)
     host_ms = {k: 1e3 * sum(v) / len(v) for k, v in host.items()}
     print("phase 30 stage_table host-staged (B=1, ms): "
           + json.dumps(host_ms), flush=True)
-    before = _serve_latencies(dev, module)
-    stages, cumulative = stage_table.on_device_table(module, B, H, W)
-    after = _serve_latencies(dev, module)
-    call_ms = _median(before + after)
+    run = make_pair_pipeline(module, (H, W), k=1024, nms_size=8,
+                             detection_threshold=0.015)
+    stages, cumulative, calls = stage_table.on_device_table(module, B, H, W,
+                                                            call=run)
+    call_ms = _median(calls)
     dev_ms = {k: 1e3 * v for k, v in stages.items()}
     cum_ms = {k: 1e3 * v for k, v in cumulative.items()}
     total_ms = sum(dev_ms.values())
     print(f"phase 30 stage_table on-device (B={B}, ms a batch): "
           + json.dumps(dev_ms) + f"; sum {total_ms} against phase 3's "
-          f"call {call_ms} measured around it (before {_median(before)}, "
-          f"after {_median(after)}; phase 3: {phase3_latency_ms}); "
-          f"cumulative {json.dumps(cum_ms)}", flush=True)
+          f"call {call_ms} timed in turns with the stages (calls "
+          f"{calls}; phase 3: {phase3_latency_ms}); cumulative "
+          f"{json.dumps(cum_ms)}", flush=True)
     if abs(total_ms - call_ms) > 0.25 * call_ms:
         raise SystemExit(f"stage_table: the on-device stages sum to "
                          f"{total_ms} ms, phase 3's call {call_ms}")
     return {"host_staged_ms": host_ms, "on_device_ms": dev_ms,
             "on_device_sum_ms": total_ms, "cumulative_ms": cum_ms,
-            "call_ms": call_ms, "phase3_latency_ms": phase3_latency_ms}
+            "call_ms": call_ms, "call_all_ms": calls,
+            "phase3_latency_ms": phase3_latency_ms}
 
 
 def _p30_parse_trace(dev, module, workdir):
     """30d: a torch.profiler trace of P30_CALLS pipeline calls through
     tools.parse_trace: K1's and K2's launches by their kernels' names
-    (one bidir_chain_kernel or bidir_span_kernel a K1 launch; nms_kernel
-    is K2), against the wrappers' counts (zeroed just before the calls,
-    read just after)."""
+    (one bidir_chain_kernel or bidir_span_kernel a K1 launch; K2's
+    serving call is one nms_resident_kernel), against the wrappers' counts
+    (zeroed just before the calls, read just after)."""
     from torch.profiler import ProfilerActivity, profile
     from xpoint_tpu_torch.eval import make_pair_pipeline
     from xpoint_tpu_torch.tools import parse_trace
@@ -4648,7 +4807,8 @@ def _p30_parse_trace(dev, module, workdir):
     found = {"selective_scan_bidir": sum(
                  parse_trace.launches(counts, name) for name in
                  ("bidir_chain_kernel", "bidir_span_kernel")),
-             "nms_sweep": parse_trace.launches(counts, "nms_kernel")}
+             "nms_sweep": parse_trace.launches(counts,
+                                               "nms_resident_kernel")}
     top = sorted(by_name.items(), key=lambda x: -x[1])[:10]
     res = {"calls": P30_CALLS, "device_ms": total,
            "device_ms_per_call": total / P30_CALLS, "by_category_ms": by_cat,
@@ -4990,6 +5150,11 @@ def main():
         print(json.dumps({"k3_stage_times": k3_stage_times(
             dev, train_stages)}), flush=True)
         return 0
+    if sys.argv[1:2] == ["--k2-shape-times"]:
+        earlier = sys.argv[2] if len(sys.argv) > 2 else None
+        print(json.dumps({"k2_shape_times": k2_shape_times(
+            serving_heatmaps(dev), earlier)}), flush=True)
+        return 0
 
     # stage shapes the main path gives K1: L = (H/4 / 2^i)^2, Dim = 96 * 2^i
     depths = (2, 2, 2, 2)
@@ -5098,6 +5263,7 @@ def main():
          "plain_ms": nms_res["plain_ms"], "bound_ms": nms_res["bound_ms"],
          "bound_by": nms_res["bound_by"],
          "bound_sweep_bytes_ms": nms_res["bound_sweep_bytes_ms"],
+         "launch_shape": nms_res["launch_shape"],
          "library_ms": None},
         {"name": "selective_scan_bidir", "path": "train (emit_ckpt)", **k1,
          "launches": train_res["launches"]["selective_scan_bidir"],

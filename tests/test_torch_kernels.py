@@ -15,8 +15,10 @@ from xpoint_tpu_torch.ops import warp, warp_projective
 from xpoint_tpu_torch.ops.linear_scan import (linear_scan,
                                               linear_scan_launch,
                                               linear_scan_plain)
-from xpoint_tpu_torch.ops.nms import (box_nms, box_nms_extract, grid_nms_keep,
-                                      grid_nms_keep_plain)
+from xpoint_tpu_torch.ops.nms import (_grid_nms_keep_async, box_nms,
+                                      box_nms_extract, grid_nms_keep,
+                                      grid_nms_keep_plain, last_launch_shape,
+                                      resident_fit_rows)
 from xpoint_tpu_torch.ops.selective_scan_cuda import (
     SelectiveScanBidir, selective_scan_bidir, selective_scan_bidir_bwd,
     selective_scan_bidir_bwd_launch_shape, selective_scan_bidir_bwd_plain,
@@ -638,6 +640,92 @@ def test_nms_kernel_takes_large_boxes(cuda):
         assert _kernel_against_plain(p, p > 0.015, size, 0.1) >= 2
     ramp = _ramp_plane(128, 256, -1).to(cuda)
     assert _kernel_against_plain(ramp, ramp > 0, 24, 0.1) >= 10
+
+
+def test_nms_kernel_fit_rule(cuda):
+    """Planes just under and just over the fit rule at W = 512, size 8, four
+    a call (their clusters fill a quarter of the SMs): the largest H that
+    one cluster holds takes the resident instance (a cluster a plane), one
+    row more the cooperative one; both give the plain version's answer."""
+    h = resident_fit_rows(512, 8)
+    assert h >= 512                          # the serving plane fits
+    for H, resident in ((h, True), (h + 1, False)):
+        p = _nms_planes(H, 4, H, 512).to(cuda)
+        _kernel_against_plain(p, p > 0.015, 8, 0.1)
+        assert (last_launch_shape()["cluster"] > 0) == resident
+
+
+def test_nms_kernel_more_planes_than_clusters(cuda):
+    """40 planes of 512^2, more than the clusters resident at once: the
+    launch runs in waves, every plane exactly the plain version's."""
+    p = _nms_planes(40, 40, 512, 512).to(cuda)
+    _kernel_against_plain(p, p > 0.015, 8, 0.1)
+    shape = last_launch_shape()
+    assert shape["cluster"] > 0 and shape["waves"] >= 2
+
+
+@pytest.mark.parametrize("size,chain", [(8, 100), (4, 100), (16, 60)])
+def test_nms_kernel_mixed_sweep_counts(cuda, size, chain):
+    """A ramp plane of a long chain (over 100 sweeps at boxes 8 and 4, over
+    60 at 16, whose boxes reach 13 columns) beside random planes in one
+    call: each plane stops at its own fixed point, and the count is the
+    ramp's (the compiled-in strip sets of boxes 8 and 4, and the general
+    one)."""
+    p = _nms_planes(3, 4, 512, 512)
+    p[0] = _ramp_plane(512, 512, -1)[0]
+    p = p.to(cuda)
+    assert _kernel_against_plain(p, p > 0.015, size, 0.1) >= chain
+    assert last_launch_shape()["cluster"] > 0
+
+
+def test_nms_kernel_fifty_repeats_bit_equal(cuda):
+    p = _nms_planes(8, 16, 512, 512).to(cuda)
+    first, sweeps = grid_nms_keep(p, p > 0.015, 8, 0.1)
+    for _ in range(50):
+        again, again_sweeps = grid_nms_keep(p, p > 0.015, 8, 0.1)
+        assert torch.equal(again, first) and again_sweeps == sweeps
+
+
+def test_nms_kernel_two_streams(cuda):
+    """Calls on two streams at once (other planes and boxes on each), each
+    the plain version's answer."""
+    a = _nms_planes(10, 16, 512, 512).to(cuda)
+    b = _nms_planes(11, 3, 256, 384).to(cuda)
+    torch.cuda.synchronize()
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    outs = []
+    for _ in range(3):
+        for stream, p, size in zip(streams, (a, b), (8, 4)):
+            with torch.cuda.stream(stream):
+                outs.append((p, size, *_grid_nms_keep_async(
+                    p, p > 0.015, size, 0.1)))
+    torch.cuda.synchronize()
+    for p, size, keep, sweeps in outs:
+        ref, ref_sweeps = grid_nms_keep_plain(p, p > 0.015, size, 0.1)
+        assert int(sweeps) == ref_sweeps and torch.equal(keep, ref)
+
+
+def test_nms_kernel_launch_shape(cuda):
+    """The serving call's launch: a cluster a plane, its blocks' rows
+    covering the plane, all 16 planes resident in one wave, shared memory
+    within a block's 227 KB; one of those planes alone (a cluster for under
+    a quarter of the SMs) takes the staged instance and a box above 16 the
+    banded one (no cluster either)."""
+    p = _nms_planes(12, 16, 512, 512).to(cuda)
+    grid_nms_keep(p, p > 0.015, 8, 0.1)
+    s = last_launch_shape()
+    C, rows = s["cluster"], s["rows_per_block"]
+    assert 1 <= C <= 16 and s["blocks"] == 16 * C
+    assert rows * C >= 512 > rows * (C - 1)
+    assert s["clusters_resident"] >= 16 and s["waves"] == 1
+    assert 0 < s["smem_bytes"] <= 232448 and s["blocks_per_sm"] >= 1
+    assert 0 < s["tile_rows"] <= rows and s["band_rows"] == 0
+    _kernel_against_plain(p[:1], p[:1] > 0.015, 8, 0.1)
+    s = last_launch_shape()
+    assert s["cluster"] == 0 and s["band_rows"] == 0 and s["blocks"] > 16
+    grid_nms_keep(p, p > 0.015, 24, 0.1)
+    s = last_launch_shape()
+    assert s["cluster"] == 0 and s["band_rows"] > 0
 
 
 def test_tiny_pipeline_on_card_matches_cpu(cuda):

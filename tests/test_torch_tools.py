@@ -290,12 +290,19 @@ def test_stage_tables(tiny_model):
     host = stage_table.host_staged_table(tiny_model, 64, 64, n_samples=2)
     assert set(host) == {"two_forward", "nms", "interpolate"}
     assert all(len(v) == 2 and min(v) >= 0 for v in host.values())
-    stages, cumulative = stage_table.on_device_table(tiny_model, 2, 64, 64,
-                                                     k=64, n_iters=2)
+    calls = []
+    stages, cumulative, call_ms = stage_table.on_device_table(
+        tiny_model, 2, 64, 64, k=64, n_iters=2,
+        call=lambda a, b: calls.append(a.shape))
     names = ["two_forward", "nms", "interpolate", "match"]
     assert list(stages) == list(cumulative) == names
     assert all(v >= 0 for v in stages.values())
     assert cumulative["match"] > 0
+    # the whole-pipeline calls: one warm-up, then CALLS_PER_ROUND after
+    # each round of streams, each timed
+    n = stage_table.STREAMS * stage_table.CALLS_PER_ROUND
+    assert len(calls) == n + 1 and len(call_ms) == n
+    assert all(c == (2, 64, 64, 1) for c in calls) and min(call_ms) >= 0
 
 
 # ---- the committed pretrain -------------------------------------------------

@@ -1,15 +1,17 @@
 """Grid box-NMS and keypoint extraction (port of ``xpoint_tpu/ops/nms.py``).
 
 Greedy equal-box NMS runs as a fixed point on the heatmap (see
-``grid_nms_keep_plain``). On a CUDA tensor one call is one cooperative
-launch of the Hopper kernel ``csrc/nms_sweep.cu`` (replacing the TPU kernel
+``grid_nms_keep_plain``). On a CUDA tensor one call is one launch of the
+Hopper kernel ``csrc/nms_sweep.cu`` (replacing the TPU kernel
 ``xpoint_tpu/ops/nms.py::_nms_sweep_kernel``), which runs every sweep on the
-device with a grid barrier between sweeps, at any box size (boxes up to 16
-stage their neighbourhood and its horizontal maxima in shared memory, larger
-ones stage it a band of rows at a time with a sparse table of horizontal
-maxima); ``box_nms`` and ``box_nms_extract`` read nothing back from the
-device. On a CPU tensor the plain PyTorch version below runs the same
-sweeps.
+device at any box size: boxes up to 16 on planes that fit, in calls of
+enough planes to fill a quarter of the card (the serving calls), keep each
+plane in a thread-block cluster's shared memory, one cluster a plane, each
+stopping at its own fixed point (``grid_nms_keep_cluster_mirror`` is that
+decomposition on the CPU, for the tests); other calls take a cooperative
+launch with a grid barrier between sweeps. ``box_nms`` and
+``box_nms_extract`` read nothing back from the device. On a CPU tensor the
+plain PyTorch version below runs the same sweeps.
 """
 import ctypes
 import functools
@@ -88,6 +90,95 @@ def grid_nms_keep_plain(prob, valid, size, iou):
     return keep, sweeps
 
 
+def _changed_near(boxes, o0, o1, ch, split):
+    """Whether a pixel within the strip set's reach of the tile of rows
+    [o0, o1) and column chunk ``ch`` changed in the sweep before, as the
+    kernel tells it: each tile near it gives the first and last row and
+    32-column word where its pixels changed (``boxes``: {(block, seg,
+    chunk): (row_lo, row_hi, word_lo, word_hi)})."""
+    H, rows, seg, chunk, nch, hy, hx = split
+    x_lo, x_hi = max(0, ch * chunk - hx), ch * chunk + chunk - 1 + hx
+    c_hi = min(nch - 1, x_hi // chunk)
+    near = {(y // rows, y % rows // seg)
+            for y in range(max(0, o0 - hy), min(H, o1 + hy))}
+    for b, q in near:
+        for cc in range(x_lo // chunk, c_hi + 1):
+            box = boxes.get((b, q, cc))
+            if (box and box[0] <= o1 - 1 + hy and box[1] >= o0 - hy
+                    and box[2] <= x_hi // 32 and box[3] >= x_lo // 32):
+                return True
+    return False
+
+
+def grid_nms_keep_cluster_mirror(prob, valid, size, iou, blocks, seg=None,
+                                 chunk=128):
+    """The card kernel's resident decomposition in plain PyTorch, for the
+    tests: :func:`grid_nms_keep_plain`'s answer, computed as
+    ``csrc/nms_sweep.cu``'s cluster computes it.
+
+    Each plane is swept on its own until a sweep changes nothing (that sweep
+    counts) or H * W sweeps ran; the count returned is the largest of a
+    plane's. The rows are split into ``blocks`` runs of ceil(H / blocks)
+    (fewer blocks where that leaves one without rows); a block sees its own
+    rows and the halo rows above and below it through the sweep before's
+    mask, in two ping-pong buffers. Each block's rows are cut into tiles of
+    ``seg`` rows (default: about 8 tiles a block; the kernel plans its own)
+    by ``chunk`` columns; from the third sweep on a tile is computed only
+    where a pixel within the strip set's reach changed in the sweep before,
+    as told by the rows and 32-column words where each tile changed, else
+    it keeps what its buffer holds (the mask of two sweeps ago). Returns
+    (keep bool (B, H, W), sweeps)."""
+    widths = overlap_widths(size, iou)
+    B, H, W = prob.shape
+    hy = max((d for d, w in enumerate(widths) if w >= 0), default=0)
+    hx = max((w for w in widths if w >= 0), default=0)
+    rows = -(-H // blocks)
+    blocks = -(-H // rows)
+    nch = -(-W // chunk)
+    if seg is None:
+        seg = -(-rows // max(1, min(rows, -(-8 // nch))))
+    nseg = -(-rows // seg)
+    split = (H, rows, seg, chunk, nch, hy, hx)
+    neg = torch.full((), float("-inf"))
+    keeps, counts = [], []
+    for p, v in zip(prob.float(), valid):
+        bufs = [v.clone(), torch.zeros_like(v)]
+        boxes = [{}, {}]                  # by sweep parity
+        sweeps = 0
+        while True:
+            kin, kout = bufs[sweeps & 1], bufs[(sweeps + 1) & 1]
+            before, now = boxes[(sweeps + 1) & 1], boxes[sweeps & 1]
+            now.clear()
+            for b in range(blocks):
+                r0, r1 = b * rows, min(b * rows + rows, H)
+                lo, hi = max(0, r0 - hy), min(H, r1 + hy)
+                S = torch.where(kin[lo:hi], p[lo:hi], neg)
+                nm = _neighbor_max(S[None], widths, size)[0]
+                for q in range(nseg):
+                    o0, o1 = r0 + q * seg, min(r0 + q * seg + seg, r1)
+                    for ch in range(nch if o0 < o1 else 0):
+                        if sweeps >= 2 and not _changed_near(before, o0, o1,
+                                                             ch, split):
+                            continue
+                        cols = slice(ch * chunk, ch * chunk + chunk)
+                        new = v[o0:o1, cols] & ~(nm[o0 - lo:o1 - lo, cols]
+                                                 > p[o0:o1, cols])
+                        ys, xs = torch.nonzero(new != kin[o0:o1, cols],
+                                               as_tuple=True)
+                        if len(ys):
+                            xs = (xs + ch * chunk) // 32
+                            now[b, q, ch] = (o0 + int(ys.min()),
+                                             o0 + int(ys.max()),
+                                             int(xs.min()), int(xs.max()))
+                        kout[o0:o1, cols] = new
+            sweeps += 1
+            if not now or sweeps >= H * W:
+                break
+        keeps.append(bufs[sweeps & 1])
+        counts.append(sweeps)
+    return torch.stack(keeps), max(counts, default=0)
+
+
 @functools.lru_cache(maxsize=None)
 def _widths_arg(size, iou):
     widths = overlap_widths(size, iou)        # none for a size below 1
@@ -101,9 +192,9 @@ def _widths_device(size, iou, device):
     return device_constant(overlap_widths(size, iou), device, torch.int32)
 
 
-# boxes up to this size take the staged instance (csrc/nms_sweep.cu
-# kMaxSize); larger ones the banded instance
-STAGED_MAX_SIZE = 16
+# boxes up to this size take the resident or the staged instance
+# (csrc/nms_sweep.cu kMaxSize, xp_nms); larger ones the banded instance
+RESIDENT_MAX_SIZE = 16
 
 
 def _nms_library():
@@ -117,7 +208,9 @@ def _nms_library():
         lib.xp_nms_banded.restype = ctypes.c_int
         lib.xp_nms_banded.argtypes = fn.argtypes[:-1] + [ctypes.c_void_p] * 2
         lib.xp_nms_scratch.restype = ctypes.c_longlong
-        lib.xp_nms_scratch.argtypes = [ctypes.c_int] * 3
+        lib.xp_nms_scratch.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+        lib.xp_nms_fit_rows.restype = ctypes.c_int
+        lib.xp_nms_fit_rows.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p]
         lib.xp_nms_last_launch.restype = None
         lib.xp_nms_last_launch.argtypes = [ctypes.c_void_p]
     return lib
@@ -126,13 +219,27 @@ def _nms_library():
 def last_launch_shape():
     """The shape of the kernel's last launch in this process (for
     reports): dynamic shared memory bytes a block, resident blocks an SM,
-    blocks launched, and its band rows, table levels and staged columns
-    (0 for the staged instance, boxes up to 16)."""
-    out = (ctypes.c_longlong * 6)()
+    blocks launched; the banded instance's band rows, table levels and
+    staged columns; the resident instance's blocks a cluster (one cluster a
+    plane), rows a block, clusters resident at once, waves and rows a tile.
+    Keys an instance does not have hold 0."""
+    out = (ctypes.c_longlong * 11)()
     _nms_library().xp_nms_last_launch(out)
     keys = ("smem_bytes", "blocks_per_sm", "blocks", "band_rows",
-            "table_levels", "staged_columns")
+            "table_levels", "staged_columns", "cluster", "rows_per_block",
+            "clusters_resident", "waves", "tile_rows")
     return dict(zip(keys, out))
+
+
+def resident_fit_rows(W, size, iou=0.1):
+    """The largest H of an (H, W) plane that the kernel keeps in one
+    cluster's shared memory at this box (0 if none): the fit rule, read
+    from the current CUDA device. A call takes the resident instance where
+    its planes fit and their clusters hold a quarter of the SMs or more."""
+    n = _nms_library().xp_nms_fit_rows(W, size, _widths_arg(size, iou))
+    if n < 0:
+        raise RuntimeError("nms_sweep: CUDA error while planning a launch")
+    return n
 
 
 def _grid_nms_keep_cuda(prob, valid, size, iou):
@@ -144,17 +251,18 @@ def _grid_nms_keep_cuda(prob, valid, size, iou):
     dev = prob.device
     p = prob.float().contiguous()
     valid = valid.contiguous()
+    widths = _widths_arg(size, iou)
     keep = torch.empty((B, H, W), dtype=torch.bool, device=dev)
-    scratch = torch.empty(lib.xp_nms_scratch(B, H, W), dtype=torch.uint8,
-                          device=dev)
+    scratch = torch.empty(lib.xp_nms_scratch(B, H, W, size, widths),
+                          dtype=torch.uint8, device=dev)
     state = torch.empty(4, dtype=torch.int32, device=dev)
     args = (p.data_ptr(), valid.data_ptr(), keep.data_ptr(),
-            scratch.data_ptr(), state.data_ptr(), B, H, W, size)
+            scratch.data_ptr(), state.data_ptr(), B, H, W, size, widths)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    if 1 <= size <= STAGED_MAX_SIZE:
-        err = lib.xp_nms(*args, _widths_arg(size, iou), stream)
+    if 1 <= size <= RESIDENT_MAX_SIZE:
+        err = lib.xp_nms(*args, stream)
     else:
-        err = lib.xp_nms_banded(*args, _widths_arg(size, iou),
+        err = lib.xp_nms_banded(*args,
                                 _widths_device(size, iou, dev).data_ptr(),
                                 stream)
     build.check(lib, err, "nms_sweep launch")

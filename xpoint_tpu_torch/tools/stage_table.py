@@ -115,22 +115,32 @@ def sub_pipelines(module, H, W, k=1024):
 # difference of two prefixes' medians, clamped at 0, so a stream that the
 # host slows moves the sum of the stages unless the median outvotes it
 STREAMS = 7
+# whole-pipeline calls timed after each round of streams, each fenced
+CALLS_PER_ROUND = 2
 
 
 @torch.no_grad()
-def on_device_table(module, B, H, W, k=1024, n_iters=10, seed=1):
+def on_device_table(module, B, H, W, k=1024, n_iters=10, seed=1, call=None):
     """Stage differences of the cumulative sub-pipelines. A prefix's time
     is the median of STREAMS streams of ``n_iters`` fresh inputs, each
     stream fenced once at its end; the prefixes take their streams in
     turns, so that a drift of the host's speed reaches all of them and one
-    slow stream does not move a stage. Returns ({stage: seconds a batch},
-    {prefix: seconds a batch})."""
+    slow stream does not move a stage. With ``call`` (a whole pipeline,
+    ``fn(img_o, img_t)``), each round of streams also times
+    CALLS_PER_ROUND calls of it, each fenced: the calls the stages are held
+    against then see the same host as the stages. Returns ({stage: seconds
+    a batch}, {prefix: seconds a batch}, [ms of each call], the last empty
+    without ``call``)."""
     device = next(module.parameters()).device
     gen = torch.Generator(device=device).manual_seed(seed)
     prefixes = sub_pipelines(module, H, W, k)
     for _, fn in prefixes:
         fn(*fresh_inputs(gen, 1, B, H, W, device)[0])     # warm-up
+    if call is not None:
+        call(*fresh_inputs(gen, 1, B, H, W, device)[0])
+        fence(device)
     streams = {name: [] for name, _ in prefixes}
+    call_ms = []
     for _ in range(STREAMS):
         for name, fn in prefixes:
             ins = fresh_inputs(gen, n_iters, B, H, W, device)
@@ -139,12 +149,18 @@ def on_device_table(module, B, H, W, k=1024, n_iters=10, seed=1):
                 fn(a, b)
             fence(device)
             streams[name].append((time.perf_counter() - t0) / n_iters)
+        if call is not None:
+            for a, b in fresh_inputs(gen, CALLS_PER_ROUND, B, H, W, device):
+                t0 = time.perf_counter()
+                call(a, b)
+                fence(device)
+                call_ms.append((time.perf_counter() - t0) * 1e3)
     cumulative = {name: float(np.median(t)) for name, t in streams.items()}
     stages, prev = {}, 0.0
     for name, _ in prefixes:
         stages[name] = max(cumulative[name] - prev, 0.0)
         prev = cumulative[name]
-    return stages, cumulative
+    return stages, cumulative, call_ms
 
 
 def main(argv=None):
@@ -165,7 +181,7 @@ def main(argv=None):
 
     print(f"\n== on-device (serving sub-pipelines, differences, B={B}) "
           f"@{H}^2 ==")
-    stages, cumulative = on_device_table(module, B, H, W)
+    stages, cumulative, _ = on_device_table(module, B, H, W)
     per_pair, total = {}, 0.0
     for name, dt in stages.items():
         per_pair[name] = dt / B
