@@ -1,0 +1,6 @@
+"""Kernel launches a serving call, counted in the profiler's trace."""
+
+
+def read(ctx):
+    n = len(ctx.trace.kernels)
+    return n / ctx.trace.calls if n else None
