@@ -812,7 +812,8 @@ def k2_earlier(src):
     up to 16; returns fn(prob, valid, size, iou) -> (keep, sweeps on the
     device), as ops.nms._grid_nms_keep_cuda. A source from before the
     resident instance (no xp_nms_fit_rows) sizes its scratch by the shape
-    alone, a later one by the shape and the box."""
+    alone, a later one by the shape and the box; a source that counts plane
+    sweeps (``plane_sweeps``) takes a null counter."""
     import ctypes
     import hashlib
     from xpoint_tpu_torch.kernels import build
@@ -824,10 +825,12 @@ def k2_earlier(src):
         os.makedirs(build.BUILD_DIR, exist_ok=True)
         subprocess.run([build._nvcc(), *build.NVCC_FLAGS, "-o", out, src],
                        check=True, capture_output=True)
+    with open(src) as f:
+        counted = "plane_sweeps" in f.read()
     lib = ctypes.CDLL(out)
     lib.xp_nms.restype = ctypes.c_int
     lib.xp_nms.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-                           + [ctypes.c_void_p] * 2)
+                           + [ctypes.c_void_p] * (3 if counted else 2))
     resident = hasattr(lib, "xp_nms_fit_rows")
     lib.xp_nms_scratch.restype = ctypes.c_longlong
     lib.xp_nms_scratch.argtypes = ([ctypes.c_int] * 4 + [ctypes.c_void_p]
@@ -843,6 +846,7 @@ def k2_earlier(src):
         err = lib.xp_nms(prob.data_ptr(), valid.data_ptr(), keep.data_ptr(),
                          scratch.data_ptr(), state.data_ptr(), B, H_, W_,
                          size, _widths_arg(size, iou),
+                         *([None] if counted else []),
                          torch.cuda.current_stream().cuda_stream)
         if err:
             raise SystemExit(f"the earlier K2 failed to launch: {err}")
@@ -1571,7 +1575,7 @@ def _zero_counts():
     """Set every kernel wrapper's launch count to 0; returns the function
     that reads them."""
     import importlib
-    from xpoint_tpu_torch.cli._common import KERNEL_COUNTERS
+    from xpoint_tpu_torch.obs import KERNEL_COUNTERS
     fns = {name: getattr(importlib.import_module(mod), fn)
            for name, (mod, fn) in KERNEL_COUNTERS.items()}
     for f in fns.values():

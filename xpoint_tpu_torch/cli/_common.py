@@ -12,20 +12,6 @@ import time
 import numpy as np
 
 RUN_REPORT_ENV = "XPOINT_TORCH_RUN_REPORT"
-# the kernel wrappers: {report name: (module, function)}; each counts its
-# own launches in ``<function>.launches``
-KERNEL_COUNTERS = {
-    "selective_scan_bidir": ("xpoint_tpu_torch.ops.selective_scan_cuda",
-                             "selective_scan_bidir"),
-    "selective_scan_bidir_bwd": ("xpoint_tpu_torch.ops.selective_scan_cuda",
-                                 "selective_scan_bidir_bwd"),
-    "nms_sweep": ("xpoint_tpu_torch.ops.nms", "grid_nms_keep"),
-    "warp_projective": ("xpoint_tpu_torch.ops.warp_projective",
-                        "warp_projective"),
-    "selective_scan_fused": ("xpoint_tpu_torch.ops.selective_scan_cuda",
-                             "selective_scan_fused_bkld"),
-    "linear_scan": ("xpoint_tpu_torch.ops.linear_scan", "linear_scan"),
-}
 
 
 # an entry point's ranks: no whole-run deadline (training runs for
@@ -126,25 +112,27 @@ def load_eval_setup(args, single_image_override=None):
 def report_at_exit(stage):
     """If ``$XPOINT_TORCH_RUN_REPORT`` names a directory, write one JSON
     file there when this process exits: the stage name, the command line,
-    the wall seconds from this call to the exit, each kernel wrapper's
-    launch count in this process, and whether ``h5py`` was imported. A run
-    whose stages are processes of their own (``tools/full_cycle.py``) is
-    read from these files. Nothing is done when the variable is unset."""
+    the wall seconds from this call to the exit, the process's counters
+    (``obs.counters()``: each kernel wrapper's launches, K2's planes and
+    plane sweeps, the kernel libraries built and loaded and the load time)
+    with the launches also by wrapper, and whether ``h5py`` was imported. A
+    run whose stages are processes of their own (``tools/full_cycle.py``)
+    is read from these files. Nothing is done when the variable is
+    unset."""
     out_dir = os.environ.get(RUN_REPORT_ENV)
     if not out_dir:
         return
     t0 = time.perf_counter()
 
     def write():
-        launches = {}
-        for name, (mod, fn) in KERNEL_COUNTERS.items():
-            m = sys.modules.get(mod)
-            launches[name] = int(getattr(getattr(m, fn), "launches", 0)) \
-                if m is not None else 0
+        from .. import obs
+        counts = obs.counters()
+        launches = {name: counts[f"{name}.launches"]
+                    for name in obs.KERNEL_COUNTERS}
         report = {"stage": stage, "argv": sys.argv, "pid": os.getpid(),
                   "wall_s": time.perf_counter() - t0,
-                  "end_time": time.time(),
-                  "launches": launches, "h5py_imported": "h5py" in sys.modules}
+                  "end_time": time.time(), "launches": launches,
+                  "counters": counts, "h5py_imported": "h5py" in sys.modules}
         os.makedirs(out_dir, exist_ok=True)
         with open(os.path.join(out_dir, f"{stage}_{os.getpid()}.json"),
                   "w") as f:

@@ -12,7 +12,11 @@
 // the sweeps run until one changes nothing (that sweep counts) or H * W have
 // run, as ops/nms.py::grid_nms_keep_plain does. A plane that has converged
 // does not change when swept again, so each plane may stop at its own fixed
-// point: the call's count is the largest of a plane's.
+// point: the call's count is the largest of a plane's. Every instance also
+// adds the sweeps each plane ran to the caller's 64-bit counter, when one is
+// given (plane_sweeps; the resident one each plane's own count, the staged
+// and banded ones, which sweep every plane each time, sweeps x planes): the
+// work of the call, never read back by the launch.
 //
 // Bound on this card (H100 SXM, 3.35 TB/s, 67 TFLOP/s fp32): the function
 // reads p (4 B) and valid (1 B) once and writes keep (1 B) once, 6 B a pixel
@@ -93,7 +97,8 @@
 //    with one more cluster.sync() before any block leaves. Each plane stops
 //    at its own fixed point (or its H * W cap) and writes its mask from
 //    shared memory to keep once, four pixels a store; rank 0 puts the
-//    plane's count into state[3] with atomicMax.
+//    plane's count into state[3] with atomicMax and adds it to the
+//    plane-sweep counter.
 //  - Quiet tiles: each computed tile records the first and last row and
 //    bit word where its pixels changed. From the third sweep on a tile is
 //    computed only where such a record of a tile near it (in this block or
@@ -246,6 +251,7 @@ struct NmsArgs {
   uint8_t* keep[2];          // ping-pong keep planes; keep[0] is the answer
   uint8_t* tile_flip;        // 2 x n_tiles: a tile changed, by sweep parity
   int* state;                // flags[3] by sweep mod 3, sweep count
+  unsigned long long* plane_sweeps;  // += sweeps x planes, or null
   int H, W, tiles_x, tiles_per_plane, n_tiles;
   int reach_y, reach_x;      // tiles a halo reaches, each way (at least 1)
   long long max_sweeps;
@@ -643,7 +649,12 @@ __global__ void __launch_bounds__(kThreads, 4) nms_kernel(const NmsArgs a) {
          i += (size_t)gridDim.x * kThreads)
       a.keep[0][i] = __ldcg(a.keep[1] + i);
   }
-  if (blockIdx.x == 0 && tid == 0) a.state[3] = static_cast<int>(sweep);
+  if (blockIdx.x == 0 && tid == 0) {
+    a.state[3] = static_cast<int>(sweep);
+    if (a.plane_sweeps != nullptr)
+      atomicAdd(a.plane_sweeps, static_cast<unsigned long long>(sweep) *
+                                    (a.n_tiles / a.tiles_per_plane));
+  }
 }
 
 // the grid of the last launch's configuration: resident blocks on this
@@ -674,6 +685,7 @@ int init_args(NmsArgs& a, const float* p, const uint8_t* valid, uint8_t* keep,
   a.keep[1] = scratch;
   a.tile_flip = scratch + (size_t)n_planes * H * W;
   a.state = state;
+  a.plane_sweeps = nullptr;
   a.H = H;
   a.W = W;
   a.tiles_x = (W + kTileW - 1) / kTileW;
@@ -748,6 +760,7 @@ struct ResArgs {
   const uint8_t* valid;      // (n_planes, H, W) 0/1
   uint8_t* keep;             // (n_planes, H, W) 0/1: the answer
   int* state;                // state[3]: the largest sweep count of a plane
+  unsigned long long* plane_sweeps;  // += each plane's sweeps, or null
   int H, W;
   int C;                     // blocks a cluster (a plane)
   int rows;                  // rows a block owns (the last may own fewer)
@@ -1085,7 +1098,11 @@ __global__ void __launch_bounds__(kThreads, 1)
         dst[k] = static_cast<uint8_t>((nib >> k) & 1u);
     }
   }
-  if (rank == 0 && tid == 0) atomicMax(a.state + 3, s + 1);
+  if (rank == 0 && tid == 0) {
+    atomicMax(a.state + 3, s + 1);
+    if (a.plane_sweeps != nullptr)
+      atomicAdd(a.plane_sweeps, static_cast<unsigned long long>(s + 1));
+  }
   cluster.sync();          // no block leaves while another may read it
 }
 
@@ -1430,7 +1447,8 @@ extern "C" int xp_nms_fit_rows(int W, int size, const int* widths) {
 // resident one.
 static int xp_nms_staged(const float* p, const uint8_t* valid, uint8_t* keep,
                          uint8_t* scratch, int* state, int n_planes, int H,
-                         int W, int size, const int* widths, void* stream) {
+                         int W, int size, const int* widths,
+                         unsigned long long* plane_sweeps, void* stream) {
   NmsArgs a;
   StripSet& ss = a.ss;
   ss.max_w = 0;
@@ -1450,6 +1468,7 @@ static int xp_nms_staged(const float* p, const uint8_t* valid, uint8_t* keep,
   const int err = init_args(a, p, valid, keep, scratch, state, n_planes, H, W,
                             size - 1, ss.max_w);
   if (err) return err;
+  a.plane_sweeps = plane_sweeps;
   ss.size = size;
 
   // boxes up to 8 (every config) take the narrower staged rows
@@ -1467,13 +1486,15 @@ static int xp_nms_staged(const float* p, const uint8_t* valid, uint8_t* keep,
 // The resident instance: one cudaMemsetAsync of state and one cluster
 // launch (a cluster a plane) on `stream`.
 int launch_resident(const ResPlan& pl, const float* p, const uint8_t* valid,
-                    uint8_t* keep, int* state, int n_planes, int H, int W,
-                    int size, const int* widths, void* stream) {
+                    uint8_t* keep, int* state,
+                    unsigned long long* plane_sweeps, int n_planes, int H,
+                    int W, int size, const int* widths, void* stream) {
   ResArgs a = {};
   a.p = p;
   a.valid = valid;
   a.keep = keep;
   a.state = state;
+  a.plane_sweeps = plane_sweeps;
   a.H = H;
   a.W = W;
   a.C = pl.C;
@@ -1517,14 +1538,18 @@ int launch_resident(const ResPlan& pl, const float* p, const uint8_t* valid,
 // keep: (n_planes, H, W) uint8, the answer; scratch: xp_nms_scratch bytes;
 // state: 4 device ints, zeroed here, the sweep count in state[3] after the
 // launch. widths: size host ints (ops/nms.py::overlap_widths), 1 <= size
-// <= 16. Calls that res_take gives the resident instance (planes that fit
+// <= 16. plane_sweeps: one device 64-bit word (or null) that the launch
+// adds the sweeps of every plane to; it is not zeroed. Calls that res_take gives the resident instance (planes that fit
 // a cluster, clusters for at least a quarter of the SMs): one
 // cudaMemsetAsync and one cluster launch; the others the staged one (one
 // cooperative launch). Returns the first CUDA error, a refused launch
 // included.
 extern "C" int xp_nms(const float* p, const uint8_t* valid, uint8_t* keep,
                       uint8_t* scratch, int* state, int n_planes, int H, int W,
-                      int size, const int* widths, void* stream) {
+                      int size, const int* widths, long long* plane_sweeps,
+                      void* stream) {
+  unsigned long long* counter =
+      reinterpret_cast<unsigned long long*>(plane_sweeps);
   if (size < 1 || size > kMaxSize || n_planes <= 0 || H <= 0 || W <= 0 ||
       (long long)H * W >= (1LL << 31) ||
       (long long)n_planes * kMaxCluster >= (1LL << 31))
@@ -1537,8 +1562,8 @@ extern "C" int xp_nms(const float* p, const uint8_t* valid, uint8_t* keep,
     const bool take = res_take(device, n_planes, H, W, size, widths, pl, err);
     if (err) return err;
     if (take) {
-      err = launch_resident(pl, p, valid, keep, state, n_planes, H, W, size,
-                            widths, stream);
+      err = launch_resident(pl, p, valid, keep, state, counter, n_planes, H,
+                            W, size, widths, stream);
       g_res = pl;
       g_smem = pl.smem;
       g_per_sm = pl.per_sm;
@@ -1552,7 +1577,7 @@ extern "C" int xp_nms(const float* p, const uint8_t* valid, uint8_t* keep,
   if (scratch == nullptr)     // xp_nms_scratch planned the resident instance
     return static_cast<int>(cudaErrorInvalidValue);
   return xp_nms_staged(p, valid, keep, scratch, state, n_planes, H, W, size,
-                       widths, stream);
+                       widths, counter, stream);
 }
 
 // As xp_nms for boxes above 16 (any size: the banded instance). widths:
@@ -1569,7 +1594,7 @@ extern "C" int xp_nms_banded(const float* p, const uint8_t* valid,
                              uint8_t* keep, uint8_t* scratch, int* state,
                              int n_planes, int H, int W, int size,
                              const int* widths, const int* widths_device,
-                             void* stream) {
+                             long long* plane_sweeps, void* stream) {
   BandPlan bp = {};
   bp.hy = -1;
   for (int d = 0; d < size; ++d)
@@ -1607,6 +1632,7 @@ extern "C" int xp_nms_banded(const float* p, const uint8_t* valid,
   a.bp = bp;
   a.ss.size = size;
   a.widths = widths_device;
+  a.plane_sweeps = reinterpret_cast<unsigned long long*>(plane_sweeps);
   g_plan = bp;
   g_res = ResPlan{};
   const size_t smem = 4 * (size_t)bp.table + (size_t)offsets;

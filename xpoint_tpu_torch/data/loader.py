@@ -24,6 +24,8 @@ import time
 
 import numpy as np
 
+from .. import obs
+
 
 def collate(samples):
     """Stack a list of sample dicts into a batch dict of numpy arrays."""
@@ -102,7 +104,8 @@ class DataLoader:
                 pool.submit(seq_submit, b)
                 seq_submit += 1
             while seq_yield < seq_submit:
-                batch = pool.get(seq_yield)
+                with obs.span("xp.data.wait"):
+                    batch = pool.get(seq_yield)
                 seq_yield += 1
                 b = next(it, None)
                 if b is not None:

@@ -15,6 +15,7 @@ and the outputs are gathered over the ranks at the end.
 """
 import torch
 
+from .. import obs
 from ..geometry.ransac import gumbel_noise, ransac_homography
 from ..ops.descriptor import interpolate_descriptors
 from ..ops.detector import prob_from_logits
@@ -48,37 +49,36 @@ def make_pair_pipeline(module, image_shape, k=1024, nms_size=8,
 
     @torch.no_grad()
     def run(img_o, img_t, generator=None):
+        with obs.root("xp.pipe.call", batch=img_o.shape[0]):
+            return _run(img_o, img_t, generator)
+
+    def _run(img_o, img_t, generator):
         B = img_o.shape[0]
-        pred_o = module(img_o, "optical")
-        pred_t = module(img_t, "thermal")
-        prob_o = prob_from_logits(pred_o["logits"], ratio)
-        prob_t = prob_from_logits(pred_t["logits"], ratio)
-        kps, sc, m = box_nms_extract(torch.cat([prob_o, prob_t]), nms_size,
-                                     detection_threshold, iou, k)
+        with obs.span("xp.pipe.forward", spectrum="optical"):
+            pred_o = module(img_o, "optical")
+        with obs.span("xp.pipe.forward", spectrum="thermal"):
+            pred_t = module(img_t, "thermal")
+        with obs.span("xp.pipe.detect"):
+            prob_o = prob_from_logits(pred_o["logits"], ratio)
+            prob_t = prob_from_logits(pred_t["logits"], ratio)
+        with obs.span("xp.pipe.nms"):
+            kps, sc, m = box_nms_extract(torch.cat([prob_o, prob_t]),
+                                         nms_size, detection_threshold, iou,
+                                         k)
         kps_o, kps_t = kps[:B], kps[B:]
-        d_o = interpolate_descriptors(kps_o.float(), pred_o["desc"], (H, W))
-        d_t = interpolate_descriptors(kps_t.float(), pred_t["desc"], (H, W))
-        idx2, dist, matched = mnn_match(d_o, d_t, m[:B], m[B:],
-                                        match_threshold, cross_check)
+        with obs.span("xp.pipe.describe"):
+            d_o = interpolate_descriptors(kps_o.float(), pred_o["desc"],
+                                          (H, W))
+            d_t = interpolate_descriptors(kps_t.float(), pred_t["desc"],
+                                          (H, W))
+        with obs.span("xp.pipe.match"):
+            idx2, dist, matched = mnn_match(d_o, d_t, m[:B], m[B:],
+                                            match_threshold, cross_check)
         extra = {}
         if estimate_homography:
-            dev = kps_o.device
-            if generator is None:
-                generator = torch.Generator(device=dev).manual_seed(0)
-            p1 = kps_o.float().flip(-1)
-            p2 = torch.gather(kps_t.float(), 1,
-                              idx2.long()[..., None].expand(-1, -1, 2)
-                              ).flip(-1)
-            n_ranks = mesh.size if mesh is not None else 1
-            g = gumbel_noise((B * n_ranks, ransac_iters, kps_o.shape[1]),
-                             generator, dev)
-            if mesh is not None:
-                g = mesh.rows(g)
-            r = ransac_homography(p1, p2, matched, g,
-                                  threshold=ransac_threshold, quality=dist)
-            extra = {"H_est": r["H"], "ransac_inliers": r["inliers"],
-                     "ransac_score": r["score"],
-                     "ransac_n_inliers": r["n_inliers"]}
+            with obs.span("xp.pipe.ransac"):
+                extra = _ransac(kps_o, kps_t, idx2, dist, matched,
+                                generator)
         return {
             **extra,
             "prob_optical": prob_o, "prob_thermal": prob_t,
@@ -88,6 +88,23 @@ def make_pair_pipeline(module, image_shape, k=1024, nms_size=8,
             "desc_optical": d_o, "desc_thermal": d_t,
             "match_idx": idx2, "match_dist": dist, "matched": matched,
         }
+
+    def _ransac(kps_o, kps_t, idx2, dist, matched, generator):
+        B, dev = kps_o.shape[0], kps_o.device
+        if generator is None:
+            generator = torch.Generator(device=dev).manual_seed(0)
+        p1 = kps_o.float().flip(-1)
+        p2 = torch.gather(kps_t.float(), 1,
+                          idx2.long()[..., None].expand(-1, -1, 2)).flip(-1)
+        n_ranks = mesh.size if mesh is not None else 1
+        g = gumbel_noise((B * n_ranks, ransac_iters, kps_o.shape[1]),
+                         generator, dev)
+        if mesh is not None:
+            g = mesh.rows(g)
+        r = ransac_homography(p1, p2, matched, g,
+                              threshold=ransac_threshold, quality=dist)
+        return {"H_est": r["H"], "ransac_inliers": r["inliers"],
+                "ransac_score": r["score"], "ransac_n_inliers": r["n_inliers"]}
 
     return run
 

@@ -12,13 +12,17 @@ prints. Needs a CUDA card.
 """
 import copy
 import json
+import os
 import sys
+import tempfile
 import time
 
 import torch
 
 
 B, S, TOP = 8, 512, 25
+# the device operations of a profiler's trace (Chrome JSON categories)
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
 
 
 def pipeline(module):
@@ -75,12 +79,34 @@ def main(argv=None):
     return 0
 
 
+def device_busy_ms(prof):
+    """Milliseconds of a ``torch.profiler`` run in which some device
+    operation ran: the union of the intervals of its kernels, copies and
+    sets in the exported trace (overlapping operations counted once)."""
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        os.remove(path)
+    ops = sorted((e["ts"], e["ts"] + e.get("dur", 0)) for e in events
+                 if e.get("cat") in DEVICE_CATS)
+    busy, end = 0.0, float("-inf")
+    for s, e in ops:
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    return busy / 1e3
+
+
 def report(prof, wall_ms, what, **info):
     """Print the device time by kernel name of a ``torch.profiler`` run,
-    the sum of kernel time against the wall time (the device's busy share;
-    an upper bound where kernels overlap) and the kernel launches, then the
-    top of the table as one JSON line with ``info``. Returns the summed
-    kernel time in ms."""
+    the device's busy time against the wall time (:func:`device_busy_ms`:
+    the union of kernels, copies and sets) and the kernel launches, then
+    the top of the table as one JSON line with ``info``. Returns the busy
+    time in ms."""
     rows = []
     for e in prof.key_averages():
         # device-side kernels only: an aten op's own entry, or a range on
@@ -91,7 +117,7 @@ def report(prof, wall_ms, what, **info):
             rows.append({"name": e.key, "count": e.count,
                          "device_ms": e.self_device_time_total / 1e3})
     rows.sort(key=lambda r: -r["device_ms"])
-    busy_ms = sum(r["device_ms"] for r in rows)
+    busy_ms = device_busy_ms(prof)
     n_launches = sum(r["count"] for r in rows)
     card = torch.cuda.get_device_name(0)
     print(f"{card}: {what} wall {wall_ms:.3f} ms, device busy "

@@ -11,7 +11,10 @@ The file name carries a hash of the source and of the shared headers
 loaded. Nothing here runs at import time:
 the CPU tests import every module on a machine without ``nvcc``.
 Every C entry point returns ``cudaGetLastError()``; :func:`check` raises
-if it is not 0.
+if it is not 0. Counters (``obs``): ``kernels.built`` (nvcc ran),
+``kernels.loaded`` and ``kernels.load_ns`` (a library's first
+:func:`load` in the process, its build included; span
+``xp.kernels.load``).
 """
 import ctypes
 import hashlib
@@ -19,6 +22,9 @@ import os
 import shutil
 import subprocess
 import threading
+import time
+
+from .. import obs
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
@@ -78,6 +84,7 @@ def _finish_build(name, tmp, out, proc):
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
     os.replace(tmp, out)
+    obs.count("kernels.built")
     return log
 
 
@@ -94,10 +101,14 @@ def load(name):
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            _, _, out, _ = job = _start_build(name)
-            _finish_build(*job)
-            lib = ctypes.CDLL(out)
+            t0 = time.perf_counter_ns()
+            with obs.span("xp.kernels.load", always=True, library=name):
+                _, _, out, _ = job = _start_build(name)
+                _finish_build(*job)
+                lib = ctypes.CDLL(out)
             _libs[name] = lib
+            obs.count("kernels.loaded")
+            obs.count("kernels.load_ns", time.perf_counter_ns() - t0)
         return lib
 
 

@@ -37,6 +37,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import obs
 from ..ops.gridops import depth_to_space, device_constant
 from .heads import Conv
 from .vssm import DropPath, _layer_norm_module
@@ -127,9 +128,11 @@ class Dense(nn.Module):
 
 
 def _ln_to(norm, x, dtype):
-    """LayerNorm in fp32, cast to ``dtype``."""
-    return F.layer_norm(x.float(), norm.normalized_shape, norm.weight,
-                        norm.bias, norm.eps).to(dtype)
+    """LayerNorm in fp32, cast to ``dtype`` (span ``xp.enc.norm``, the
+    casts included)."""
+    with obs.span("xp.enc.norm"):
+        return F.layer_norm(x.float(), norm.normalized_shape, norm.weight,
+                            norm.bias, norm.eps).to(dtype)
 
 
 class WindowAttention(nn.Module):
@@ -148,6 +151,7 @@ class WindowAttention(nn.Module):
         self.cpb_fc2 = Dense(512, num_heads, bias=False, init="lecun_normal")
         self.proj = Dense(dim, dim)
 
+    @obs.spanned("xp.enc.attn")
     def forward(self, x, ws, mask=None):
         B_, N, C = x.shape
         nh = self.num_heads
@@ -221,7 +225,8 @@ class SwinBlock(nn.Module):
         # SwinV2 post-norm residuals
         x = x + self.drop_path(_ln_to(self.norm1, xs.reshape(B, L, C),
                                       x.dtype), gen)
-        y = self.mlp_fc2(F.gelu(self.mlp_fc1(x), approximate="tanh"))
+        with obs.span("xp.enc.mlp"):
+            y = self.mlp_fc2(F.gelu(self.mlp_fc1(x), approximate="tanh"))
         return x + self.drop_path(_ln_to(self.norm2, y, x.dtype), gen)
 
 

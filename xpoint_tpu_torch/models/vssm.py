@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import obs
 from ..ops.cross_scan import cross_merge, cross_scan
 from ..ops.gridops import depth_to_space
 from ..parallel.mesh import rand_rows
@@ -39,9 +40,11 @@ from ..ops.ssd import ssd_chunked
 
 
 def layer_norm(norm, x):
-    """flax ``nn.LayerNorm(dtype=float32)`` then a cast back to x's dtype."""
-    return F.layer_norm(x.float(), norm.normalized_shape, norm.weight,
-                        norm.bias, norm.eps).to(x.dtype)
+    """flax ``nn.LayerNorm(dtype=float32)`` then a cast back to x's dtype
+    (span ``xp.enc.norm``, the casts included)."""
+    with obs.span("xp.enc.norm"):
+        return F.layer_norm(x.float(), norm.normalized_shape, norm.weight,
+                            norm.bias, norm.eps).to(x.dtype)
 
 
 def _layer_norm_module(dim):
@@ -117,6 +120,7 @@ class Mlp(nn.Module):
         self.Dense_0 = nn.Linear(dim, hidden_dim)
         self.Dense_1 = nn.Linear(hidden_dim, out_dim)
 
+    @obs.spanned("xp.enc.mlp")
     def forward(self, x):
         x = F.linear(x, self.Dense_0.weight.to(x.dtype),
                      self.Dense_0.bias.to(x.dtype))
@@ -174,8 +178,7 @@ class SS2D(nn.Module):
 
     def forward(self, x):
         _, H, W, _ = x.shape
-        D, R, N = self.d_inner, self.dt_rank, self.d_state
-        dtype = x.dtype
+        D, dtype = self.d_inner, x.dtype
         xs, z = F.linear(x, self.in_proj.weight.to(dtype)), None
         if not self.disable_z:
             xs, z = xs.chunk(2, dim=-1)
@@ -187,33 +190,40 @@ class SS2D(nn.Module):
             if bias is not None:
                 xs = xs + bias.to(dtype)
         xs = F.silu(xs)
-        dt_w = (self.dt_projs_weight - R ** -0.5).to(dtype)
-        if self.scan_mode == -1:
-            y = self._cascade2d(xs, dt_w)
-        elif self.scan_mode == 0 and N == 1 and self.scan_backend is None:
-            y = self._cross2d(xs, -torch.exp(self.A_logs.reshape(-1)), dt_w)
-        else:
-            # token-wise projections per direction k on the expanded
-            # (B, K, L, D) planes, the scan, merge
-            xk = cross_scan(xs, self.scan_mode)
-            x_dbl = torch.einsum("bkld,kcd->bklc", xk,
-                                 self.x_proj_weight.to(dtype))
-            dts, Bs, Cs = torch.split(x_dbl, [R, N, N], dim=-1)
-            dts = torch.einsum("bklr,kdr->bkld", dts, dt_w)
-            if N == 1 and self.scan_backend is None:
-                ys = selective_scan_fused_bkld(
-                    xk.contiguous(), dts.contiguous(),
-                    -torch.exp(self.A_logs.reshape(-1)), Bs.contiguous(),
-                    Cs.contiguous(), self.Ds, self.dt_projs_bias.reshape(-1))
-            else:
-                ys = self._reference_scan(xk, dts, Bs, Cs, slice(0, 4))
-            y = cross_merge(ys, H, W, self.scan_mode)
+        with obs.span("xp.enc.scan"):
+            y = self._scan(xs, H, W)
         y = layer_norm(self.out_norm, y).to(dtype)
         if self.out_act:
             y = F.gelu(y, approximate="tanh")
         if z is not None:
             y = y * z
         return F.linear(y, self.out_proj.weight.to(dtype))
+
+    def _scan(self, xs, H, W):
+        """The projections into the scan, the scan and the merge:
+        (B, H, W, D) -> merged (B, H, W, D)."""
+        R, N, dtype = self.dt_rank, self.d_state, xs.dtype
+        dt_w = (self.dt_projs_weight - R ** -0.5).to(dtype)
+        if self.scan_mode == -1:
+            return self._cascade2d(xs, dt_w)
+        if self.scan_mode == 0 and N == 1 and self.scan_backend is None:
+            return self._cross2d(xs, -torch.exp(self.A_logs.reshape(-1)),
+                                 dt_w)
+        # token-wise projections per direction k on the expanded
+        # (B, K, L, D) planes, the scan, merge
+        xk = cross_scan(xs, self.scan_mode)
+        x_dbl = torch.einsum("bkld,kcd->bklc", xk,
+                             self.x_proj_weight.to(dtype))
+        dts, Bs, Cs = torch.split(x_dbl, [R, N, N], dim=-1)
+        dts = torch.einsum("bklr,kdr->bkld", dts, dt_w)
+        if N == 1 and self.scan_backend is None:
+            ys = selective_scan_fused_bkld(
+                xk.contiguous(), dts.contiguous(),
+                -torch.exp(self.A_logs.reshape(-1)), Bs.contiguous(),
+                Cs.contiguous(), self.Ds, self.dt_projs_bias.reshape(-1))
+        else:
+            ys = self._reference_scan(xk, dts, Bs, Cs, slice(0, 4))
+        return cross_merge(ys, H, W, self.scan_mode)
 
     def _reference_scan(self, xk, dts, Bs, Cs, ks):
         """(B, k, L, D) planes of directions ``ks`` through the scan in the
@@ -387,7 +397,7 @@ class SS2Dv3(nn.Module):
 
     def forward(self, x):
         B, H, W, _ = x.shape
-        D, N, L = self.d_inner, self.d_state, H * W
+        D, L = self.d_inner, H * W
         cact = _CONV_ACTS[self.conv_act]
         if self.in_conv == "act":
             x = cact(_depthwise_nhwc(self.conv2d, x))
@@ -397,22 +407,9 @@ class SS2Dv3(nn.Module):
         if self.out_conv2:
             x = _depthwise_nhwc(self.conv2d, x)
         dtype = x.dtype
-        e = D + self.dts_dim
-        us, dts = x[..., :D], x[..., D:e]
-        Bs4 = _one_by_one_scan(x[..., e:e + 4 * N], H, W)      # (B, 4, L, N)
-        Cs4 = _one_by_one_scan(x[..., e + 4 * N:], H, W)
-        us4 = cross_scan(us, 0)                                 # (B, 4, L, D)
-        dts4 = (_one_by_one_scan(dts, H, W) if self.mode == "xv3a"
-                else cross_scan(dts, 0))
-        if self.mode != "xv2a":
-            dts4 = torch.einsum("bklr,kdr->bkld", dts4,
-                                self.dt_projs_weight.to(dts4.dtype))
-        cl = lambda v: v.transpose(2, 3).reshape(B, 4 * D, L)  # noqa: E731
-        ys = selective_scan(cl(us4), cl(dts4), -torch.exp(self.A_logs),
-                            Bs4.transpose(2, 3), Cs4.transpose(2, 3),
-                            self.Ds, self.dt_projs_bias.reshape(-1), True,
-                            self.scan_backend)
-        y = cross_merge(ys.reshape(B, 4, D, L).transpose(2, 3), H, W, 0)
+        us = x[..., :D]
+        with obs.span("xp.enc.scan"):
+            y = self._scan(x, H, W)
         if self.out_kind in ("ln", "_oncnorm"):
             y = layer_norm(self.out_norm, y.float())
         if self.out_kind in ("_oncnorm", "_ondwconv3"):
@@ -431,6 +428,27 @@ class SS2Dv3(nn.Module):
         if hasattr(self, "oconv2d"):
             y = y + cact(_depthwise_nhwc(self.oconv2d, us))
         return F.linear(y, self.out_proj.weight.to(dtype))
+
+    def _scan(self, x, H, W):
+        """The operands of the four directions cut from ``in_proj``'s
+        output, the scan and the merge -> (B, H, W, D) fp32."""
+        B, L, D, N = x.shape[0], H * W, self.d_inner, self.d_state
+        e = D + self.dts_dim
+        us, dts = x[..., :D], x[..., D:e]
+        Bs4 = _one_by_one_scan(x[..., e:e + 4 * N], H, W)      # (B, 4, L, N)
+        Cs4 = _one_by_one_scan(x[..., e + 4 * N:], H, W)
+        us4 = cross_scan(us, 0)                                 # (B, 4, L, D)
+        dts4 = (_one_by_one_scan(dts, H, W) if self.mode == "xv3a"
+                else cross_scan(dts, 0))
+        if self.mode != "xv2a":
+            dts4 = torch.einsum("bklr,kdr->bkld", dts4,
+                                self.dt_projs_weight.to(dts4.dtype))
+        cl = lambda v: v.transpose(2, 3).reshape(B, 4 * D, L)  # noqa: E731
+        ys = selective_scan(cl(us4), cl(dts4), -torch.exp(self.A_logs),
+                            Bs4.transpose(2, 3), Cs4.transpose(2, 3),
+                            self.Ds, self.dt_projs_bias.reshape(-1), True,
+                            self.scan_backend)
+        return cross_merge(ys.reshape(B, 4, D, L).transpose(2, 3), H, W, 0)
 
 
 class SS2Dm0(nn.Module):
@@ -477,19 +495,21 @@ class SS2Dm0(nn.Module):
         if hasattr(self, "conv2d"):
             xs = _depthwise_nhwc(self.conv2d, xs)
         xs = F.gelu(xs, approximate="tanh")
-        xk = cross_scan(xs, self.scan_mode)                     # (B, K, L, D)
-        x_dbl = torch.einsum("bkld,kcd->bklc", xk,
-                             self.x_proj_weight.to(xk.dtype))
-        dts, Bsp, Csp = torch.split(x_dbl, [R, N, N], dim=-1)
-        # heads (B, L, K R, Dh); groups K, B / C shared by a group's R heads
-        y, _ = ssd_chunked(
-            xk.transpose(1, 2).reshape(B, L, K * R, Dh),
-            dts.transpose(1, 2).reshape(B, L, K * R),
-            -torch.exp(self.A_logs.reshape(-1)), Bsp.transpose(1, 2),
-            Csp.transpose(1, 2), self.Ds.reshape(K * R, Dh),
-            self.dt_projs_bias.reshape(-1), chunk_size=self.chunk_size)
-        ys = y.reshape(B, L, K, R * Dh).transpose(1, 2)
-        out = cross_merge(ys.to(dtype), H, W, self.scan_mode)
+        with obs.span("xp.enc.scan"):
+            xk = cross_scan(xs, self.scan_mode)                 # (B, K, L, D)
+            x_dbl = torch.einsum("bkld,kcd->bklc", xk,
+                                 self.x_proj_weight.to(xk.dtype))
+            dts, Bsp, Csp = torch.split(x_dbl, [R, N, N], dim=-1)
+            # heads (B, L, K R, Dh); groups K, B / C shared by a group's R
+            # heads
+            y, _ = ssd_chunked(
+                xk.transpose(1, 2).reshape(B, L, K * R, Dh),
+                dts.transpose(1, 2).reshape(B, L, K * R),
+                -torch.exp(self.A_logs.reshape(-1)), Bsp.transpose(1, 2),
+                Csp.transpose(1, 2), self.Ds.reshape(K * R, Dh),
+                self.dt_projs_bias.reshape(-1), chunk_size=self.chunk_size)
+            ys = y.reshape(B, L, K, R * Dh).transpose(1, 2)
+            out = cross_merge(ys.to(dtype), H, W, self.scan_mode)
         out = layer_norm(self.out_norm, out)
         if self.out_act:
             out = F.gelu(out, approximate="tanh")

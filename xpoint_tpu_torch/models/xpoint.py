@@ -24,6 +24,7 @@ import os
 import torch
 from torch import nn
 
+from .. import obs
 from ..config import load_yaml
 from ..utils import dict_update
 from .heads import CNNEncoder, Head
@@ -277,14 +278,16 @@ class XPointNet(nn.Module):
         (``xpoint.py:156``, the reference's ``.clone().detach()``): the HM
         head trains on it without reaching the encoder. ``gen`` feeds
         DropPath in train mode."""
-        x = self.encode(image, spectrum, is_optical, gen)
-        out = {"logits": self.detector_head(x, spectrum)}
-        if hasattr(self, "descriptor_head"):
-            desc = self.descriptor_head(x, spectrum)
-            if self.normalize_descriptors:
-                desc = desc / torch.linalg.vector_norm(
-                    desc, dim=-1, keepdim=True).clamp_min(1e-12)
-            out["desc"] = desc
+        with obs.span("xp.model.encode"):
+            x = self.encode(image, spectrum, is_optical, gen)
+        with obs.span("xp.model.heads"):
+            out = {"logits": self.detector_head(x, spectrum)}
+            if hasattr(self, "descriptor_head"):
+                desc = self.descriptor_head(x, spectrum)
+                if self.normalize_descriptors:
+                    desc = desc / torch.linalg.vector_norm(
+                        desc, dim=-1, keepdim=True).clamp_min(1e-12)
+                out["desc"] = desc
         out["encoder_output"] = x.detach().float()
         return out
 
@@ -314,8 +317,9 @@ class XPointNet(nn.Module):
             pred_t = self.forward_impl(thermal_image, "thermal", gen=gen)
         pred_hm = None
         if isinstance(getattr(self, "hm_regressor", None), RegNet):
-            pred_hm = self.hm_regressor(pred_o["encoder_output"],
-                                        pred_t["encoder_output"], gen)
+            with obs.span("xp.model.regnet"):
+                pred_hm = self.hm_regressor(pred_o["encoder_output"],
+                                            pred_t["encoder_output"], gen)
         elif hasattr(self, "hm_regressor"):
             mo = pred_o["encoder_output"].mean(dim=-1, keepdim=True)
             mt = pred_t["encoder_output"].mean(dim=-1, keepdim=True)

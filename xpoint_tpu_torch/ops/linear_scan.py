@@ -19,6 +19,7 @@ import math
 
 import torch
 
+from .. import obs
 from ..kernels import build, cost
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}   # the kernels' codes
@@ -103,7 +104,7 @@ def linear_scan_launch(a, b, reverse=False, shift=0, dim=0):
     if cost.counting():
         L = a.shape[dim]
         cost.record("linear_scan", cost.linear_scan(L, a.numel() // L))
-    with cost.uncounted():
+    with cost.uncounted(), obs.span("xp.k.linear_scan"):
         if a.device.type == "cpu":
             return linear_scan_plain(a, b, reverse, shift, dim)
         return _launch(a, b, reverse, shift, dim)

@@ -18,6 +18,7 @@ import functools
 
 import torch
 
+from .. import obs
 from ..kernels import build, cost
 from .gridops import device_constant
 
@@ -204,9 +205,9 @@ def _nms_library():
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-                       + [ctypes.c_void_p] * 2)
+                       + [ctypes.c_void_p] * 3)
         lib.xp_nms_banded.restype = ctypes.c_int
-        lib.xp_nms_banded.argtypes = fn.argtypes[:-1] + [ctypes.c_void_p] * 2
+        lib.xp_nms_banded.argtypes = fn.argtypes + [ctypes.c_void_p]
         lib.xp_nms_scratch.restype = ctypes.c_longlong
         lib.xp_nms_scratch.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
         lib.xp_nms_fit_rows.restype = ctypes.c_int
@@ -245,7 +246,9 @@ def resident_fit_rows(W, size, iou=0.1):
 def _grid_nms_keep_cuda(prob, valid, size, iou):
     """One launch of the kernel (counted in ``grid_nms_keep.launches``):
     returns the keep mask and the sweep count as a 0-d int32 tensor on the
-    device. Reads nothing back; a refused launch raises."""
+    device. The kernel adds each plane's sweeps to the device counter
+    ``nms.plane_sweeps`` (``obs``). Reads nothing back; a refused launch
+    raises."""
     lib = _nms_library()
     B, H, W = prob.shape
     dev = prob.device
@@ -258,13 +261,14 @@ def _grid_nms_keep_cuda(prob, valid, size, iou):
     state = torch.empty(4, dtype=torch.int32, device=dev)
     args = (p.data_ptr(), valid.data_ptr(), keep.data_ptr(),
             scratch.data_ptr(), state.data_ptr(), B, H, W, size, widths)
+    plane_sweeps = obs.device_counter("nms.plane_sweeps", dev).data_ptr()
     stream = torch.cuda.current_stream(dev).cuda_stream
     if 1 <= size <= RESIDENT_MAX_SIZE:
-        err = lib.xp_nms(*args, stream)
+        err = lib.xp_nms(*args, plane_sweeps, stream)
     else:
         err = lib.xp_nms_banded(*args,
                                 _widths_device(size, iou, dev).data_ptr(),
-                                stream)
+                                plane_sweeps, stream)
     build.check(lib, err, "nms_sweep launch")
     grid_nms_keep.launches += 1
     return keep, state[3]
@@ -272,7 +276,10 @@ def _grid_nms_keep_cuda(prob, valid, size, iou):
 
 def _grid_nms_keep_async(prob, valid, size, iou):
     """(keep, sweeps) with no read from the device: on a CUDA tensor sweeps
-    is a 0-d int32 tensor there; on a CPU tensor the plain version runs."""
+    is a 0-d int32 tensor there; on a CPU tensor the plain version runs.
+    Counts the planes (``nms.planes``) and the sweeps of each plane
+    (``nms.plane_sweeps``: on the card the kernel adds them; the plain
+    version sweeps every plane each time, sweeps x planes)."""
     if prob.shape != valid.shape or prob.dim() != 3:
         raise ValueError(f"prob/valid must be (B, H, W), got "
                          f"{tuple(prob.shape)} / {tuple(valid.shape)}")
@@ -281,9 +288,13 @@ def _grid_nms_keep_async(prob, valid, size, iou):
                          f"{valid.dtype} on {valid.device}")
     if prob.device.type not in ("cpu", "cuda"):
         raise ValueError(f"grid_nms_keep: unsupported device {prob.device}")
-    with cost.uncounted():
+    B, H, W = prob.shape
+    obs.count("nms.planes", B)
+    with cost.uncounted(), obs.span("xp.k.nms_sweep", planes=B, height=H,
+                                    width=W, size=size, iou=iou):
         if prob.device.type == "cpu":
             keep, sweeps = grid_nms_keep_plain(prob, valid, size, iou)
+            obs.device_counter("nms.plane_sweeps", "cpu").add_(sweeps * B)
             sweeps = torch.tensor(sweeps, dtype=torch.int32)
         else:
             keep, sweeps = _grid_nms_keep_cuda(prob, valid, size, iou)

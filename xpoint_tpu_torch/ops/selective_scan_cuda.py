@@ -33,6 +33,7 @@ import threading
 import torch
 import torch.nn.functional as F
 
+from .. import obs
 from ..kernels import build, cost
 from .linear_scan import _DTYPE_CODE, _compute_dtype, linear_scan
 
@@ -586,7 +587,7 @@ def selective_scan_bidir(u_t, dt_t, bc_t, cc_t, A, D, delta_bias,
         L, B, K2, Dim = u_t.shape
         cost.record("selective_scan_bidir", cost.scan_bidir(
             L, B * K2 * Dim, B * K2, Dim, emit_ckpt))
-    with cost.uncounted():
+    with cost.uncounted(), obs.span("xp.k.selective_scan_bidir"):
         if _device_kind(u_t, "selective_scan_bidir") == "cpu":
             return selective_scan_bidir_plain(u_t, dt_t, bc_t, cc_t, A, D,
                                               delta_bias, emit_ckpt)
@@ -676,7 +677,7 @@ def selective_scan_bidir_bwd(u_t, dt_t, bc_t, cc_t, A, D, delta_bias,
     if cost.counting():
         cost.record("selective_scan_bidir_bwd", cost.scan_bidir_bwd(
             L, B * K2 * Dim, B * K2))
-    with cost.uncounted():
+    with cost.uncounted(), obs.span("xp.k.selective_scan_bidir_bwd"):
         if _device_kind(u_t, "selective_scan_bidir_bwd") == "cpu":
             return selective_scan_bidir_bwd_plain(
                 u_t, dt_t, bc_t, cc_t, A, D, delta_bias, hck_f, hck_r, g_f,
@@ -848,7 +849,7 @@ def _fused_bkld_forward(u, dt, A, Bs, Cs, D, delta_bias):
     if cost.counting():
         cost.record("selective_scan_fused_bkld", cost.scan_fused(
             L, B * K * Dim, B * K, Dim))
-    with cost.uncounted():
+    with cost.uncounted(), obs.span("xp.k.selective_scan_fused"):
         if _device_kind(u, "selective_scan_fused_bkld") == "cpu":
             return selective_scan_fused_bkld_plain(*args)
         return _launch_fused(*(x.contiguous() for x in args))

@@ -13,6 +13,7 @@ import ctypes
 
 import torch
 
+from .. import obs
 from ..kernels import build, cost
 from .warp import (MODES, PADDING_MODES, check_modes, inverse_homographies,
                    warp_image_batch, warp_image_multi)
@@ -93,7 +94,7 @@ def warp_multi(images, homographies, mode="bilinear", padding_mode="zeros"):
     ``warp_projective.launches``); a CPU tensor runs the plain gather."""
     _check(images, homographies, False, mode, padding_mode)
     _record(images, homographies, multi=True)
-    with cost.uncounted():
+    with cost.uncounted(), obs.span("xp.k.warp_projective"):
         if images.device.type == "cuda":
             return warp_projective(images,
                                    inverse_homographies(homographies), mode,
@@ -106,7 +107,7 @@ def warp_batch(images, homographies, mode="bilinear", padding_mode="zeros"):
     Same contract and dispatch as :func:`warp_multi`."""
     _check(images, homographies, True, mode, padding_mode)
     _record(images, homographies, multi=False)
-    with cost.uncounted():
+    with cost.uncounted(), obs.span("xp.k.warp_projective"):
         if images.device.type == "cuda":
             return warp_projective(images,
                                    inverse_homographies(homographies), mode,

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import obs
 from ..geometry.homography import (compute_valid_mask_device,
                                    sample_homography)
 from ..ops import warp_projective as wp
@@ -112,9 +113,10 @@ def sample_ha_homographies(config, image_shape, rng=None):
     """Host-side: the stack of (num-1) fp32 homographies of one HA run,
     (num-1, 3, 3). The eroded valid masks are derived on the device
     (``compute_valid_mask_device``) by the HA program."""
-    Hs = [sample_homography(np.array(image_shape), rng=rng,
-                            **config['homographies']).astype(np.float32)
-          for _ in range(max(config['num'] - 1, 0))]
+    with obs.span("xp.ha.sample"):
+        Hs = [sample_homography(np.array(image_shape), rng=rng,
+                                **config['homographies']).astype(np.float32)
+              for _ in range(max(config['num'] - 1, 0))]
     return np.stack(Hs) if Hs else np.zeros((0, 3, 3), np.float32)
 
 
@@ -185,71 +187,76 @@ def _ha_run_impl(prob_fn, cfg, warp_batch, img_o, img_t, homographies,
 
     B = img_o.shape[0]
     n = homographies.shape[0]
-    if valid_masks is None:
-        valid_masks = compute_valid_mask_device(
-            homographies, img_o.shape[1:3], cfg['erosion_radius'],
-            cfg['mask_border']) if n else img_o.new_zeros(
-                (0,) + tuple(img_o.shape[1:3]))
     wb = max(min(warp_batch, n), 1)
-    if n % wb != 0:
-        # pad with identity homographies + ZERO masks (count 0 => inert)
-        pad = wb - n % wb
-        eye = torch.eye(3, dtype=homographies.dtype,
-                        device=homographies.device)
-        homographies = torch.cat([homographies, eye.expand(pad, 3, 3)])
-        valid_masks = torch.cat([valid_masks, valid_masks.new_zeros(
-            (pad,) + valid_masks.shape[1:])])
-    prob_o = maybe_smooth(prob_fn(img_o, True))
-    prob_t = maybe_smooth(prob_fn(img_t, False))
-    count = torch.ones_like(prob_o)
-
-    if agg == 'prod':
-        acc = prob_o * prob_t
-    elif agg == 'sum':
-        acc = prob_o + prob_t
-    else:
-        acc_o, acc_t = search_window(prob_o, prob_t, cfg['window_size'],
-                                     cfg['weighted_window'])
+    with obs.span("xp.ha.sample"):
+        if valid_masks is None:
+            valid_masks = compute_valid_mask_device(
+                homographies, img_o.shape[1:3], cfg['erosion_radius'],
+                cfg['mask_border']) if n else img_o.new_zeros(
+                    (0,) + tuple(img_o.shape[1:3]))
+        if n % wb != 0:
+            # pad with identity homographies + ZERO masks (count 0 => inert)
+            pad = wb - n % wb
+            eye = torch.eye(3, dtype=homographies.dtype,
+                            device=homographies.device)
+            homographies = torch.cat([homographies, eye.expand(pad, 3, 3)])
+            valid_masks = torch.cat([valid_masks, valid_masks.new_zeros(
+                (pad,) + valid_masks.shape[1:])])
+    with obs.span("xp.ha.forward"):
+        prob_o = maybe_smooth(prob_fn(img_o, True))
+        prob_t = maybe_smooth(prob_fn(img_t, False))
+    with obs.span("xp.ha.aggregate"):
+        count = torch.ones_like(prob_o)
+        if agg == 'prod':
+            acc = prob_o * prob_t
+        elif agg == 'sum':
+            acc = prob_o + prob_t
+        else:
+            acc_o, acc_t = search_window(prob_o, prob_t, cfg['window_size'],
+                                         cfg['weighted_window'])
 
     stacked = torch.cat([img_o, img_t], dim=-1)                # (B,H,W,2)
     for i in range(0, homographies.shape[0], wb):
         Hmats, vmasks = homographies[i:i + wb], valid_masks[i:i + wb]
-        # ONE shared-index multi-warp applies every homography to both
-        # spectra at once (index maps shared over batch AND channel)
-        w = wp.warp_multi(stacked, Hmats, "bilinear", "reflection")
-        w = w.reshape((wb * B,) + w.shape[2:])                 # (wb*B,H,W,2)
-        po = maybe_smooth(prob_fn(w[..., :1], True))           # (wb*B,H,W)
-        pt = maybe_smooth(prob_fn(w[..., 1:], False))
-        po = po.reshape((wb, B) + po.shape[1:])
-        pt = pt.reshape((wb, B) + pt.shape[1:])
+        with obs.span("xp.ha.warp"):
+            # ONE shared-index multi-warp applies every homography to both
+            # spectra at once (index maps shared over batch AND channel)
+            w = wp.warp_multi(stacked, Hmats, "bilinear", "reflection")
+            w = w.reshape((wb * B,) + w.shape[2:])             # (wb*B,H,W,2)
+        with obs.span("xp.ha.forward"):
+            po = maybe_smooth(prob_fn(w[..., :1], True))       # (wb*B,H,W)
+            pt = maybe_smooth(prob_fn(w[..., 1:], False))
+            po = po.reshape((wb, B) + po.shape[1:])
+            pt = pt.reshape((wb, B) + pt.shape[1:])
 
-        Hinv = torch.linalg.inv(Hmats)                         # (wb, 3, 3)
-        # the valid masks don't vary over B: unwarp once per homography
-        count_sample = wp.warp_batch(vmasks[..., None], Hinv, "nearest",
-                                      "zeros")[..., 0]
-        count_sample = count_sample[:, None]                   # (wb,1,H,W)
-
-        def unwarp(p):                                         # (wb,B',H,W)
+        with obs.span("xp.ha.unwarp"):
+            Hinv = torch.linalg.inv(Hmats)                     # (wb, 3, 3)
+            # the valid masks don't vary over B: unwarp once per homography
+            count_sample = wp.warp_batch(vmasks[..., None], Hinv, "nearest",
+                                          "zeros")[..., 0]
+            count_sample = count_sample[:, None]               # (wb,1,H,W)
             # B rides the channel axis, so the inverse warp's index maps
-            # are shared across the batch
+            # are shared across the batch: (wb, B', H, W) in and out
+            if agg == 'window':
+                p = torch.cat([po, pt], dim=1)                 # (wb,2B,H,W)
+            else:
+                p = po * pt if agg == 'prod' else po + pt      # (wb,B,H,W)
             u = wp.warp_batch(p.permute(0, 2, 3, 1), Hinv, "bilinear",
-                              "zeros")
-            return u.permute(0, 3, 1, 2)
+                              "zeros").permute(0, 3, 1, 2)
 
-        if agg == 'window':
-            u = unwarp(torch.cat([po, pt], dim=1))             # (wb,2B,H,W)
-            fo, ft = search_window(u[:, :B].flatten(0, 1),
-                                   u[:, B:].flatten(0, 1),
-                                   cfg['window_size'],
-                                   cfg['weighted_window'])
-            fo = fo.reshape((wb, B) + fo.shape[1:])
-            ft = ft.reshape((wb, B) + ft.shape[1:])
-            acc_o = acc_o + (fo * count_sample).sum(0)
-            acc_t = acc_t + (ft * count_sample).sum(0)
-        else:
-            pw = po * pt if agg == 'prod' else po + pt         # (wb,B,H,W)
-            acc = acc + (unwarp(pw) * count_sample).sum(0)
-        count = count + count_sample.sum(0)
+        with obs.span("xp.ha.aggregate"):
+            if agg == 'window':
+                fo, ft = search_window(u[:, :B].flatten(0, 1),
+                                       u[:, B:].flatten(0, 1),
+                                       cfg['window_size'],
+                                       cfg['weighted_window'])
+                fo = fo.reshape((wb, B) + fo.shape[1:])
+                ft = ft.reshape((wb, B) + ft.shape[1:])
+                acc_o = acc_o + (fo * count_sample).sum(0)
+                acc_t = acc_t + (ft * count_sample).sum(0)
+            else:
+                acc = acc + (u * count_sample).sum(0)
+            count = count + count_sample.sum(0)
 
     keep = count >= cfg['min_count']
 

@@ -8,7 +8,8 @@ side (keypoints a pair), and the metrics JSON at seed 0 (repeatability,
 NN-mAP, M-score and h-correctness at 3 px, with both estimators). With
 ``--reports``, the run reports its stages wrote (``tools/full_cycle.py``
 run with ``$XPOINT_TORCH_RUN_REPORT`` set, ``cli/_common.report_at_exit``):
-each stage's wall seconds, kernel launches and whether it imported h5py.
+each stage's wall seconds, kernel launches, kernel libraries built (nvcc
+ran) and whether it imported h5py.
 With ``--log``, the cycle's output: the last epoch's loss of each training
 stage (the pretrain's is its detector loss: it trains no descriptor).
 """
@@ -95,6 +96,7 @@ def report(work, report_dir=None, log=None):
         out["stages"] = [
             {"stage": r["stage"], "wall_s": r["wall_s"],
              "launches": {k: v for k, v in r["launches"].items() if v},
+             "kernels_built": r["counters"].get("kernels.built", 0),
              "h5py_imported": r["h5py_imported"]}
             for r in stage_reports(report_dir)]
     if log:

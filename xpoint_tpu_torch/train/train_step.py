@@ -28,6 +28,7 @@ import functools
 
 import torch
 
+from .. import obs
 from ..parallel.mesh import data_parallel, mean_over_ranks
 
 
@@ -189,13 +190,17 @@ def _pair_routing_args(batch):
 def _forward_loss(module, loss_fn, batch, takes_pair, gen):
     if takes_pair:
         not_warped, is_o, is_t = _pair_routing_args(batch)
-        pred_o, pred_t, pred_hm = module.forward_pair(
-            batch['optical']['image'], batch['thermal']['image'], gen,
-            is_o, is_t, not_warped)
-        return loss_fn(batch, pred_o, pred_t, pred_hm, gen)
-    pred = module(batch['image'], "mixed", batch['is_optical'].reshape(-1),
-                  gen)
-    return loss_fn(batch, pred, None, None, gen)
+        with obs.span("xp.train.forward"):
+            pred_o, pred_t, pred_hm = module.forward_pair(
+                batch['optical']['image'], batch['thermal']['image'], gen,
+                is_o, is_t, not_warped)
+        with obs.span("xp.train.loss"):
+            return loss_fn(batch, pred_o, pred_t, pred_hm, gen)
+    with obs.span("xp.train.forward"):
+        pred = module(batch['image'], "mixed",
+                      batch['is_optical'].reshape(-1), gen)
+    with obs.span("xp.train.loss"):
+        return loss_fn(batch, pred, None, None, gen)
 
 
 def _global(g, loss, comps, mesh):
@@ -237,7 +242,7 @@ def make_train_step(module, loss_fn, takes_pair=True, batch_fn=None,
     """
 
     def step(state, batch, gen):
-        with data_parallel(mesh):
+        with obs.root("xp.train.step"), data_parallel(mesh):
             return _step(state, batch, gen)
 
     def _step(state, batch, gen):
@@ -247,16 +252,19 @@ def make_train_step(module, loss_fn, takes_pair=True, batch_fn=None,
         stats = list(state.batch_stats().values())
         old = torch.cat([b.reshape(-1) for b in stats])
         loss, comps = _forward_loss(module, loss_fn, batch, takes_pair, gen)
-        grads = torch.autograd.grad(loss, state.params, allow_unused=True)
-        g, loss, comps = _global(state.optimizer.flat_grads(grads),
-                                 loss.detach(), comps, mesh)
-        finite = torch.isfinite(loss) & torch.isfinite(g).all()
-        state.apply_gradients(g, finite)
-        with torch.no_grad():
-            new = torch.where(finite, torch.cat([b.reshape(-1)
-                                                 for b in stats]), old)
-            torch._foreach_copy_(stats, [t.view_as(b) for t, b in zip(
-                new.split([b.numel() for b in stats]), stats)])
+        with obs.span("xp.train.backward"):
+            grads = torch.autograd.grad(loss, state.params,
+                                        allow_unused=True)
+            g, loss, comps = _global(state.optimizer.flat_grads(grads),
+                                     loss.detach(), comps, mesh)
+        with obs.span("xp.train.optimizer"):
+            finite = torch.isfinite(loss) & torch.isfinite(g).all()
+            state.apply_gradients(g, finite)
+            with torch.no_grad():
+                new = torch.where(finite, torch.cat([b.reshape(-1)
+                                                     for b in stats]), old)
+                torch._foreach_copy_(stats, [t.view_as(b) for t, b in zip(
+                    new.split([b.numel() for b in stats]), stats)])
         comps = {k: v.detach() for k, v in comps.items()}
         comps['loss'] = loss.detach()
         comps['skipped_nonfinite'] = 1.0 - finite.float()
